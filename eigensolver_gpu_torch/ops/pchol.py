@@ -1,0 +1,121 @@
+"""Planar Cholesky of one HPD diagonal block plus its inverse (kernel K1).
+
+Replaces the Pallas kernel ``pchol_block_planar_pallas``
+(eigensolver_gpu_tpu/ops/pchol_pallas.py:118, body ``_pchol_block_kernel``
+:43). The CUDA source is ``csrc/pchol_block.cu``; its header states what
+bounds it on the H100 and how the design answers that.
+
+For an nb x nb planar block (nb <= 128, fp32) it returns
+``(ld_r, ld_i, inv_r, inv_i, fail)``: the lower factor ``L_d``, its
+explicit inverse (both lower triangular), and ``fail``, the 1-based
+index of the first non-positive or NaN pivot (0 if none) as an int32
+0-d tensor. A bad pivot is clamped to FLT_MIN (NaN stays NaN) so the
+factorization stays finite, exactly as in the Pallas kernel.
+
+``pchol_block_planar`` is the wrapper: a CUDA tensor launches the
+kernel (and raises if it cannot), a CPU tensor takes
+``pchol_block_plain``, the plain PyTorch version of the same arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from eigensolver_gpu_torch.utils import kernel_guard
+
+NB_MAX = 128
+
+
+def _pchol_base(ar, ai, nb):
+    """Unblocked planar Cholesky of an nb x nb HPD block (lower).
+
+    Returns (lr, li, fail) with ``fail`` the 1-based index of the first
+    non-positive/NaN pivot (0 if none), as an int32 0-d tensor;
+    non-positive pivots are clamped to tiny so the factorization stays
+    finite, and the caller maps ``fail`` to a global devInfo column.
+    Only the lower triangle is read after the first step."""
+    cr = ar.clone()
+    ci = ai.clone()
+    fail = torch.zeros((), dtype=torch.int32, device=ar.device)
+    tiny = torch.finfo(ar.dtype).tiny
+    for j in range(nb):
+        pivot = cr[j, j]
+        bad = (pivot <= 0) | torch.isnan(pivot)
+        fail = torch.where(bad & (fail == 0), j + 1, fail)
+        dj = torch.sqrt(torch.clamp_min(pivot, tiny))  # NaN stays NaN
+        col_r = cr[j + 1 :, j] / dj
+        col_i = ci[j + 1 :, j] / dj
+        # trailing update: A[r, c] -= col[r] * conj(col[c]) for r, c > j
+        cr[j + 1 :, j + 1 :] -= torch.outer(col_r, col_r) + torch.outer(col_i, col_i)
+        ci[j + 1 :, j + 1 :] -= torch.outer(col_i, col_r) - torch.outer(col_r, col_i)
+        cr[j, j] = dj
+        ci[j, j] = 0.0
+        cr[j + 1 :, j] = col_r
+        ci[j + 1 :, j] = col_i
+    return torch.tril(cr), torch.tril(ci), fail
+
+
+def _trinv_downdate(lr, li):
+    """inv(L) for a planar lower-triangular L with a real diagonal, by
+    forward substitution on the identity in downdate form (row j of the
+    result is final once divided by L[j, j])."""
+    nb = lr.shape[0]
+    xr = torch.eye(nb, dtype=lr.dtype, device=lr.device)
+    xi = torch.zeros_like(xr)
+    for j in range(nb):
+        xr[j] /= lr[j, j]
+        xi[j] /= lr[j, j]
+        c_r, c_i = lr[j + 1 :, j], li[j + 1 :, j]
+        xr[j + 1 :] -= torch.outer(c_r, xr[j]) - torch.outer(c_i, xi[j])
+        xi[j + 1 :] -= torch.outer(c_r, xi[j]) + torch.outer(c_i, xr[j])
+    return xr, xi
+
+
+def pchol_block_plain(dr, di):
+    """Plain PyTorch version of kernel K1 (same outputs and fail contract)."""
+    nb = dr.shape[0]
+    ld_r, ld_i, fail = _pchol_base(dr, di, nb)
+    inv_r, inv_i = _trinv_downdate(ld_r, ld_i)
+    return ld_r, ld_i, inv_r, inv_i, fail
+
+
+def _check(dr, di):
+    nb = dr.shape[0]
+    if dr.shape != (nb, nb) or di.shape != (nb, nb):
+        raise ValueError(f"pchol block must be square, got {dr.shape}, {di.shape}")
+    if nb > NB_MAX or nb < 1:
+        raise ValueError(f"pchol block size must be in 1..{NB_MAX}, got {nb}")
+    if dr.dtype != torch.float32 or di.dtype != torch.float32:
+        raise TypeError("pchol block kernel takes float32 planes")
+    if dr.device != di.device:
+        raise ValueError("pchol block planes on different devices")
+    if dr.stride(1) != 1 or di.stride(1) != 1 or dr.stride(0) != di.stride(0):
+        raise ValueError("pchol block planes need unit column stride and one row stride")
+
+
+def pchol_block_planar(dr, di):
+    """Kernel K1: planar Cholesky of one block + inv(L_d) + fail."""
+    _check(dr, di)
+    if dr.device.type == "cpu":
+        return pchol_block_plain(dr, di)
+    lib = kernel_guard.load("pchol_block")
+    fn = lib.pchol_block_planar_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    nb = dr.shape[0]
+    out = torch.empty((4, nb, nb), dtype=torch.float32, device=dr.device)
+    fail = torch.empty((), dtype=torch.int32, device=dr.device)
+    stream = torch.cuda.current_stream(dr.device).cuda_stream
+    status = fn(
+        dr.data_ptr(), di.data_ptr(), dr.stride(0), nb,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
+        fail.data_ptr(), stream,
+    )
+    kernel_guard.check(status, "pchol_block_planar launch")
+    pchol_block_planar.launches += 1
+    return out[0], out[1], out[2], out[3], fail
+
+
+pchol_block_planar.launches = 0

@@ -1,0 +1,185 @@
+"""Planar mixed-precision refinement for the generalized eigenproblem
+(twin of eigensolver_gpu_tpu/ops/refine_planar.py).
+
+With R = I - X^H B X and S = X^H A X the first-order Ogita-Aishima
+corrections are
+
+    E_ii = R_ii / 2
+    E_ij = (S_ij + lambda_j R_ij) / (lambda_j - lambda_i)   (separated)
+    E_ij = R_ij / 2                                          (clustered)
+    X <- X + X E
+
+so the whole fp32 planar pipeline is refined against the fp64 A and B
+with a handful of planar gemms. Only a selected block of columns (the
+range il..iu plus a cluster-guard margin) is corrected, against the
+full fp32 basis. Each fp64 sweep also returns a ``defect``, the
+predicted post-sweep coupling of marginally separated pairs; while it
+exceeds the residual contract, up to ``extra_max`` more fp64 sweeps run.
+See the JAX twin's docstring for the derivations.
+
+The fp64 products here are native fp64 ``torch.matmul``. The JAX
+package defaults to ``gemm='ozaki'`` (bf16 digit products), a TPU
+workaround for emulated fp64; ``gemm='ozaki'`` raises
+NotImplementedError until ops/ozaki.py is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from eigensolver_gpu_torch.ops.planar import pH, pmatmul_chunked
+from eigensolver_gpu_torch.utils.precision import highest_precision
+from eigensolver_gpu_torch.utils.tracing import trace_range
+
+_EPS32 = torch.finfo(torch.float32).eps
+
+
+def _renorm_planar(m, e, sel0, ms):
+    """Second-order B-norm column scales 1/sqrt(diag((I+E)^H M (I+E)))
+    from the gram M = X^H B X_sel and the correction E, gemm-free."""
+    d = (
+        torch.diagonal(m[0][sel0 : sel0 + ms])
+        + 2.0 * torch.sum(e[0] * m[0] + e[1] * m[1], dim=0)
+        + torch.sum(e[0] * e[0] + e[1] * e[1], dim=0)
+    )
+    return 1.0 / torch.sqrt(torch.clamp_min(d, torch.finfo(d.dtype).tiny))
+
+
+def _correct_block(xhbx, s, sel0, ms, w_rows):
+    """From the grams xhbx = X^H B Xs and s = X^H A Xs ((n_all, ms)
+    planar pairs) build the correction E, the column scales, the updated
+    eigenvalue estimates and the marginal-pair defect.
+
+    Returns (e, sc, lam_sel, w_rows', defect)."""
+    dt = xhbx[0].dtype
+    dev = xhbx[0].device
+    n_all = xhbx[0].shape[0]
+    eps = torch.finfo(dt).eps
+    rows = torch.arange(n_all, device=dev)[:, None]
+    cols = torch.arange(ms, device=dev)[None, :]
+    is_self = rows == cols + sel0
+    inblk = (rows >= sel0) & (rows < sel0 + ms)
+
+    r = (is_self.to(dt) - xhbx[0], -xhbx[1])
+    lam_sel = torch.diagonal(s[0][sel0 : sel0 + ms]) / (
+        1.0 - torch.diagonal(r[0][sel0 : sel0 + ms])
+    )
+    w_rows = w_rows.clone()
+    w_rows[sel0 : sel0 + ms] = lam_sel
+    denom = lam_sel[None, :] - w_rows[:, None]
+    anorm = w_rows.abs().max()
+    sep_in = torch.clamp_min(1e3 * eps * anorm, _EPS32 * anorm)
+    # out-of-block lambdas carry the fp32 pipeline's O(eps32*anorm)
+    # error: denominators below ~64x that cannot be trusted as separated
+    sep = torch.where(inblk, sep_in, torch.clamp_min(sep_in, 64 * _EPS32 * anorm))
+    ok = denom.abs() > sep
+    safe = torch.where(ok, denom, 1.0)
+    num_r = s[0] + lam_sel[None, :] * r[0]
+    num_i = s[1] + lam_sel[None, :] * r[1]
+    e = (
+        torch.where(ok, num_r / safe, r[0] / 2),
+        torch.where(ok, num_i / safe, r[1] / 2),
+    )
+    sc = _renorm_planar(xhbx, e, sel0, ms)[None, :]
+    # defect = predicted post-sweep residual; cluster-branch pairs are
+    # suppressed via max(.., sep)
+    delta = torch.where(inblk, 1e3 * eps * anorm, 64 * _EPS32 * anorm)
+    absnum = torch.sqrt(num_r * num_r + num_i * num_i)
+    pred = torch.where(
+        is_self,
+        0.0,
+        torch.minimum(absnum, (delta + absnum) * absnum / torch.maximum(denom.abs(), sep)),
+    )
+    defect = torch.sqrt(torch.max(torch.sum(pred * pred, dim=0)))
+    return e, sc, lam_sel, w_rows, defect
+
+
+def _sweep(a, b, x, sel, w_rows, chunk=None):
+    """One Ogita-Aishima sweep on the selected block, in the dtype of its
+    arguments. ``x`` is the full planar basis (n, n_all); only columns
+    sel0..sel0+ms change. Returns (x', lam_sel, w_rows', defect)."""
+    sel0, ms = sel
+    xr, xi = x
+    xs = (xr[:, sel0 : sel0 + ms], xi[:, sel0 : sel0 + ms])
+    bx = pmatmul_chunked(b, xs, chunk)
+    ax = pmatmul_chunked(a, xs, chunk)
+    xhbx = pmatmul_chunked(pH(x), bx, chunk)
+    s = pmatmul_chunked(pH(x), ax, chunk)
+    e, sc, lam_sel, w_rows, defect = _correct_block(xhbx, s, sel0, ms, w_rows)
+    dx = pmatmul_chunked(x, e, chunk)
+    xr = xr.clone()
+    xi = xi.clone()
+    xr[:, sel0 : sel0 + ms] = (xs[0] + dx[0]) * sc
+    xi[:, sel0 : sel0 + ms] = (xs[1] + dx[1]) * sc
+    return (xr, xi), lam_sel, w_rows, defect
+
+
+@highest_precision
+def refine_gevp_planar(
+    a, b, x, sweeps=2, coarse_first=True, chunk=None, gemm="native",
+    sel=None, w0=None, extra_max=0,
+):
+    """Refine planar eigenvectors ``x`` (n, m), the full approximate basis
+    in ascending eigenvalue order, of the pair (a, b).
+
+    sel: (sel0, ms) -- refine only block columns sel0..sel0+ms; returns
+    (w (ms,), x_block (n, ms)). None refines and returns everything.
+    w0: full-length eigenvalue estimates from the fp32 pipeline, required
+    when sel selects a strict subset.
+    coarse_first: run all but the last sweep (at most 2) in fp32.
+    extra_max: at most this many extra fp64 sweeps while the defect
+    exceeds 100 * eps64 * sqrt(n) * anorm. The test reads the defect on
+    the host: one device sync per sweep.
+    gemm: 'native' (fp64 torch.matmul). 'ozaki', the JAX package's
+    default, raises NotImplementedError until ops/ozaki.py is ported.
+    """
+    if gemm == "ozaki":
+        raise NotImplementedError(
+            "gemm='ozaki' needs ops/ozaki.py, which is not ported yet; "
+            "use gemm='native'"
+        )
+    if gemm != "native":
+        raise ValueError(f"unknown gemm {gemm!r}")
+    ar, _ = a
+    xr, xi = x
+    n, m = xr.shape
+    if sel is None:
+        sel = (0, m)
+    sel0, ms = sel
+    f64 = ar.dtype == torch.float64
+    if w0 is None:
+        if ms < m:
+            raise ValueError("sel with a strict subset requires w0")
+        w0 = torch.zeros((m,), dtype=ar.dtype, device=ar.device)
+    w_rows = w0.to(ar.dtype)
+
+    with trace_range("refine_gevp_planar"):
+        if coarse_first and sweeps > 1 and f64:
+            f32 = lambda p: (p[0].float(), p[1].float())
+            a32, b32 = f32(a), f32(b)
+            x32 = f32((xr, xi))
+            w32 = w_rows.float()
+            n_coarse = min(sweeps - 1, 2)
+            for _ in range(n_coarse):
+                x32, _, w32, _ = _sweep(a32, b32, x32, sel, w32)
+            xr, xi = x32[0].to(ar.dtype), x32[1].to(ar.dtype)
+            w_rows = w32.to(ar.dtype)
+            n_f64_sweeps = max(sweeps - n_coarse, 1)
+        else:
+            n_f64_sweeps = sweeps
+
+        w = None
+        defect = None
+        for _ in range(n_f64_sweeps):
+            (xr, xi), w, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
+
+        if extra_max > 0 and f64:
+            anorm = w_rows.abs().max()
+            tol = 100.0 * torch.finfo(torch.float64).eps * (n**0.5) * anorm
+            it = 0
+            while it < extra_max and bool(defect > tol):
+                (xr, xi), _, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
+                it += 1
+            w = w_rows[sel0 : sel0 + ms]
+
+        return w, (xr[:, sel0 : sel0 + ms], xi[:, sel0 : sel0 + ms])
