@@ -11,14 +11,21 @@ non-zero without printing a result:
                 versions; requires compute capability 9.0;
   2. build   -- nvcc builds every csrc/*.cu (one process per source, all
                 at once); prints the seconds;
-  3. kernels -- each hand-written kernel against its plain PyTorch
+  3. kernels -- each hand-written kernel (K1 Cholesky block, K2 latrd
+                panel, K3 planar hemv, K4 symv) against its plain PyTorch
                 version on the same inputs on the card, with times of
-                kernel, plain version and a library yardstick;
+                kernel, plain version and a library yardstick; K3 also
+                through the planar column loop that launches it;
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
-                (K1 and K2): launch counts from one solve, then 3 timed
+                (K1 and K2): launch counts from one solve, then timed
                 solves, residual computed on the device;
-  5. reference -- n=1024 eigenvalues against scipy.linalg.eigh.
+  5. reference -- n=1024 eigenvalues against scipy.linalg.eigh;
+  6. main (real) -- dsygvdx n=4096, il=1..iu=512, fp32 pipeline + fp64
+                refinement, with use_pallas False and True (kernel K4 on
+                every panel column of the 512-aligned buckets);
+  7. reference (real) -- dsygvdx n=1024, iu=64 in pure fp64 (Jacobi
+                leaves, exact substitution) against scipy.linalg.eigh.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -38,8 +45,13 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 N_MAIN, IU_MAIN = 4096, 1024
 N_REF, IU_REF = 1024, 256
+N_REAL, IU_REAL = 4096, 512  # BASELINE config 2
+N_REF_REAL, IU_REF_REAL = 1024, 64  # BASELINE config 1
 K1_TOL = 1e-4  # relative max error, fp32, different summation order
 K2_TOL = 1e-3  # relative max error, fp32 sums of length <= 4096 in another order
+MV_TOL = 1e-4  # K3, K4 in fp32: sums of length <= 4096 in another order
+MV_TOL64 = 1e-12  # K4 in fp64
+MV_TILE = 64  # tile edge of csrc/symv.cu
 
 
 def log(msg):
@@ -55,9 +67,8 @@ def bound(nbytes, flops):
 def rel_err(got, want):
     """(max abs error / max |want|, max abs error)."""
     scale = max(float(want.abs().max()), 1e-30)
-    return float((got.float() - want.float()).abs().max()) / scale, float(
-        (got.float() - want.float()).abs().max()
-    )
+    err = float((got.double() - want.double()).abs().max())
+    return err / scale, err
 
 
 def phase_device(torch):
@@ -225,6 +236,152 @@ def check_k2(torch):
     }
 
 
+def _mv_bound(n, planes):
+    """Upper tiles read once per plane, vectors read and written once."""
+    nbytes = 4 * planes * (n * n // 2 + n * MV_TILE // 2 + 2 * n)
+    flops = 2 * n * n * (1 if planes == 1 else 4)
+    return bound(nbytes, flops)
+
+
+def check_k4(torch):
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.symv import symv, symv_plain
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    dev = "cuda"
+    rng = np.random.default_rng(4)
+    t = rng.standard_normal((4096, 4096))
+    a64 = torch.tensor((t + t.T) / 2, device=dev)
+    v64 = torch.tensor(rng.standard_normal(4096), device=dev)
+    a32, v32 = a64.float(), v64.float()
+    cases = [  # (label, matrix, vector, extent, tolerance)
+        ("n=512 fp32", a32[:512, :512].contiguous(), v32[:512], None, MV_TOL),
+        ("n=4096 fp32", a32, v32, None, MV_TOL),
+        ("n=3584 view of 4096", a32[:3584, :3584], v32[:3584], None, MV_TOL),
+        ("n=1000 odd", a32[:1000, :1000].contiguous(), v32[:1000], None, MV_TOL),
+        ("n=4096 extent=2999", a32, v32, 2999, MV_TOL),
+        ("n=512 fp64", a64[:512, :512].contiguous(), v64[:512], None, MV_TOL64),
+    ]
+    max_abs = 0.0
+    for label, a, v, extent, tol in cases:
+        got = symv(a, v, extent=extent)
+        c = a.shape[0] if extent is None else extent
+        want = symv_plain(a[:c, :c], v[:c])
+        dense = a[:c, :c] @ v[:c]
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, want)
+        rel_dense, _ = rel_err(got, dense)
+        if tol == MV_TOL:
+            max_abs = max(max_abs, err)
+        log(f"K4 {label}: rel_err vs plain {rel:.2e}, vs dense a @ v {rel_dense:.2e}")
+        if got.shape != want.shape or not rel <= tol or not rel_dense <= tol:
+            raise RuntimeError(f"K4 disagrees with its plain version at {label}")
+    again = symv(a32, v32)
+    if not torch.equal(again, symv(a32, v32)):
+        raise RuntimeError("K4 is not reproducible from run to run")
+    ms = device_ms(lambda: symv(a32, v32), iters=100)
+    plain_ms = device_ms(lambda: symv_plain(a32, v32), iters=2)
+    with true_fp32():
+        library_ms = device_ms(lambda: torch.mv(a32, v32), iters=100)
+    bound_ms, bound_by = _mv_bound(4096, 1)
+    log(f"K4 times at n=4096 fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"library (torch.mv, full matrix) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "name": "symv", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/symv.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/symv_pallas.py:90",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def check_k3(torch):
+    """K3 against its plain version, then through the planar column loop
+    that launches it: one mb=4096 panel with use_pallas True against
+    False. Returns the kernel's record with the panel's launch count."""
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.symv import hemv_planar, hemv_planar_plain
+    from eigensolver_gpu_torch.ops.sytrd_planar import _panel_columns_planar
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    dev = "cuda"
+    rng = np.random.default_rng(3)
+    t = rng.standard_normal((4096, 4096)) + 1j * rng.standard_normal((4096, 4096))
+    a = (t + t.conj().T) / 2
+    f32 = lambda x: torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+    ar, ai = f32(a.real), f32(a.imag)
+    v = rng.standard_normal(4096) + 1j * rng.standard_normal(4096)
+    vr, vi = f32(v.real), f32(v.imag)
+    cases = [
+        ("n=512", ar[:512, :512].contiguous(), ai[:512, :512].contiguous(), 512, None),
+        ("n=4096", ar, ai, 4096, None),
+        ("n=3584 view of 4096", ar[:3584, :3584], ai[:3584, :3584], 3584, None),
+        ("n=1000 odd", ar[:1000, :1000].contiguous(), ai[:1000, :1000].contiguous(),
+         1000, None),
+        ("n=4096 extent=2999", ar, ai, 4096, 2999),
+    ]
+    max_abs = 0.0
+    for label, xr, xi, n, extent in cases:
+        got = hemv_planar(xr, xi, vr[:n], vi[:n], extent=extent)
+        c = n if extent is None else extent
+        want = hemv_planar_plain(xr[:c, :c], xi[:c, :c], vr[:c], vi[:c])
+        dense = torch.complex(xr[:c, :c], xi[:c, :c]) @ torch.complex(vr[:c], vi[:c])
+        torch.cuda.synchronize()
+        scale = float(dense.abs().max())
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        errs_d = [float((g - w).abs().max()) for g, w in zip(got, (dense.real, dense.imag))]
+        max_abs = max(max_abs, *errs)
+        log(f"K3 {label}: rel_err vs plain {max(errs) / scale:.2e}, "
+            f"vs dense complex64 a @ v {max(errs_d) / scale:.2e}")
+        if not max(errs) <= MV_TOL * scale or not max(errs_d) <= MV_TOL * scale:
+            raise RuntimeError(f"K3 disagrees with its plain version at {label}")
+    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=100)
+    plain_ms = device_ms(lambda: hemv_planar_plain(ar, ai, vr, vi), iters=2)
+    ac, vc = torch.complex(ar, ai), torch.complex(vr, vi)
+    with true_fp32():
+        library_ms = device_ms(lambda: torch.mv(ac, vc), iters=100)
+    bound_ms, bound_by = _mv_bound(4096, 2)
+    log(f"K3 times at n=4096 fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"library (torch.mv, complex64, full matrix) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    # the path that launches K3: one full panel of the planar column loop
+    mb, nb = 4096, 32
+    outs = {}
+    for use_pallas in (False, True):
+        pr, pi = ar.clone(), ai.clone()
+        d, e, taur, taui = (torch.zeros(mb, dtype=torch.float32, device=dev) for _ in range(4))
+        hemv_planar.launches = 0
+        with true_fp32():
+            panels = _panel_columns_planar(pr, pi, d, e, taur, taui, mb, nb,
+                                           use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        outs[use_pallas] = (*panels, pr[:, mb - nb:], pi[:, mb - nb:], d, e, taur, taui)
+        launches = hemv_planar.launches
+        if launches != (nb if use_pallas else 0):
+            raise RuntimeError(f"K3 launches in one panel: {launches}, want "
+                               f"{nb if use_pallas else 0} (use_pallas={use_pallas})")
+    names = ["vr", "vi", "wr", "wi", "colr", "coli", "d", "e", "taur", "taui"]
+    errs = [rel_err(g, w)[0] for g, w in zip(outs[True], outs[False])]
+    log(f"K3 panel mb={mb} pe={mb}: launches {launches}, rel_err kernel path vs "
+        "matmul path " + " ".join(f"{n}={x:.1e}" for n, x in zip(names, errs)))
+    if not max(errs) <= K2_TOL:
+        raise RuntimeError("the planar column loop with K3 disagrees with the matmul path")
+    return {
+        "name": "hemv_planar", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/symv.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/hemv_pallas.py:70",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "launches": launches,
+    }
+
+
 def _device_residual(torch, args, res):
     """bench.py's residual of the complex problem, in planar arithmetic on
     the device: max_k ||A z_k - w_k B z_k|| / (n * max row 1-norm of A)."""
@@ -241,7 +398,8 @@ def _device_residual(torch, args, res):
 def _breakdown(torch, solve, wall):
     """One solve with synchronizing trace ranges (stage ms), then one under
     torch.profiler: device busy ms (sum of kernel self times), the idle
-    share against the median unprofiled wall time, and the top kernels."""
+    share against the median unprofiled wall time, and the top kernels.
+    Returns the stage ms by range name."""
     from torch.profiler import ProfilerActivity, profile
 
     from eigensolver_gpu_torch.utils import tracing
@@ -273,6 +431,7 @@ def _breakdown(torch, solve, wall):
     idle = f"{1.0 - busy / wall:.3f}" if busy > 0 else "not measured"
     log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
     log(f"  device busy {busy:.1f} ms of {wall:.1f} ms wall, idle share {idle}; top: {top}")
+    return stages
 
 
 def phase_main(torch):
@@ -339,6 +498,75 @@ def phase_reference(torch):
         raise RuntimeError("reference comparison failed")
 
 
+def phase_main_real(torch):
+    """dsygvdx n=4096 il=1..iu=512 mp from fp64 operands on the card, with
+    use_pallas False then True; returns K4's launches of the last solve."""
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.ops.symv import symv
+    from eigensolver_gpu_torch.utils.convert import dense_from_numpy
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    n, iu = N_REAL, IU_REAL
+    a, b = dense_from_numpy(*random_spd_pair(n, seed=0), device="cuda", dtype=torch.float64)
+    anorm = torch.max(torch.sum(a.abs(), dim=1))
+    # syevdx runs sytrd with 256-row buckets; the symv kernel serves the
+    # 512-aligned ones: 8 buckets x 8 panels x 32 columns
+    want_on = (n // 512) * (256 // 32) * 32
+    k4 = 0
+    for use_pallas, want_k4 in ((False, 0), (True, want_on)):
+        cfg = SolverConfig(compute_dtype="float32", use_pallas=use_pallas)
+        solve = lambda: dsygvdx(a, b, il=1, iu=iu, cfg=cfg)
+        symv.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        k4 = symv.launches
+        info = int(res.info)
+        r = a @ res.z - (b @ res.z) * res.w[None, :]
+        resid = float(torch.max(torch.linalg.vector_norm(r, dim=0)) / (n * anorm))
+        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.z).all())
+        shapes = (tuple(res.w.shape), tuple(res.z.shape))
+        times = wall_ms(solve, iters=3)
+        log(f"main real use_pallas={use_pallas}: n={n} iu={iu} info={info} "
+            f"residual={resid:.3e} first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms "
+            f"launches K4={k4} peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if info != 0 or not finite or not resid <= 1e-13:
+            raise RuntimeError(f"real path wrong: info={info} finite={finite} residual={resid}")
+        if shapes != ((iu,), (n, iu)) or res.w.dtype != torch.float64:
+            raise RuntimeError(f"real path shapes {shapes} dtype {res.w.dtype}")
+        if k4 != want_k4:
+            raise RuntimeError(f"launch count K4={k4}, want {want_k4}")
+        stages = _breakdown(torch, solve, sorted(times)[1])
+        # the fp32 pipeline's sygvdx range holds Cholesky, sygst, syevdx
+        # and the phase-4 solve; syevdx holds sytrd, stedc and unmtr
+        log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
+    return k4
+
+
+def phase_reference_real(torch):
+    import numpy as np
+    import scipy.linalg
+
+    from eigensolver_gpu_torch import dsygvdx
+    from eigensolver_gpu_torch.utils.testing import ge_residual, random_spd_pair
+
+    n, iu = N_REF_REAL, IU_REF_REAL
+    a, b = random_spd_pair(n, seed=1)
+    res = dsygvdx(a, b, il=1, iu=iu, device="cuda")  # pure fp64, default config
+    w, z = res.w.cpu().numpy(), res.z.cpu().numpy()
+    w_ref = scipy.linalg.eigh(a, b, eigvals_only=True, subset_by_index=[0, iu - 1])
+    err = float(np.abs(w - w_ref).max())
+    resid = ge_residual(a, b, w, z)
+    log(f"reference real n={n} iu={iu} fp64: max |w - scipy| = {err:.3e} "
+        f"(tol {1e-10 * n:.1e}), ge_residual = {resid:.3e}, info={int(res.info)}")
+    if not err <= 1e-10 * n or int(res.info) != 0 or not resid < 1e-12:
+        raise RuntimeError("real reference comparison failed")
+
+
 def main():
     import torch
 
@@ -353,14 +581,19 @@ def main():
     try:
         phase_device(torch)
         phase_build()
-        kernels = [check_k1(torch), check_k2(torch)]
+        kernels = [check_k1(torch), check_k2(torch), check_k3(torch), check_k4(torch)]
         launches = phase_main(torch)
         phase_reference(torch)
+        launches["symv"] = phase_main_real(torch)
+        phase_reference_real(torch)
     except Exception:  # noqa: BLE001 -- report and fail the smoke run
         traceback.print_exc()
         return 1
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k.setdefault("launches", launches.get(k["name"]))
+        if not k["launches"]:
+            print(f"chip_smoke: {k['name']} was never launched on its path", file=sys.stderr)
+            return 1
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
             if k[key] is not None and not math.isfinite(k[key]):
                 print(f"chip_smoke: non-finite {key} for {k['name']}", file=sys.stderr)

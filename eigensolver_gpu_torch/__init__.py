@@ -9,13 +9,20 @@ keeps its public contracts:
     >>> w, zr, zi, info = zhegvdx_planar(ar, ai, br, bi, il=1, iu=1024,
     ...                                  cfg=SolverConfig(compute_dtype="float32"))
 
+    >>> from eigensolver_gpu_torch import dsygvdx
+    >>> w, z, info = dsygvdx(a, b, il=1, iu=512,
+    ...                      cfg=SolverConfig(compute_dtype="float32"))
+
 Entry points run on the device of their input tensors: CUDA tensors on
 the card (the hand-written kernels under ``csrc/`` are built on first
 use and a failure to build or launch raises), CPU tensors through the
 kernels' plain PyTorch versions. ``zhegvdx_planar_host`` takes complex
-numpy arrays and a ``device`` (the card by default).
+numpy arrays and a ``device`` (the card by default), as do ``dsygvdx``
+and ``zhegvdx`` when they are given numpy arrays.
 """
 
+from eigensolver_gpu_torch.models.syevdx import syevdx
+from eigensolver_gpu_torch.models.sygvdx import SygvdxResult, dsygvdx, sygvdx, zhegvdx
 from eigensolver_gpu_torch.models.zhegvdx_planar import (
     PlanarResult,
     zhegvdx_planar,
@@ -23,4 +30,14 @@ from eigensolver_gpu_torch.models.zhegvdx_planar import (
 )
 from eigensolver_gpu_torch.utils.config import SolverConfig
 
-__all__ = ["PlanarResult", "SolverConfig", "zhegvdx_planar", "zhegvdx_planar_host"]
+__all__ = [
+    "PlanarResult",
+    "SolverConfig",
+    "SygvdxResult",
+    "dsygvdx",
+    "syevdx",
+    "sygvdx",
+    "zhegvdx",
+    "zhegvdx_planar",
+    "zhegvdx_planar_host",
+]

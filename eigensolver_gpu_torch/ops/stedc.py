@@ -19,9 +19,9 @@ Port differences:
     and no step reads a device value on the host;
   * the deflation-aware bucketed assembly (``compact``) and the mesh
     sharding are not ported; every merge runs the full assembly gemm;
-  * the fp64 Jacobi leaf (ops/jacobi.py) is not ported yet: fp32 leaves
-    use torch.linalg.eigh (the JAX 'xla' leaf), and an fp64 solve that
-    needs the Jacobi leaf raises NotImplementedError.
+  * leaves follow the JAX rule: torch.linalg.eigh in fp32 (the JAX 'xla'
+    leaf), the batched cyclic Jacobi of ops/jacobi.py in fp64 (for an
+    even leaf size, else dense eigh).
 
 Input: d (n,), e (n-1,) real. Output: (w, q) with w ascending and q
 orthogonal, T q = q diag(w), T = tridiag(e, d, e).
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from eigensolver_gpu_torch.ops.jacobi import jacobi_eigh
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -198,22 +199,21 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     """All eigenpairs of the symmetric tridiagonal (d, e), on device.
 
     leaf_solver: None = auto ('xla' for fp32, 'jacobi' for fp64, as in
-    the JAX package) or 'xla' (torch.linalg.eigh). 'jacobi' raises
-    NotImplementedError until ops/jacobi.py is ported.
+    the JAX package), 'xla' (torch.linalg.eigh) or 'jacobi'
+    (ops/jacobi.py; a leaf of odd size takes dense eigh).
     """
     n = d.shape[0]
     dt = d.dtype
     dev = d.device
     if leaf_solver is None:
         leaf_solver = "xla" if dt == torch.float32 else "jacobi"
-    if leaf_solver == "jacobi":
-        raise NotImplementedError(
-            "the Jacobi leaf (ops/jacobi.py) is not ported yet; fp64 stedc "
-            "needs leaf_solver='xla' or SolverConfig(stedc_backend='xla')"
-        )
-    if leaf_solver != "xla":
+    if leaf_solver not in ("xla", "jacobi"):
         raise ValueError(f"unknown leaf_solver {leaf_solver!r}")
-    leaf_eigh = torch.linalg.eigh
+
+    def leaf_eigh(tb):
+        if leaf_solver == "jacobi" and tb.shape[-1] % 2 == 0:
+            return jacobi_eigh(tb)
+        return torch.linalg.eigh(tb)
 
     if n <= 2 or n <= leaf:
         return leaf_eigh(_tridiag_dense(d, e))

@@ -10,7 +10,10 @@ A panel runs either as the column loop below (``_panel_columns_planar``,
 about 35 eager ops per column) or, with ``use_pallas=True`` on fp32
 buckets whose size is a multiple of 256 and at most 4096, through the
 hand-written latrd panel kernel (ops/latrd.py) -- the same gate as the
-JAX package's ``pallas_ok``.
+JAX package's ``pallas_ok``. The column loop's own ``use_pallas``
+argument routes its ``A v`` through the upper-tile planar hemv kernel
+(ops/symv.py); as in the JAX package, ``hetrd_planar`` never sets it
+(its kernel route is the latrd panel).
 
 Unlike the JAX package, the working planes are updated IN PLACE: each
 bucket is a view of the full planes, and the panel and her2k writes go
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from eigensolver_gpu_torch.ops.latrd import latrd_panel_planar
+from eigensolver_gpu_torch.ops.symv import hemv_planar
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -53,14 +57,15 @@ def _larfg_planar(alphr, alphi, xnormsq):
     )
 
 
-def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb):
+def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb, use_pallas=False):
     """One zlatrd panel, columns panel_end-1 down to panel_end-nb, as an
     eager column loop. Writes the packed columns into (ar, ai) and the
     scalars into d, e, taur, taui in place; returns the compact-WY
     panels (vr, vi, wr, wi), (mb, nb), slot k = column panel_end-1-k.
 
     v is zero from row cj on and w is masked to rows < cj, so the matvec
-    and corrections run on the leading cj rows only."""
+    and corrections run on the leading cj rows only. With ``use_pallas``
+    the matvec is the planar hemv kernel on the leading cj x cj block."""
     mb = ar.shape[0]
     vr = torch.zeros((mb, nb), dtype=ar.dtype, device=ar.device)
     vi, wr, wi = torch.zeros_like(vr), torch.zeros_like(vr), torch.zeros_like(vr)
@@ -96,9 +101,12 @@ def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb):
         # y = A v - [V W] ([W V]^H v) on rows < cj (the reference's zhemv)
         c = cj
         vt_r, vt_i = v_r[:c], v_i[:c]
-        a_r, a_i = ar[:c, :c], ai[:c, :c]
-        y_r = a_r @ vt_r - a_i @ vt_i
-        y_i = a_r @ vt_i + a_i @ vt_r
+        if use_pallas and c > 0:
+            y_r, y_i = hemv_planar(ar, ai, vt_r, vt_i, extent=c)
+        else:
+            a_r, a_i = ar[:c, :c], ai[:c, :c]
+            y_r = a_r @ vt_r - a_i @ vt_i
+            y_i = a_r @ vt_i + a_i @ vt_r
         if k > 0:
             V_r, V_i, W_r, W_i = vr[:c, :k], vi[:c, :k], wr[:c, :k], wi[:c, :k]
             zw_r = W_r.T @ vt_r + W_i.T @ vt_i  # W^H v

@@ -6,18 +6,18 @@ hold the two against each other. Options whose code path has not been
 ported yet are accepted here and refused with ``NotImplementedError``
 where the solver would take them:
 
-  * ``tridiag_mode='two'`` (planar two-stage reduction);
-  * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``);
-  * ``stedc_leaf`` solves in fp64, which need the Jacobi leaf.
+  * ``tridiag_mode='two'`` (the two-stage reductions, real and planar);
+  * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``).
 
 ``use_pallas`` keeps its JAX name: it selects the hand-written latrd
-panel kernel (ops/latrd.py) for the hetrd column loop.
+panel kernel (ops/latrd.py) for the planar hetrd column loop, and the
+upper-tile symv kernel (ops/symv.py) for the real sytrd column loop.
 ``mosaic_kernels`` is kept for parity and has no effect: the fp32
 Cholesky always factors its diagonal blocks with kernel K1
 (ops/pchol.py), which is the CUDA kernel on the card and its plain
 version on CPU tensors.
-``'auto'`` tridiagonalization stays one-stage, as the JAX package does
-off-TPU.
+``'auto'`` tridiagonalization stays one-stage at every size (see
+models/syevdx.py for what that means against the JAX package).
 """
 
 from __future__ import annotations
@@ -31,9 +31,9 @@ class SolverConfig:
     """Static tuning and policy knobs for the generalized eigensolver.
 
     See the JAX twin for the meaning of each field; the port reads
-    nb_tridiag, nb_back, stedc_leaf, stedc_backend, compute_dtype,
-    refine_iters, use_pallas, tridiag_mode, refine_margin,
-    refine_extra_max and planar_solve_mode.
+    nb_sygst, nb_tridiag, nb_back, stedc_leaf, stedc_backend,
+    sygst_mode, compute_dtype, refine_iters, use_pallas, tridiag_mode,
+    refine_margin, refine_extra_max and planar_solve_mode.
     """
 
     nb_sygst: int = 512

@@ -1,7 +1,8 @@
 """Test fixtures and accuracy metrics, numpy only (the port's own copy of
 the pieces of eigensolver_gpu_tpu/utils/testing.py it needs).
 
-* ``random_hpd_pair`` / ``qe_style_pair`` mirror the reference's
+* ``random_spd_pair`` / ``random_hpd_pair`` / ``qe_style_pair`` mirror the
+  reference's ``create_random_symmetric_pd`` (test_dsygvdx.F90:28-64),
   ``create_random_hermetian_pd`` (test_driver/test_zhegvdx.F90:28-66)
   and a Quantum-ESPRESSO-style clustered spectrum; with the same seed
   they give the same arrays as the JAX package's fixtures.
@@ -14,6 +15,17 @@ the pieces of eigensolver_gpu_tpu/utils/testing.py it needs).
 from __future__ import annotations
 
 import numpy as np
+
+
+def random_spd_pair(n, seed=0, dtype=np.float64, diag_shift=None):
+    """Random (A symmetric, B SPD) pair, mirroring test_dsygvdx.F90:28-64."""
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((n, n)).astype(dtype)
+    a = (t + t.T) / 2
+    t2 = rng.standard_normal((n, n)).astype(dtype)
+    shift = n if diag_shift is None else diag_shift
+    b = t2 @ t2.T / n + shift / n * np.eye(n, dtype=dtype)
+    return a, b
 
 
 def random_hpd_pair(n, seed=0, dtype=np.complex128, diag_shift=None):

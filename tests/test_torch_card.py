@@ -14,6 +14,7 @@ import torch
 
 from eigensolver_gpu_torch.ops.latrd import latrd_panel_plain, latrd_panel_planar
 from eigensolver_gpu_torch.ops.pchol import pchol_block_plain, pchol_block_planar
+from eigensolver_gpu_torch.ops.symv import hemv_planar, hemv_planar_plain, symv, symv_plain
 
 torch.set_num_threads(2)
 
@@ -69,3 +70,30 @@ def test_latrd_panel_kernel_matches_plain(cuda_device, pe_off):
     want = latrd_panel_plain(ar, ai, pe)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(512, torch.float32), (1000, torch.float32),
+                                     (512, torch.float64)])
+def test_symv_and_hemv_kernels_match_plain(cuda_device, n, dtype):
+    """K4 (and K3 in fp32) within 1e-4 relative of the plain version in
+    fp32 (another summation order), 1e-12 in fp64; reproducible bit for
+    bit; on a view whose row stride exceeds n."""
+    rng = np.random.default_rng(n)
+    t = rng.standard_normal((n + 24, n + 24))
+    a, v = (t + t.T) / 2, rng.standard_normal(n + 24)
+    ta = torch.tensor(a, dtype=dtype, device=cuda_device)[:n, :n]
+    tv = torch.tensor(v[:n], dtype=dtype, device=cuda_device)
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    before = symv.launches
+    got = symv(ta, tv)
+    assert symv.launches == before + 1
+    want = symv_plain(ta, tv)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    assert torch.equal(got, symv(ta, tv))
+    if dtype == torch.float32:
+        ti = torch.triu(ta, 1) - torch.triu(ta, 1).T
+        got = hemv_planar(ta, ti, tv, tv.flip(0))
+        want = hemv_planar_plain(ta, ti, tv, tv.flip(0))
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())

@@ -104,9 +104,16 @@ def test_stedc_fp32_matches_jax_and_scipy():
 
 
 def test_stedc_fp64_needs_the_jacobi_leaf():
+    """fp64 takes the Jacobi leaf by default, as in JAX; it agrees with
+    the dense-eigh leaf, and an unknown leaf solver is refused."""
     d = torch.ones(128, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        stedc(d, torch.ones(127, dtype=torch.float64))
+    e = torch.ones(127, dtype=torch.float64)
+    w, q = stedc(d, e)
+    w_xla, _ = stedc(d, e, leaf_solver="xla")
+    assert torch.allclose(w, w_xla, rtol=0, atol=1e-12)
+    assert torch.allclose(q.T @ q, torch.eye(128, dtype=torch.float64), rtol=0, atol=1e-12)
+    with pytest.raises(ValueError):
+        stedc(d, e, leaf_solver="qr")
     w, _ = stedc(d, torch.zeros(127, dtype=torch.float64), leaf_solver="xla")
     assert torch.allclose(w, torch.ones_like(w))
 

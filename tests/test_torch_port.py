@@ -62,7 +62,7 @@ def test_planar_from_numpy_splits_contiguous_planes():
 
 
 def test_fixtures_and_metrics_match_jax():
-    for make in ("random_hpd_pair", "qe_style_pair"):
+    for make in ("random_spd_pair", "random_hpd_pair", "qe_style_pair"):
         for x, y in zip(getattr(testing, make)(24, seed=3), getattr(jax_testing, make)(24, seed=3)):
             assert np.array_equal(x, y)
     a, b = testing.random_hpd_pair(24, seed=4)
@@ -99,7 +99,8 @@ def test_loader_raises_without_a_compiler(monkeypatch):
     monkeypatch.setattr(kernel_guard, "BUILD", ROOT / "eigensolver_gpu_torch" / "build" / "absent")
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel_guard.load("pchol_block")
-    assert {p.stem for p in kernel_guard.CSRC.glob("*.cu")} == {"latrd_panel", "pchol_block"}
+    assert {p.stem for p in kernel_guard.CSRC.glob("*.cu")} == {
+        "latrd_panel", "pchol_block", "symv"}
 
 
 def _imports(path):
@@ -111,10 +112,34 @@ def _imports(path):
             yield node.module
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "eigensolver_gpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
-    for path in files:
-        for mod in _imports(path):
-            top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "eigensolver_gpu_tpu"), f"{path}: {mod}"
+_PORT_FILES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "eigensolver_gpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+def test_port_file_list_covers_the_package():
+    assert len(_PORT_FILES) > 25
+    for name in ("models/sygvdx.py", "models/syevdx.py", "ops/symv.py", "ops/sytrd.py",
+                 "ops/refine.py", "utils/kernel_guard.py"):
+        assert f"eigensolver_gpu_torch/{name}" in _PORT_FILES
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_port_imports_neither_jax_nor_the_jax_package(rel):
+    """By AST, so imports inside functions count too."""
+    for mod in _imports(ROOT / rel):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "eigensolver_gpu_tpu"), f"{rel}: {mod}"
+
+
+def test_public_exports_cover_the_jax_package_drivers():
+    import eigensolver_gpu_tpu
+    import eigensolver_gpu_torch
+
+    for name in ("sygvdx", "dsygvdx", "zhegvdx", "syevdx", "SolverConfig", "SygvdxResult",
+                 "zhegvdx_planar", "zhegvdx_planar_host", "PlanarResult"):
+        assert name in eigensolver_gpu_torch.__all__
+        assert callable(getattr(eigensolver_gpu_torch, name))
+    for name in ("sygvdx", "dsygvdx", "zhegvdx", "syevdx"):
+        assert name in eigensolver_gpu_tpu.__all__
+    assert eigensolver_gpu_torch.SygvdxResult._fields == ("w", "z", "info")
