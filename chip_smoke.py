@@ -12,10 +12,11 @@ non-zero without printing a result:
   2. build   -- nvcc builds every csrc/*.cu (one process per source, all
                 at once); prints the seconds;
   3. kernels -- each hand-written kernel (K1 Cholesky block, K2 latrd
-                panel, K3 planar hemv, K4 symv) against its plain PyTorch
-                version on the same inputs on the card, with times of
-                kernel, plain version and a library yardstick; K3 also
-                through the planar column loop that launches it;
+                panel, K3 planar hemv, K4 symv, K5 QL panel, K7 bulge
+                chase, K9 chase replay) against its plain PyTorch version
+                on the same inputs on the card, with times of kernel,
+                plain version and a library yardstick; K3 also through
+                the planar column loop that launches it;
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
                 (K1 and K2): launch counts from one solve, then timed
@@ -25,7 +26,12 @@ non-zero without printing a result:
                 refinement, with use_pallas False and True (kernel K4 on
                 every panel column of the 512-aligned buckets);
   7. reference (real) -- dsygvdx n=1024, iu=64 in pure fp64 (Jacobi
-                leaves, exact substitution) against scipy.linalg.eigh.
+                leaves, exact substitution) against scipy.linalg.eigh,
+                one-stage and two-stage (fp64 instances of K5, K7, K9);
+  8. main (real, two-stage) -- the same dsygvdx n=4096 solve with
+                tridiag_mode='two': sbrd (K5 per panel), bulge chase
+                (K7), replay (K9) and apply_q1, then one solve with
+                mosaic_kernels=False (the plain torch route).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -52,6 +58,19 @@ K2_TOL = 1e-3  # relative max error, fp32 sums of length <= 4096 in another orde
 MV_TOL = 1e-4  # K3, K4 in fp32: sums of length <= 4096 in another order
 MV_TOL64 = 1e-12  # K4 in fp64
 MV_TILE = 64  # tile edge of csrc/symv.cu
+BAND, REPLAY_G = 32, 96  # SolverConfig defaults of the fp32 two-stage path
+K5_TOL = 1e-4  # relative max error, fp32: sums of length <= 4096 in another order
+K5_TOL64 = 1e-11
+# K7: relative max error of d, e, tau and the active reflectors against the
+# plain version. The entries drift apart along the 12 280 dependent steps
+# (on the card: 1.6e-9 in fp64 at n = 4096, order one in fp32), so fp64 is
+# held everywhere and fp32 on its first K7_HEAD sweeps (2.7e-4 on the card);
+# the whole fp32 output is held through its spectrum and Q2 T Q2^T
+K7_TOL, K7_TOL64 = 1e-3, 1e-7
+K7_HEAD = 64  # sweeps held elementwise in fp32
+K7_SPEC_TOL, K7_SPEC_TOL64 = 1e-4, 1e-12  # spectrum and similarity, relative
+K9_TOL = 1e-4  # relative max error, fp32: 127-term sums in another order
+K9_TOL64 = 1e-11
 
 
 def log(msg):
@@ -382,6 +401,281 @@ def check_k3(torch):
     }
 
 
+def _timed_once(torch, fn):
+    """(result, ms) of one call, bracketed by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _k5_work(m, b, rb, itemsize):
+    """The panel read once, r, v, tau and T written once; per column the
+    norm, the scaling, v^T P and the rank-1 update of the columns before
+    it; then the gram and the larft recurrence."""
+    nbytes = itemsize * (3 * m * b + b + b * b)
+    flops = 0
+    for j in range(b):
+        top = rb + j
+        flops += 2 * top + top + 4 * (top + 1) * j
+    flops += 2 * (rb + b) * b * b + 2 * b * b * b // 3
+    return nbytes, flops
+
+
+def check_k5(torch):
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel, ql_panel_plain
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    dev = "cuda"
+    rng = np.random.default_rng(5)
+    big = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
+    big32 = big.float()
+    trivial = big32[:128, :16].clone()
+    trivial[: 64 + 15, 15] = 0.0  # last column zero above its pivot
+    cases = [  # (label, panel, rows_below, tolerance)
+        ("(4096, 32) rb=4032", big32[:, :32].contiguous(), 4096 - 64, K5_TOL),
+        ("(4096, 32) rb=4032, column slice of 4096^2", big32[:, 4032:4064], 4096 - 64, K5_TOL),
+        ("(2048, 32) rb=1984, slice of a leading block", big32[:2048, 2016:2048], 1984, K5_TOL),
+        ("(1000, 32) rb=936", big32[:1000, 100:132], 936, K5_TOL),
+        ("(1000, 24) rb=500", big32[:1000, 7:31], 500, K5_TOL),
+        ("(128, 16) rb=64 trivial column", trivial, 64, K5_TOL),
+        ("(1024, 32) rb=960 fp64", big[:1024, 64:96], 960, K5_TOL64),
+    ]
+    names = ["r_panel", "v", "tau", "t"]
+    max_abs = 0.0
+    for label, p, rb, tol in cases:
+        got = ql_panel(p, rb)
+        want = ql_panel_plain(p, rb)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if tol == K5_TOL:
+            max_abs = max(max_abs, max(e[1] for e in errs))
+        log(f"K5 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
+        if any(g.shape != w.shape for g, w in zip(got, want)) or not max(e[0] for e in errs) <= tol:
+            raise RuntimeError(f"K5 disagrees with its plain version at {label}")
+        if "trivial" in label:
+            b = p.shape[1]
+            if float(got[2][b - 1]) != 0.0 or float(got[1][:, b - 1].abs().max()) != 0.0 \
+                    or not torch.equal(got[0][:, b - 1], p[:, b - 1]):
+                raise RuntimeError("K5 trivial column: tau, v or the column break the contract")
+    p, rb = cases[1][1], cases[1][2]
+    if not all(torch.equal(x, y) for x, y in zip(ql_panel(p, rb), ql_panel(p, rb))):
+        raise RuntimeError("K5 is not reproducible from run to run")
+    ms = device_ms(lambda: ql_panel(p, rb), iters=20)
+    plain_ms = device_ms(lambda: ql_panel_plain(p, rb), iters=2)
+    bound_ms, bound_by = bound(*_k5_work(4096, 32, rb, 4))
+    log(f"K5 times at (4096, 32) rb={rb} fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}); no single library call returns a QL panel "
+        "with its T (library_ms null)")
+    return {
+        "name": "ql_panel", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/ql_panel.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/ql_panel_pallas.py:287",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def _random_band(torch, n, b, seed, dtype):
+    """Lower band storage (n, 2b) of a random symmetric matrix of half-width
+    b, and the same in scipy's lower banded form (b + 1, n)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    band = np.zeros((n, 2 * b))
+    band[:, : b + 1] = rng.standard_normal((n, b + 1))
+    j, d = np.arange(n)[:, None], np.arange(2 * b)[None, :]
+    band[j + d >= n] = 0.0
+    band = band.astype(np.float32 if dtype == torch.float32 else np.float64)
+    sci = np.ascontiguousarray(band[:, : b + 1].T, dtype=np.float64)
+    return torch.tensor(band, device="cuda"), sci
+
+
+def _k7_work(n, b, itemsize):
+    """The band read and written once, the reflector store written once;
+    per active window the reflector, three b x b products and three
+    rank-1/rank-2 tile updates."""
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
+
+    s_slots, t_total, t3 = chase_dims(n, b)
+    windows = 0
+    for t in range(t_total):
+        vmax, k0 = divmod(t, 3)
+        room = n - 3 - vmax - k0 * b
+        if room >= 0:
+            s_hi = min(room // (3 * b - 1), vmax, s_slots - 1)
+            windows += max(0, s_hi - max(vmax - (n - 3), 0) + 1)
+    nbytes = itemsize * (2 * n * 2 * b + t3 * s_slots * (b + 1))
+    return nbytes, windows * (12 * b * b + 8 * b), windows
+
+
+def check_k7(torch):
+    import numpy as np
+    import scipy.linalg
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+    from eigensolver_gpu_torch.ops.sb2st import apply_q2, band_to_dense, bulge_chase
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    names = ["d", "e", "vt", "taut"]
+    record = {}
+    for n, b, dtype in ((100, 6, torch.float32), (100, 6, torch.float64),
+                        (4096, BAND, torch.float32), (4096, BAND, torch.float64)):
+        f32 = dtype == torch.float32
+        label = f"n={n} b={b} {'fp32' if f32 else 'fp64'}"
+        band, sci = _random_band(torch, n, b, 7, dtype)
+        got = bulge_chase_kernel(band, b)
+        want, plain_ms = _timed_once(torch, lambda: bulge_chase(band, b))
+        if not all(torch.equal(x, y) for x, y in zip(got, bulge_chase_kernel(band, b))):
+            raise RuntimeError(f"K7 is not reproducible from run to run at {label}")
+        if any(g.shape != w.shape for g, w in zip(got, want)):
+            raise RuntimeError(f"K7 output shapes differ from the plain version at {label}")
+        # a reflector whose tau is 0 is read by nobody: compare the active
+        # ones. In fp64 everything is held elementwise. In fp32 the entries
+        # of a tridiagonal reduction are ill-conditioned functions of the
+        # band towards the rows reduced last, and where a pivot alpha lies
+        # within the drift of 0 its beta takes the other sign (from there on
+        # e and v differ by a diagonal +-1 similarity). So in fp32 the first
+        # K7_HEAD sweeps are held elementwise in d, |e|, |v| and tau, and the
+        # whole output through what it must satisfy: the spectrum of (d, e)
+        # is the band matrix's, and Q2 T Q2^T (Q2 from the plain replay of
+        # the kernel's reflectors) gives the band matrix back.
+        act = (want[3] != 0)[..., None]
+        full = [rel_err(g, w)[0] for g, w in
+                ((got[0], want[0]), (got[1], want[1]), (got[2] * act, want[2] * act),
+                 (got[3], want[3]))]
+        if f32:
+            h = min(K7_HEAD, n - 1)
+            pairs = [(got[0][:h], want[0][:h]), (got[1][:h].abs(), want[1][:h].abs()),
+                     ((got[2] * act)[: 3 * h].abs(), (want[2] * act)[: 3 * h].abs()),
+                     (got[3][: 3 * h], want[3][: 3 * h])]
+            errs = [rel_err(g, w) for g, w in pairs]
+        else:
+            errs = [rel_err(g, w) for g, w in
+                    ((got[0], want[0]), (got[1], want[1]), (got[2] * act, want[2] * act),
+                     (got[3], want[3]))]
+        w_band = scipy.linalg.eigvals_banded(sci, lower=True)
+        spec = []
+        for d, e in (got[:2], want[:2]):
+            d, e = d.double().cpu().numpy(), e.double().cpu().numpy()
+            w = scipy.linalg.eigvalsh_tridiagonal(d, e)
+            spec.append(float(np.abs(w - w_band).max() / np.abs(w_band).max()))
+        dense = band_to_dense(band, b)
+        sim = []
+        for d, e, vt, taut in (got, want):
+            q2 = apply_q2(vt, taut, torch.eye(n, dtype=dtype, device="cuda"), n, b, g=b)
+            tri = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+            sim.append(rel_err(q2 @ tri @ q2.T, dense)[0])
+        log(f"K7 {label}: rel_err vs plain " + " ".join(
+            f"{k}={x[0]:.1e}" for k, x in zip(names, errs))
+            + (f" (first {h} sweeps, |e| and |vt|; whole arrays, signed: " + " ".join(
+                f"{k}={x:.1e}" for k, x in zip(names, full)) + ")" if f32 else "")
+            + f"; spectrum vs the band matrix: kernel {spec[0]:.1e}, plain {spec[1]:.1e}"
+            + f"; Q2 T Q2^T vs the band matrix: kernel {sim[0]:.1e}, plain {sim[1]:.1e}")
+        tol, spec_tol = (K7_TOL, K7_SPEC_TOL) if f32 else (K7_TOL64, K7_SPEC_TOL64)
+        if not max(x[0] for x in errs) <= tol or not spec[0] <= spec_tol or not sim[0] <= spec_tol:
+            raise RuntimeError(f"K7 disagrees with its plain version at {label}")
+        if n == 4096:
+            ms = device_ms(lambda: bulge_chase_kernel(band, b), iters=3)
+            nbytes, flops, windows = _k7_work(n, b, 4 if f32 else 8)
+            bound_ms, bound_by = bound(nbytes, flops)
+            log(f"K7 times at {label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {windows} windows); no single library call "
+                "chases a band to tridiagonal (library_ms null)")
+            if f32:
+                record = {
+                    "name": "bulge_chase_kernel", "route": "cuda",
+                    "source": "eigensolver_gpu_torch/csrc/chase.cu",
+                    "replaces": "eigensolver_gpu_tpu/ops/chase_pallas.py:929",
+                    "max_abs_err": max(x[1] for x in errs), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                }
+    return record
+
+
+def _k9_work(n, m, b, g, itemsize):
+    """Reflectors and y read once, y written once; per valid window the
+    l_win x l_win product with its m columns, and forming the window's
+    orthogonal (V^T V, the g x g inverse, T^-1 V^T, V (T^-1 V^T))."""
+    from eigensolver_gpu_torch.ops.replay import _geometry, _wave_gather
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
+
+    geo = _geometry(n, b, g)
+    valid, _ = _wave_gather(geo, n, b, g, geo["kmax"] + 2, geo["n_groups"] * g + g)
+    windows = int(valid.sum())
+    l_win = geo["l_win"]
+    s_slots, _, t3 = chase_dims(n, b)
+    nbytes = itemsize * (t3 * s_slots * (b + 1) + 2 * n * m)
+    per_q = 2 * l_win * g * g + g * g * g // 3 + 2 * g * g * l_win + 2 * l_win * l_win * g
+    return nbytes, windows * (2 * l_win * l_win * m + per_q), windows
+
+
+def check_k9(torch):
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel, window_qs
+    from eigensolver_gpu_torch.ops.sb2st import apply_q2
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    rng = np.random.default_rng(9)
+    max_abs = 0.0
+    n, b, g = 4096, BAND, REPLAY_G
+    band, _ = _random_band(torch, n, b, 9, torch.float32)
+    _, _, vt, taut = bulge_chase_kernel(band, b)
+    y_all = torch.tensor(rng.standard_normal((n, 4096)), dtype=torch.float32, device="cuda")
+    for m in (512, 100, 4096):
+        y = y_all[:, :m]  # a column slice: the wrapper takes any layout
+        got = apply_q2_kernel(vt, taut, y, n, b, g=g)
+        want = apply_q2(vt, taut, y, n, b, g=g)
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, want)
+        moved = rel_err(want, y)[0]  # the replay is no identity on this input
+        max_abs = max(max_abs, err)
+        log(f"K9 n={n} b={b} g={g} m={m} fp32: rel_err vs plain {rel:.2e} "
+            f"(plain vs its input {moved:.2e})")
+        if got.shape != want.shape or not rel <= K9_TOL or not moved > 0.1:
+            raise RuntimeError(f"K9 disagrees with its plain version at m={m}")
+    if not torch.equal(got, apply_q2_kernel(vt, taut, y, n, b, g=g)):
+        raise RuntimeError("K9 is not reproducible from run to run")
+    # fp64 instance at the pure-fp64 path's group size g = b, odd sizes
+    n64, b64 = 1000, 24
+    band64, _ = _random_band(torch, n64, b64, 10, torch.float64)
+    _, _, vt64, taut64 = bulge_chase_kernel(band64, b64)
+    y64 = torch.tensor(rng.standard_normal((n64, 70)), device="cuda")
+    rel64, _ = rel_err(apply_q2_kernel(vt64, taut64, y64, n64, b64, g=b64),
+                       apply_q2(vt64, taut64, y64, n64, b64, g=b64))
+    log(f"K9 n={n64} b={b64} g={b64} m=70 fp64: rel_err vs plain {rel64:.2e}")
+    if not rel64 <= K9_TOL64:
+        raise RuntimeError("K9 (fp64) disagrees with its plain version")
+
+    # the main path replays all n columns (the mixed solve refines from the
+    # full fp32 basis): time m = 4096
+    ms = device_ms(lambda: apply_q2_kernel(vt, taut, y_all, n, b, g=g), iters=3)
+    qs_ms = device_ms(lambda: window_qs(vt, taut, n, b, g), iters=3)
+    plain_ms = device_ms(lambda: apply_q2(vt, taut, y_all, n, b, g=g), iters=2)
+    ms512 = device_ms(lambda: apply_q2_kernel(vt, taut, y_all[:, :512], n, b, g=g), iters=3)
+    nbytes, flops, windows = _k9_work(n, 4096, b, g, 4)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"K9 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (of which window_qs {qs_ms:.3f} ms, "
+        f"outside the kernel), at m=512 {ms512:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {windows} windows); no single library call replays "
+        "wave-ordered windows (library_ms null)")
+    return {
+        "name": "apply_q2_kernel", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/replay.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/replay_pallas.py:674",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def _device_residual(torch, args, res):
     """bench.py's residual of the complex problem, in planar arithmetic on
     the device: max_k ||A z_k - w_k B z_k|| / (n * max row 1-norm of A)."""
@@ -398,7 +692,7 @@ def _device_residual(torch, args, res):
 def _breakdown(torch, solve, wall):
     """One solve with synchronizing trace ranges (stage ms), then one under
     torch.profiler: device busy ms (sum of kernel self times), the idle
-    share against the median unprofiled wall time, and the top kernels.
+    share against the unprofiled wall time ``wall``, and the top kernels.
     Returns the stage ms by range name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -463,7 +757,7 @@ def phase_main(torch):
         finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
                       and torch.isfinite(res.zi).all())
         shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape))
-        times = wall_ms(solve, iters=3)
+        times = wall_ms(solve, iters=2)
         log(f"main use_pallas={use_pallas}: n={N_MAIN} iu={IU_MAIN} info={info} "
             f"residual={resid:.3e} first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms "
             f"launches K1={k1} K2={k2} peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -473,7 +767,7 @@ def phase_main(torch):
             raise RuntimeError(f"main path shapes {shapes}")
         if k1 != N_MAIN // 128 or k2 != want_k2:
             raise RuntimeError(f"launch counts K1={k1} K2={k2}, want {N_MAIN // 128} and {want_k2}")
-        _breakdown(torch, solve, sorted(times)[1])
+        _breakdown(torch, solve, min(times))
     return launches
 
 
@@ -530,7 +824,7 @@ def phase_main_real(torch):
         resid = float(torch.max(torch.linalg.vector_norm(r, dim=0)) / (n * anorm))
         finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.z).all())
         shapes = (tuple(res.w.shape), tuple(res.z.shape))
-        times = wall_ms(solve, iters=3)
+        times = wall_ms(solve, iters=2)
         log(f"main real use_pallas={use_pallas}: n={n} iu={iu} info={info} "
             f"residual={resid:.3e} first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms "
             f"launches K4={k4} peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -540,31 +834,106 @@ def phase_main_real(torch):
             raise RuntimeError(f"real path shapes {shapes} dtype {res.w.dtype}")
         if k4 != want_k4:
             raise RuntimeError(f"launch count K4={k4}, want {want_k4}")
-        stages = _breakdown(torch, solve, sorted(times)[1])
+        stages = _breakdown(torch, solve, min(times))
         # the fp32 pipeline's sygvdx range holds Cholesky, sygst, syevdx
         # and the phase-4 solve; syevdx holds sytrd, stedc and unmtr
         log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
     return k4
 
 
+def phase_main_real_two(torch):
+    """dsygvdx n=4096 il=1..iu=512 mp with tridiag_mode='two': warm-up + 3
+    timed solves through K5, K7 and K9, then one solve by the plain torch
+    route (mosaic_kernels=False). Returns the kernels' launches per solve."""
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel
+    from eigensolver_gpu_torch.utils import tracing
+    from eigensolver_gpu_torch.utils.convert import dense_from_numpy
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    n, iu = N_REAL, IU_REAL
+    a, b = dense_from_numpy(*random_spd_pair(n, seed=0), device="cuda", dtype=torch.float64)
+    anorm = torch.max(torch.sum(a.abs(), dim=1))
+
+    def check(res, what):
+        r = a @ res.z - (b @ res.z) * res.w[None, :]
+        resid = float(torch.max(torch.linalg.vector_norm(r, dim=0)) / (n * anorm))
+        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.z).all())
+        if int(res.info) != 0 or not finite or not resid <= 1e-13:
+            raise RuntimeError(
+                f"{what} wrong: info={int(res.info)} finite={finite} residual={resid}")
+        shapes = (tuple(res.w.shape), tuple(res.z.shape))
+        if shapes != ((iu,), (n, iu)) or res.w.dtype != torch.float64:
+            raise RuntimeError(f"{what} shapes {shapes} dtype {res.w.dtype}")
+        return resid
+
+    cfg = SolverConfig(compute_dtype="float32", tridiag_mode="two")
+    solve = lambda: dsygvdx(a, b, il=1, iu=iu, cfg=cfg)
+    wrappers = (ql_panel, bulge_chase_kernel, apply_q2_kernel)
+    for fn in wrappers:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, first_ms = _timed_once(torch, solve)
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    resid = check(res, "two-stage real path")
+    times = wall_ms(solve, iters=3)
+    log(f"main real two-stage mosaic_kernels=True: n={n} iu={iu} info=0 residual={resid:.3e} "
+        f"first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms launches "
+        f"K5={counts['ql_panel']} K7={counts['bulge_chase_kernel']} K9={counts['apply_q2_kernel']} "
+        f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}
+    if counts != want:
+        raise RuntimeError(f"launch counts {counts}, want {want}")
+    stages = _breakdown(torch, solve, sorted(times)[1])
+    log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
+
+    # the plain torch route, one solve, with synchronizing ranges
+    cfg_plain = SolverConfig(compute_dtype="float32", tridiag_mode="two", mosaic_kernels=False)
+    for fn in wrappers:
+        fn.launches = 0
+    tracing.clear()
+    tracing.enable(sync=True)
+    try:
+        res, plain_ms = _timed_once(torch, lambda: dsygvdx(a, b, il=1, iu=iu, cfg=cfg_plain))
+    finally:
+        tracing.disable()
+    stages = {}
+    for name, sec in tracing.timings():
+        stages[name] = stages.get(name, 0.0) + sec * 1e3
+    tracing.clear()
+    resid = check(res, "two-stage real path (plain route)")
+    if any(fn.launches for fn in wrappers):
+        raise RuntimeError("mosaic_kernels=False launched a kernel of the two-stage path")
+    log(f"main real two-stage mosaic_kernels=False: n={n} iu={iu} info=0 residual={resid:.3e} "
+        f"one solve with synchronizing ranges {plain_ms:.1f} ms")
+    log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
+    return counts
+
+
 def phase_reference_real(torch):
     import numpy as np
     import scipy.linalg
 
-    from eigensolver_gpu_torch import dsygvdx
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
     from eigensolver_gpu_torch.utils.testing import ge_residual, random_spd_pair
 
     n, iu = N_REF_REAL, IU_REF_REAL
     a, b = random_spd_pair(n, seed=1)
-    res = dsygvdx(a, b, il=1, iu=iu, device="cuda")  # pure fp64, default config
-    w, z = res.w.cpu().numpy(), res.z.cpu().numpy()
     w_ref = scipy.linalg.eigh(a, b, eigvals_only=True, subset_by_index=[0, iu - 1])
-    err = float(np.abs(w - w_ref).max())
-    resid = ge_residual(a, b, w, z)
-    log(f"reference real n={n} iu={iu} fp64: max |w - scipy| = {err:.3e} "
-        f"(tol {1e-10 * n:.1e}), ge_residual = {resid:.3e}, info={int(res.info)}")
-    if not err <= 1e-10 * n or int(res.info) != 0 or not resid < 1e-12:
-        raise RuntimeError("real reference comparison failed")
+    # pure fp64: the default config (one-stage at this n), then two-stage
+    # through the fp64 instances of K5, K7 and K9
+    for mode in ("auto", "two"):
+        res = dsygvdx(a, b, il=1, iu=iu, device="cuda", cfg=SolverConfig(tridiag_mode=mode))
+        w, z = res.w.cpu().numpy(), res.z.cpu().numpy()
+        err = float(np.abs(w - w_ref).max())
+        resid = ge_residual(a, b, w, z)
+        log(f"reference real n={n} iu={iu} fp64 tridiag_mode={mode}: max |w - scipy| = {err:.3e} "
+            f"(tol {1e-10 * n:.1e}), ge_residual = {resid:.3e}, info={int(res.info)}")
+        if not err <= 1e-10 * n or int(res.info) != 0 or not resid < 1e-12:
+            raise RuntimeError(f"real reference comparison failed (tridiag_mode={mode})")
 
 
 def main():
@@ -581,11 +950,13 @@ def main():
     try:
         phase_device(torch)
         phase_build()
-        kernels = [check_k1(torch), check_k2(torch), check_k3(torch), check_k4(torch)]
+        kernels = [check_k1(torch), check_k2(torch), check_k3(torch), check_k4(torch),
+                   check_k5(torch), check_k7(torch), check_k9(torch)]
         launches = phase_main(torch)
         phase_reference(torch)
         launches["symv"] = phase_main_real(torch)
         phase_reference_real(torch)
+        launches.update(phase_main_real_two(torch))
     except Exception:  # noqa: BLE001 -- report and fail the smoke run
         traceback.print_exc()
         return 1

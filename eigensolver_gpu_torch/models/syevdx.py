@@ -10,15 +10,17 @@ destroyed.
 For Hermitian input the tridiagonal matrix is real; the real stedc
 output is cast back to the complex dtype only for the WY back-transform.
 
-Not ported yet: the two-stage reduction (sbrd + bulge chase).
-``tridiag_mode='two'`` raises NotImplementedError on real input (complex
-input is one-stage in every mode, as in the JAX package), and ``'auto'``
-stays one-stage at every size. The JAX ``'auto'`` switches to two-stage for
-fp64 compute at n >= ``two_stage_min_n`` (4096), so a pure-fp64 solve of
-that size takes another reduction here than there until the two-stage
-path is ported: a missing branch, not a different result (both
-reductions give the same eigenpairs to tolerance). ``mesh`` (row
-sharding) is not carried either.
+The two-stage reduction (ops/sbrd.py -> ops/sb2st.py, replayed by
+``apply_q2`` then ``apply_q1``) follows the JAX rule: real input with
+``tridiag_mode='two'``, or ``'auto'`` with fp64 compute at
+n >= ``two_stage_min_n``; complex input is one-stage in every mode. The
+JAX ``'auto'`` rule for fp32 compute is "n >= 8192 on a TPU backend",
+false on every other backend, so fp32 ``'auto'`` stays one-stage here.
+With ``cfg.mosaic_kernels`` (the default) the panel, the chase and the
+replay go through their kernel wrappers (K5, K7, K9 on CUDA tensors,
+the plain versions on CPU tensors); without it they take the plain torch
+functions. There is no probe and no fallback: a kernel that cannot take
+its arguments raises. ``mesh`` (row sharding) is not carried.
 """
 
 from __future__ import annotations
@@ -55,11 +57,49 @@ def _pad_decoupled(a, npad):
     return out
 
 
-def _tridiag_reduce(a_p, cfg):
+def _use_two_stage(n, cfg, iscomplex, compute_is_f64):
+    """Whether the two-stage reduction (sbrd + bulge chase) replaces the
+    one-stage Householder loop: the JAX package's rule (see the module
+    docstring), its thresholds not re-tuned for this card."""
+    if iscomplex or cfg.tridiag_mode == "one":
+        return False
+    if cfg.tridiag_mode == "two":
+        return True
+    return compute_is_f64 and n >= cfg.two_stage_min_n
+
+
+def _tridiag_reduce(a_p, cfg, two_stage):
     """Reduce symmetric/Hermitian ``a_p`` (padded) to tridiagonal (d, e);
     returns (d, e, back) with ``back(z)`` applying the accumulated
-    orthogonal transform Q to tridiagonal eigenvector columns z.
-    One-stage only (see the module docstring)."""
+    orthogonal transform Q to tridiagonal eigenvector columns z."""
+    if two_stage:
+        from eigensolver_gpu_torch.ops.sb2st import apply_q2, bulge_chase, dense_to_band
+        from eigensolver_gpu_torch.ops.sbrd import apply_q1, sbrd
+
+        npad = a_p.shape[0]
+        ab, vs, ts = sbrd(a_p, band=cfg.band, bucket=512, panel_kernel=cfg.mosaic_kernels)
+        band = dense_to_band(ab, cfg.band)
+        if cfg.mosaic_kernels:
+            from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+
+            d, e, vt, taut = bulge_chase_kernel(band, cfg.band)
+        else:
+            d, e, vt, taut = bulge_chase(band, cfg.band)
+        # replay group size: the JAX default, 3*band in fp32 (l_win = 127
+        # at band 32) and band in fp64
+        g = cfg.replay_g or (3 * cfg.band if ab.dtype == torch.float32 else cfg.band)
+
+        def back(z):
+            if cfg.mosaic_kernels:
+                from eigensolver_gpu_torch.ops.replay import apply_q2_kernel
+
+                z2 = apply_q2_kernel(vt, taut, z, npad, cfg.band, g=g)
+            else:
+                z2 = apply_q2(vt, taut, z, npad, cfg.band, g=g)
+            return apply_q1(vs, ts, z2)
+
+        return d, e, back
+
     a_packed, d, e, tau = sytrd(
         a_p, nb=cfg.nb_tridiag, bucket=256, use_pallas=cfg.use_pallas
     )
@@ -86,16 +126,16 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
         with trace_range("syevdx_xla"):
             w, z = torch.linalg.eigh(a)
             return w[il - 1 : iu], z[:, il - 1 : iu]
-    # complex input is one-stage whatever the mode, as in the JAX package
-    if cfg.tridiag_mode == "two" and not iscomplex:
-        raise NotImplementedError(
-            "tridiag_mode='two' (two-stage reduction) is not ported yet"
-        )
 
     rdt = a.real.dtype
     mixed = cfg.compute_dtype == "float32" and rdt == torch.float64
-    nb = cfg.nb_tridiag
+    two_stage = _use_two_stage(n, cfg, iscomplex, rdt == torch.float64 and not mixed)
+    nb = cfg.band if two_stage else cfg.nb_tridiag
     npad = -(-n // nb) * nb
+    if two_stage and npad < 3 * cfg.band:
+        two_stage = False
+        nb = cfg.nb_tridiag
+        npad = -(-n // nb) * nb
 
     if mixed:
         # O(n^3) factorization stages in fp32, then Ogita-Aishima sweeps
@@ -105,7 +145,7 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
         lo_dt = torch.complex64 if iscomplex else torch.float32
         a_p = _pad_decoupled(a.to(lo_dt), npad)
         with trace_range("syevdx_fp32"):
-            d, e, back = _tridiag_reduce(a_p, cfg)
+            d, e, back = _tridiag_reduce(a_p, cfg, two_stage)
             w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
             z_tri = q_tri.to(lo_dt) if iscomplex else q_tri
             x32 = back(z_tri[:, :n])[:n]
@@ -125,7 +165,7 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
 
     a_p = _pad_decoupled(a, npad)
     with trace_range("syevdx"):
-        d, e, back = _tridiag_reduce(a_p, cfg)
+        d, e, back = _tridiag_reduce(a_p, cfg, two_stage)
         w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
         # the decoupled padding sorts above the true spectrum, so indices
         # il..iu of the first n entries are the requested pairs

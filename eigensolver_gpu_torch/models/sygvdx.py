@@ -84,6 +84,7 @@ def sygvdx(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             sygst_mode=cfg.sygst_mode, use_pallas=cfg.use_pallas,
             tridiag_mode=cfg.tridiag_mode, band=cfg.band,
             two_stage_min_n=cfg.two_stage_min_n, replay_g=cfg.replay_g,
+            mosaic_kernels=cfg.mosaic_kernels,
         )
         w32, z32, info = sygvdx(a.float(), b.float(), il=1, iu=n, cfg=inner)
         # refine only the il..iu block + cluster-guard margin against the

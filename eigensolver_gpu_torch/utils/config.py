@@ -6,18 +6,23 @@ hold the two against each other. Options whose code path has not been
 ported yet are accepted here and refused with ``NotImplementedError``
 where the solver would take them:
 
-  * ``tridiag_mode='two'`` (the two-stage reductions, real and planar);
+  * ``tridiag_mode='two'`` on the planar path (models/zhegvdx_planar.py;
+    the real two-stage reduction is ported: models/syevdx.py);
   * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``).
 
 ``use_pallas`` keeps its JAX name: it selects the hand-written latrd
 panel kernel (ops/latrd.py) for the planar hetrd column loop, and the
 upper-tile symv kernel (ops/symv.py) for the real sytrd column loop.
-``mosaic_kernels`` is kept for parity and has no effect: the fp32
-Cholesky always factors its diagonal blocks with kernel K1
-(ops/pchol.py), which is the CUDA kernel on the card and its plain
-version on CPU tensors.
-``'auto'`` tridiagonalization stays one-stage at every size (see
-models/syevdx.py for what that means against the JAX package).
+``mosaic_kernels`` keeps its JAX name too: on the real two-stage path it
+selects the kernel wrappers for the QL panel, the bulge chase and the
+replay (ops/ql_panel.py, ops/chase.py, ops/replay.py: the CUDA kernels
+on the card, their plain versions on CPU tensors); False takes the plain
+torch functions of ops/sbrd.py and ops/sb2st.py. It has no effect on the
+fp32 Cholesky, which always factors its diagonal blocks with kernel K1
+(ops/pchol.py).
+``'auto'`` tridiagonalization follows the JAX rule for fp64 compute
+(two-stage at n >= ``two_stage_min_n``) and stays one-stage for fp32
+compute (see models/syevdx.py).
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ class SolverConfig:
     See the JAX twin for the meaning of each field; the port reads
     nb_sygst, nb_tridiag, nb_back, stedc_leaf, stedc_backend,
     sygst_mode, compute_dtype, refine_iters, use_pallas, tridiag_mode,
-    refine_margin, refine_extra_max and planar_solve_mode.
+    band, two_stage_min_n, replay_g, mosaic_kernels, refine_margin,
+    refine_extra_max and planar_solve_mode.
     """
 
     nb_sygst: int = 512

@@ -1,4 +1,5 @@
-"""The port's kernels against their plain PyTorch versions on the card.
+"""The port's kernels (K1..K5, K7, K9) against their plain PyTorch versions
+on the card.
 
 Needs an NVIDIA GPU with nvcc; skips with a reason elsewhere. Imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -12,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
 from eigensolver_gpu_torch.ops.latrd import latrd_panel_plain, latrd_panel_planar
 from eigensolver_gpu_torch.ops.pchol import pchol_block_plain, pchol_block_planar
+from eigensolver_gpu_torch.ops.ql_panel import ql_panel, ql_panel_plain
+from eigensolver_gpu_torch.ops.replay import apply_q2_kernel
+from eigensolver_gpu_torch.ops.sb2st import apply_q2, bulge_chase, dense_to_band
 from eigensolver_gpu_torch.ops.symv import hemv_planar, hemv_planar_plain, symv, symv_plain
 
 torch.set_num_threads(2)
@@ -92,8 +97,94 @@ def test_symv_and_hemv_kernels_match_plain(cuda_device, n, dtype):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
     assert torch.equal(got, symv(ta, tv))
     if dtype == torch.float32:
-        ti = torch.triu(ta, 1) - torch.triu(ta, 1).T
+        # the antisymmetric plane as a view with ta's row stride
+        up = torch.triu(torch.tensor(t, dtype=dtype, device=cuda_device), 1)
+        ti = (up - up.T)[:n, :n]
         got = hemv_planar(ta, ti, tv, tv.flip(0))
         want = hemv_planar_plain(ta, ti, tv, tv.flip(0))
         for g, w in zip(got, want):
             assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,rb,dtype", [
+    (512, 32, 448, torch.float32), (1000, 24, 500, torch.float32),
+    (128, 16, 64, torch.float32), (512, 32, 448, torch.float64)])
+def test_ql_panel_kernel_matches_plain(cuda_device, m, b, rb, dtype):
+    """K5 within 1e-4 relative of its plain version in fp32 (sums in
+    another order), 1e-11 in fp64, on a column slice of a wider matrix;
+    the trivial-column contract (tau = 0, v = 0, column kept) exactly."""
+    rng = np.random.default_rng(m)
+    wide = torch.tensor(rng.standard_normal((m, b + 40)), dtype=dtype, device=cuda_device)
+    p = wide[:, 11 : 11 + b]
+    if m == 128:
+        p[: rb + b - 1, b - 1] = 0.0
+    before = ql_panel.launches
+    got = ql_panel(p, rb)
+    assert ql_panel.launches == before + 1
+    want = ql_panel_plain(p, rb)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) <= tol
+    if m == 128:
+        assert float(got[2][b - 1]) == 0.0 and float(got[1][:, b - 1].abs().max()) == 0.0
+        assert torch.equal(got[0][:, b - 1], p[:, b - 1])
+
+
+def _band(n, b, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((n, n))
+    a = (t + t.T) / 2
+    a[np.abs(np.subtract.outer(np.arange(n), np.arange(n))) > b] = 0
+    return a, dense_to_band(torch.tensor(a, dtype=dtype, device=dev), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,dtype", [(100, 6, torch.float32), (300, 32, torch.float32),
+                                       (100, 6, torch.float64), (300, 32, torch.float64)])
+def test_chase_kernel_matches_plain(cuda_device, n, b, dtype):
+    """K7 against its plain version: d, e, tau and the active reflectors
+    within 1e-3 relative in fp32 at these sizes (drift along the dependent
+    steps), 1e-9 in fp64; the spectrum kept; two calls bit-identical."""
+    a, band = _band(n, b, dtype, cuda_device, n)
+    before = bulge_chase_kernel.launches
+    got = bulge_chase_kernel(band, b)
+    assert bulge_chase_kernel.launches == before + 1
+    want = bulge_chase(band, b)
+    act = (want[3] != 0)[..., None]
+    tol = 1e-3 if dtype == torch.float32 else 1e-9
+    pairs = [(got[0], want[0]), (got[1].abs(), want[1].abs()),
+             ((got[2] * act).abs(), (want[2] * act).abs()), (got[3], want[3])]
+    for g, w in pairs:
+        assert g.shape == w.shape and _rel(g, w) <= tol
+    assert all(torch.equal(x, y) for x, y in zip(got, bulge_chase_kernel(band, b)))
+    d, e = got[0].double().cpu().numpy(), got[1].double().cpu().numpy()
+    w = np.linalg.eigvalsh(np.diag(d) + np.diag(e, 1) + np.diag(e, -1))
+    assert np.abs(w - np.linalg.eigvalsh(a)).max() < (1e-4 if dtype == torch.float32 else 1e-12) \
+        * np.abs(a).max() * np.sqrt(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,g,m,dtype", [(512, 32, 96, 100, torch.float32),
+                                           (300, 8, 24, 70, torch.float32),
+                                           (250, 6, 5, 3, torch.float32),
+                                           (300, 32, 32, 64, torch.float64)])
+def test_replay_kernel_matches_plain(cuda_device, n, b, g, m, dtype):
+    """K9 within 1e-4 relative of sb2st.apply_q2 in fp32 (window sums in
+    another order), 1e-11 in fp64, on a column slice of a wider y."""
+    _, band = _band(n, b, dtype, cuda_device, n + 1)
+    _, _, vt, taut = bulge_chase_kernel(band, b)
+    rng = np.random.default_rng(m)
+    wide = torch.tensor(rng.standard_normal((n, m + 9)), dtype=dtype, device=cuda_device)
+    y = wide[:, 4 : 4 + m]
+    before = apply_q2_kernel.launches
+    got = apply_q2_kernel(vt, taut, y, n, b, g=g)
+    assert apply_q2_kernel.launches == before + 1
+    want = apply_q2(vt, taut, y, n, b, g=g)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-11)
+    assert _rel(want, y) > 0.1  # the replay moves y

@@ -100,7 +100,7 @@ def test_loader_raises_without_a_compiler(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel_guard.load("pchol_block")
     assert {p.stem for p in kernel_guard.CSRC.glob("*.cu")} == {
-        "latrd_panel", "pchol_block", "symv"}
+        "chase", "latrd_panel", "pchol_block", "ql_panel", "replay", "symv"}
 
 
 def _imports(path):
@@ -120,7 +120,8 @@ _PORT_FILES = sorted(
 def test_port_file_list_covers_the_package():
     assert len(_PORT_FILES) > 25
     for name in ("models/sygvdx.py", "models/syevdx.py", "ops/symv.py", "ops/sytrd.py",
-                 "ops/refine.py", "utils/kernel_guard.py"):
+                 "ops/refine.py", "utils/kernel_guard.py", "ops/sbrd.py", "ops/sb2st.py",
+                 "ops/ql_panel.py", "ops/chase.py", "ops/replay.py"):
         assert f"eigensolver_gpu_torch/{name}" in _PORT_FILES
 
 

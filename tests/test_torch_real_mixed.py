@@ -26,6 +26,7 @@ _CASES = {
     # name: (driver, n, dtype, config, il, iu)
     "dsygvdx_odd_padding": ("dsygvdx", 96, np.float64, _MIXED, 1, 12),
     "syevdx_interior_range": ("syevdx", 128, np.float64, _MIXED, 40, 71),
+    "dsygvdx_two_stage": ("dsygvdx", 128, np.float64, dict(tridiag_mode="two", **_MIXED), 1, 16),
 }
 
 

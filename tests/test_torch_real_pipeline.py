@@ -6,8 +6,9 @@ The same numpy inputs, made from a seed, go through
 ``utils.convert.dense_from_numpy`` into the port (CPU tensors, so the
 kernel wrappers take their plain versions) and straight into the JAX
 drivers (XLA branches; the Pallas symv in interpret mode where
-``use_pallas`` reaches it). The fp64-input mixed-precision cases, whose
-JAX side compiles slowly, are in tests/test_torch_real_mixed.py.
+``use_pallas`` reaches it; its XLA two-stage route under
+``tridiag_mode='two'``). The fp64-input mixed-precision cases, whose JAX
+side compiles slowly, are in tests/test_torch_real_mixed.py.
 """
 
 import numpy as np
@@ -46,6 +47,18 @@ _CASES = {
     "syevdx_c128": ("syevdx", 96, np.complex128, {}, 1, 12),
     "syevdx_f32_top": ("syevdx", 128, np.float32, {}, 120, 128),
     "syevdx_xla": ("syevdx", 128, np.float64, dict(stedc_backend="xla"), 1, 8),
+    # the two-stage reduction (sbrd -> bulge chase -> Q2/Q1 replay): the port
+    # on CPU tensors takes the kernels' plain versions, JAX its XLA route
+    "f64_two_stage": ("dsygvdx", 128, np.float64, dict(tridiag_mode="two"), 1, 16),
+    "f64_two_stage_odd_n_band8": ("dsygvdx", 100, np.float64,
+                                  dict(tridiag_mode="two", band=8), 2, 17),
+    "f32_two_stage": ("dsygvdx", 128, np.float32, dict(tridiag_mode="two"), 1, 16),
+    "f64_auto_goes_two_stage": ("sygvdx", 128, np.float64, dict(two_stage_min_n=96), 1, 16),
+    "f64_two_stage_below_3_bands_is_one_stage": ("dsygvdx", 64, np.float64,
+                                                 dict(tridiag_mode="two"), 1, 8),
+    "f64_two_stage_plain_route": ("dsygvdx", 128, np.float64,
+                                  dict(tridiag_mode="two", mosaic_kernels=False), 1, 16),
+    "syevdx_two_stage_top": ("syevdx", 128, np.float64, dict(tridiag_mode="two"), 120, 128),
 }
 
 
@@ -137,10 +150,6 @@ def test_only_the_upper_triangles_are_read(dtype):
 
 def test_unported_options_raise():
     a, b = make_pair(32, np.float64)
-    with pytest.raises(NotImplementedError):
-        eig.dsygvdx(a, b, cfg=eig.SolverConfig(tridiag_mode="two"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eig.syevdx(torch.from_numpy(a), cfg=eig.SolverConfig(tridiag_mode="two"))
     from eigensolver_gpu_torch.ops.refine import refine_gevp
 
     ta, tb = dense_from_numpy(a, b, device="cpu")
