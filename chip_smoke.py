@@ -12,16 +12,19 @@ non-zero without printing a result:
   2. build   -- nvcc builds every csrc/*.cu (one process per source, all
                 at once); prints the seconds;
   3. kernels -- each hand-written kernel (K1 Cholesky block, K2 latrd
-                panel, K3 planar hemv, K4 symv, K5 QL panel, K7 bulge
-                chase, K9 chase replay) against its plain PyTorch version
-                on the same inputs on the card, with times of kernel,
-                plain version and a library yardstick; K3 also through
-                the planar column loop that launches it;
+                panel, K3 planar hemv, K4 symv, K5 and K6 QL panel real
+                and planar, K7 and K8 bulge chase, K9 and K10 chase
+                replay) against its plain PyTorch version on the same
+                inputs on the card, with times of kernel, plain version
+                and a library yardstick; K3 also through the planar column
+                loop that launches it;
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
-                (K1 and K2): launch counts from one solve, then timed
-                solves, residual computed on the device;
-  5. reference -- n=1024 eigenvalues against scipy.linalg.eigh;
+                (K1 and K2): launch counts from one solve, then a timed
+                solve, residual computed on the device;
+  5. reference -- n=1024 eigenvalues against scipy.linalg.eigh, mixed
+                one-stage, then pure fp64 with tridiag_mode='two' (the
+                fp64 instances of K6, K8, K10);
   6. main (real) -- dsygvdx n=4096, il=1..iu=512, fp32 pipeline + fp64
                 refinement, with use_pallas False and True (kernel K4 on
                 every panel column of the 512-aligned buckets);
@@ -31,7 +34,12 @@ non-zero without printing a result:
   8. main (real, two-stage) -- the same dsygvdx n=4096 solve with
                 tridiag_mode='two': sbrd (K5 per panel), bulge chase
                 (K7), replay (K9) and apply_q1, then one solve with
-                mosaic_kernels=False (the plain torch route).
+                mosaic_kernels=False (the plain torch route);
+  9. main (planar, two-stage) -- the zhegvdx n=4096 iu=1024 solve of
+                phase 4 with tridiag_mode='two': psbrd (K6 per panel),
+                planar bulge chase (K8), phase normalisation, replay (K10)
+                and apply_q1_planar, then one n=1024 solve with
+                mosaic_kernels=False (no launch of K1, K6, K8, K10).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -71,6 +79,20 @@ K7_HEAD = 64  # sweeps held elementwise in fp32
 K7_SPEC_TOL, K7_SPEC_TOL64 = 1e-4, 1e-12  # spectrum and similarity, relative
 K9_TOL = 1e-4  # relative max error, fp32: 127-term sums in another order
 K9_TOL64 = 1e-11
+# K6: as K5, both planes (complex sums of length <= 4096 in another order)
+K6_TOL, K6_TOL64 = 1e-4, 1e-11
+# K8: as K7. The subdiagonal is complex and its phase is a worse-conditioned
+# function of the band than K7's signs, so fp64 is held everywhere (d, both
+# planes of e, tau and the active reflectors) and fp32 on its first K7_HEAD
+# sweeps through d, |e|, |tau| and the moduli of the reflector entries; the
+# whole fp32 output is held through the spectrum of (d, |e|) and
+# Q2 (D T D^H) Q2^H = A_band with D from phase_normalize
+K8_TOL, K8_TOL64 = 1e-3, 1e-7
+K8_SPEC_TOL, K8_SPEC_TOL64 = 1e-4, 1e-12
+N_K8_HELD = 1024  # the fp64 instance and the plain route are held at this n
+K10_TOL = 1e-4  # relative max error, fp32: 127-term complex sums in another order
+K10_TOL64 = 1e-11
+N_PLAIN_ROUTE = 1024  # planar mosaic_kernels=False solve (the eager chase is slow)
 
 
 def log(msg):
@@ -607,7 +629,7 @@ def _k9_work(n, m, b, g, itemsize):
     from eigensolver_gpu_torch.ops.sb2st import chase_dims
 
     geo = _geometry(n, b, g)
-    valid, _ = _wave_gather(geo, n, b, g, geo["kmax"] + 2, geo["n_groups"] * g + g)
+    valid, _ = _wave_gather(geo, n, b, g, geo["n_groups"] * g + g, geo["kmax"] + 2)
     windows = int(valid.sum())
     l_win = geo["l_win"]
     s_slots, _, t3 = chase_dims(n, b)
@@ -671,6 +693,277 @@ def check_k9(torch):
         "name": "apply_q2_kernel", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/replay.cu",
         "replaces": "eigensolver_gpu_tpu/ops/replay_pallas.py:674",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def _k6_work(m, b, rb, itemsize):
+    """Both planes of the panel read once, of r and v written once, tau and
+    T; per column the norm, the complex scaling, v^H P and the rank-1 update
+    of the columns before it; then the complex gram and larft recurrence."""
+    nbytes = itemsize * 2 * (3 * m * b + b + b * b)
+    flops = 0
+    for j in range(b):
+        top = rb + j
+        flops += 4 * top + 6 * top + 16 * (top + 1) * j
+    flops += 8 * (rb + b) * b * b + 8 * b * b * b // 3
+    return nbytes, flops
+
+
+def check_k6(torch):
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar, ql_panel_planar_plain
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    dev = "cuda"
+    rng = np.random.default_rng(6)
+    big_r = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
+    big_i = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
+    r32, i32 = big_r.float(), big_i.float()
+    tr_r, tr_i = r32[:128, :16].clone(), i32[:128, :16].clone()
+    tr_r[: 64 + 15, 15] = 0.0  # last column: zero tail, real pivot (trivial)
+    tr_i[: 64 + 16, 15] = 0.0
+    tr_r[: 64 + 14, 14] = 0.0  # the one before: zero tail, complex pivot
+    tr_i[: 64 + 14, 14] = 0.0
+    sl = lambda x, rows, c0, c1: x[:rows, c0:c1]
+    cases = [  # (label, real plane, imaginary plane, rows_below, tolerance)
+        ("(4096, 32) rb=4032", r32[:, :32].contiguous(), i32[:, :32].contiguous(), 4032, K6_TOL),
+        ("(4096, 32) rb=4032, column slices of 4096^2", sl(r32, 4096, 4032, 4064),
+         sl(i32, 4096, 4032, 4064), 4032, K6_TOL),
+        ("(2048, 32) rb=1984, slices of a leading block", sl(r32, 2048, 2016, 2048),
+         sl(i32, 2048, 2016, 2048), 1984, K6_TOL),
+        ("(1000, 24) rb=500", sl(r32, 1000, 7, 31), sl(i32, 1000, 7, 31), 500, K6_TOL),
+        ("(128, 16) rb=64 trivial and phase-only columns", tr_r, tr_i, 64, K6_TOL),
+        ("(1024, 32) rb=960 fp64", sl(big_r, 1024, 64, 96), sl(big_i, 1024, 64, 96), 960,
+         K6_TOL64),
+    ]
+    names = ["pf_r", "pf_i", "v_r", "v_i", "tau_r", "tau_i", "t_r", "t_i"]
+    max_abs = 0.0
+    for label, pr, pi, rb, tol in cases:
+        got = ql_panel_planar(pr, pi, rb)
+        want = ql_panel_planar_plain(pr, pi, rb)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if tol == K6_TOL:
+            max_abs = max(max_abs, max(e[1] for e in errs))
+        log(f"K6 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
+        if any(g.shape != w.shape for g, w in zip(got, want)) or not max(e[0] for e in errs) <= tol:
+            raise RuntimeError(f"K6 disagrees with its plain version at {label}")
+        b = pr.shape[1]
+        if any(float(got[1][: rb + j + 1, j].abs().max()) != 0.0 for j in range(b)):
+            raise RuntimeError(f"K6 left an imaginary part on or above a pivot at {label}")
+        if "trivial" in label:
+            if float(got[4][b - 1]) != 0.0 or float(got[5][b - 1]) != 0.0 \
+                    or float(got[2][:, b - 1].abs().max()) != 0.0 \
+                    or not torch.equal(got[0][:, b - 1], pr[:, b - 1]):
+                raise RuntimeError("K6 trivial column: tau, v or the column break the contract")
+            if float(got[5][b - 2]) == 0.0 or float(got[2][rb + b - 2, b - 2]) != 1.0:
+                raise RuntimeError("K6 phase-only column: a complex pivot must give a reflector")
+    _, pr, pi, rb, _ = cases[1]
+    if not all(torch.equal(x, y) for x, y in zip(ql_panel_planar(pr, pi, rb),
+                                                 ql_panel_planar(pr, pi, rb))):
+        raise RuntimeError("K6 is not reproducible from run to run")
+    ms = device_ms(lambda: ql_panel_planar(pr, pi, rb), iters=20)
+    plain_ms = device_ms(lambda: ql_panel_planar_plain(pr, pi, rb), iters=2)
+    bound_ms, bound_by = bound(*_k6_work(4096, 32, rb, 4))
+    log(f"K6 times at (4096, 32) rb={rb} fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}); no single library call returns a planar QL "
+        "panel with its T (library_ms null)")
+    return {
+        "name": "ql_panel_planar", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/ql_panel_planar.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/ql_panel_pallas.py:251",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def _random_hband(torch, n, b, seed, dtype):
+    """Both lower band planes (n, 2b) of a random Hermitian matrix of
+    half-width b (real diagonal), and the same in scipy's lower banded form
+    (b + 1, n), complex."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((2, n, 2 * b))
+    planes[0, :, : b + 1] = rng.standard_normal((n, b + 1))
+    planes[1, :, 1 : b + 1] = rng.standard_normal((n, b))
+    j, d = np.arange(n)[:, None], np.arange(2 * b)[None, :]
+    planes[:, j + d >= n] = 0.0
+    planes = planes.astype(np.float32 if dtype == torch.float32 else np.float64)
+    sci = np.ascontiguousarray((planes[0] + 1j * planes[1])[:, : b + 1].T, dtype=np.complex128)
+    return torch.tensor(planes[0], device="cuda"), torch.tensor(planes[1], device="cuda"), sci
+
+
+def _hband_dense(torch, band_r, band_i):
+    """The Hermitian matrix of two lower band planes, complex128."""
+    n, w = band_r.shape
+    low = torch.zeros((n, n), dtype=torch.complex128, device=band_r.device)
+    for d in range(min(w, n)):
+        low += torch.diag(torch.complex(band_r[: n - d, d].double(), band_i[: n - d, d].double()), -d)
+    return low + torch.tril(low, -1).conj().T
+
+
+def _k8_checks(torch, out, band_r, band_i, sci, b):
+    """What a whole planar chase must satisfy, whatever its rounding: the
+    spectrum of (d, |e|) is the band matrix's, and Q2 (D T D^H) Q2^H (Q2
+    from the plain replay of these reflectors, D from phase_normalize)
+    gives the band matrix back. Returns the two relative errors."""
+    import numpy as np
+    import scipy.linalg
+
+    from eigensolver_gpu_torch.ops.sb2st_planar import apply_q2_planar, phase_normalize
+
+    d, e, vt, taut = out
+    n = d.shape[0]
+    (p_r, p_i), mag = phase_normalize(*e)
+    w_band = scipy.linalg.eigvals_banded(sci, lower=True)
+    w = scipy.linalg.eigvalsh_tridiagonal(d.double().cpu().numpy(), mag.double().cpu().numpy())
+    spec = float(np.abs(w - w_band).max() / np.abs(w_band).max())
+    eye = torch.eye(n, dtype=d.dtype, device="cuda")
+    q2 = torch.complex(*apply_q2_planar(vt, taut, (eye, torch.zeros_like(eye)), n, b, g=b))
+    q2d = q2.to(torch.complex128) * torch.complex(p_r.double(), p_i.double())[None, :]
+    tri = torch.diag(d.double()) + torch.diag(mag.double(), 1) + torch.diag(mag.double(), -1)
+    dense = _hband_dense(torch, band_r, band_i)
+    sim = float((q2d @ tri.to(torch.complex128) @ q2d.conj().T - dense).abs().max()
+                / dense.abs().max())
+    return spec, sim
+
+
+def check_k8(torch):
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.sb2st_planar import bulge_chase_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    flat = lambda o: [o[0], o[1][0], o[1][1], o[2][0], o[2][1], o[3][0], o[3][1]]
+    record = {}
+    # the plain chase costs about a millisecond a timestep: it runs at
+    # n = 4096 once, in the main path's type; the fp64 instance is held at
+    # N_K8_HELD and checked through spectrum and similarity at n = 4096
+    for n, b, dtype, with_plain in (
+            (100, 6, torch.float32, True), (100, 6, torch.float64, True),
+            (N_K8_HELD, BAND, torch.float64, True), (4096, BAND, torch.float64, False),
+            (4096, BAND, torch.float32, True)):
+        f32 = dtype == torch.float32
+        label = f"n={n} b={b} {'fp32' if f32 else 'fp64'}"
+        band_r, band_i, sci = _random_hband(torch, n, b, 8, dtype)
+        got = bulge_chase_planar_kernel(band_r, band_i, b)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(flat(got), flat(bulge_chase_planar_kernel(band_r, band_i, b)))):
+            raise RuntimeError(f"K8 is not reproducible from run to run at {label}")
+        spec, sim = _k8_checks(torch, got, band_r, band_i, sci, b)
+        tol, spec_tol = (K8_TOL, K8_SPEC_TOL) if f32 else (K8_TOL64, K8_SPEC_TOL64)
+        msg = f"K8 {label}: spectrum of (d, |e|) vs the band matrix {spec:.1e}, " \
+              f"Q2 (D T D^H) Q2^H vs the band matrix {sim:.1e}"
+        errs = []
+        if with_plain:
+            want, plain_ms = _timed_once(torch, lambda: bulge_chase_planar(band_r, band_i, b))
+            if any(g.shape != w.shape for g, w in zip(flat(got), flat(want))):
+                raise RuntimeError(f"K8 output shapes differ from the plain version at {label}")
+            act = ((want[3][0] != 0) | (want[3][1] != 0))[..., None]
+            g, w = flat(got), flat(want)
+            for k in (3, 4):  # a reflector whose tau is 0 is read by nobody
+                g[k], w[k] = g[k] * act, w[k] * act
+            full = [rel_err(x, y)[0] for x, y in zip(g, w)]
+            if f32:
+                # moduli on the first sweeps: d, |e|, |v|, |tau|
+                h = min(K7_HEAD, n - 1)
+                mod = lambda o: [o[0][:h], torch.hypot(o[1], o[2])[:h],
+                                 torch.hypot(o[3], o[4])[: 3 * h], torch.hypot(o[5], o[6])[: 3 * h]]
+                errs = [rel_err(x, y) for x, y in zip(mod(g), mod(w))]
+                msg += (f"; rel_err vs plain on the first {h} sweeps d={errs[0][0]:.1e} "
+                        f"|e|={errs[1][0]:.1e} |vt|={errs[2][0]:.1e} |taut|={errs[3][0]:.1e}")
+            else:
+                errs = [rel_err(x, y) for x, y in zip(g, w)]
+            msg += "; whole arrays, both planes: " + " ".join(
+                f"{k}={x:.1e}" for k, x in zip(("d", "e_r", "e_i", "vt_r", "vt_i", "taut_r",
+                                                "taut_i"), full))
+            wspec, wsim = _k8_checks(torch, want, band_r, band_i, sci, b)
+            msg += f"; plain version: spectrum {wspec:.1e}, similarity {wsim:.1e}"
+        log(msg)
+        if not spec <= spec_tol or not sim <= spec_tol \
+                or (errs and not max(x[0] for x in errs) <= tol):
+            raise RuntimeError(f"K8 disagrees with its plain version at {label}")
+        if n == 4096:
+            ms = device_ms(lambda: bulge_chase_planar_kernel(band_r, band_i, b), iters=3)
+            nbytes, flops, windows = _k7_work(n, b, 4 if f32 else 8)
+            bound_ms, bound_by = bound(2 * nbytes, 4 * flops)  # two planes, complex products
+            log(f"K8 times at {label}: kernel {ms:.3f} ms"
+                + (f", plain {plain_ms:.1f} ms" if with_plain else "")
+                + f", bound {bound_ms:.4f} ms ({bound_by}; {windows} windows); no single "
+                "library call chases a Hermitian band to tridiagonal (library_ms null)")
+            if f32:
+                record = {
+                    "name": "bulge_chase_planar_kernel", "route": "cuda",
+                    "source": "eigensolver_gpu_torch/csrc/chase_planar.cu",
+                    "replaces": "eigensolver_gpu_tpu/ops/chase_pallas.py:804",
+                    "max_abs_err": max(x[1] for x in errs), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                }
+    return record
+
+
+def check_k10(torch):
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel, window_qs_planar
+    from eigensolver_gpu_torch.ops.sb2st_planar import apply_q2_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    rng = np.random.default_rng(10)
+    max_abs = 0.0
+    n, b, g = 4096, BAND, REPLAY_G
+    band_r, band_i, _ = _random_hband(torch, n, b, 10, torch.float32)
+    _, _, vt, taut = bulge_chase_planar_kernel(band_r, band_i, b)
+    y_all = torch.tensor(rng.standard_normal((2, n, 4096)), dtype=torch.float32, device="cuda")
+    for m in (512, 100, 4096):
+        y = (y_all[0, :, :m], y_all[1, :, :m])  # column slices: the wrapper takes any layout
+        got = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+        want = apply_q2_planar(vt, taut, y, n, b, g=g)
+        torch.cuda.synchronize()
+        errs = [rel_err(x, w) for x, w in zip(got, want)]
+        moved = min(rel_err(w, y0)[0] for w, y0 in zip(want, y))  # no identity on this input
+        max_abs = max(max_abs, max(e[1] for e in errs))
+        log(f"K10 n={n} b={b} g={g} m={m} fp32: rel_err vs plain re={errs[0][0]:.2e} "
+            f"im={errs[1][0]:.2e} (plain vs its input {moved:.2e})")
+        if any(x.shape != w.shape for x, w in zip(got, want)) \
+                or not max(e[0] for e in errs) <= K10_TOL or not moved > 0.1:
+            raise RuntimeError(f"K10 disagrees with its plain version at m={m}")
+    again = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise RuntimeError("K10 is not reproducible from run to run")
+    del got, want, again
+    # fp64 instance at the pure-fp64 path's group size g = b, odd sizes
+    n64, b64 = 1000, 24
+    r64, i64, _ = _random_hband(torch, n64, b64, 11, torch.float64)
+    _, _, vt64, taut64 = bulge_chase_planar_kernel(r64, i64, b64)
+    y64 = tuple(torch.tensor(rng.standard_normal((n64, 70)), device="cuda") for _ in range(2))
+    rel64 = max(rel_err(x, w)[0] for x, w in zip(
+        apply_q2_planar_kernel(vt64, taut64, y64, n64, b64, g=b64),
+        apply_q2_planar(vt64, taut64, y64, n64, b64, g=b64)))
+    log(f"K10 n={n64} b={b64} g={b64} m=70 fp64: rel_err vs plain {rel64:.2e}")
+    if not rel64 <= K10_TOL64:
+        raise RuntimeError("K10 (fp64) disagrees with its plain version")
+
+    # the main path replays all n columns (the mixed solve refines from the
+    # full fp32 basis): time m = 4096
+    y = (y_all[0], y_all[1])
+    ms = device_ms(lambda: apply_q2_planar_kernel(vt, taut, y, n, b, g=g), iters=3)
+    qs_ms = device_ms(lambda: window_qs_planar(vt, taut, n, b, g), iters=3)
+    plain_ms = device_ms(lambda: apply_q2_planar(vt, taut, y, n, b, g=g), iters=2)
+    nbytes, flops, windows = _k9_work(n, 4096, b, g, 4)
+    bound_ms, bound_by = bound(2 * nbytes, 4 * flops)  # two planes, complex products
+    log(f"K10 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (of which window_qs_planar "
+        f"{qs_ms:.3f} ms, outside the kernel), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {windows} windows); no single library call replays wave-ordered "
+        "windows (library_ms null)")
+    return {
+        "name": "apply_q2_planar_kernel", "route": "cuda",
+        "source": "eigensolver_gpu_torch/csrc/replay_planar.cu",
+        "replaces": "eigensolver_gpu_tpu/ops/replay_pallas.py:560",
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
@@ -757,7 +1050,7 @@ def phase_main(torch):
         finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
                       and torch.isfinite(res.zi).all())
         shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape))
-        times = wall_ms(solve, iters=2)
+        times = wall_ms(solve, iters=1)
         log(f"main use_pallas={use_pallas}: n={N_MAIN} iu={IU_MAIN} info={info} "
             f"residual={resid:.3e} first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms "
             f"launches K1={k1} K2={k2} peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -790,6 +1083,18 @@ def phase_reference(torch):
         f"(tol {1e-10 * N_REF:.1e}), ge_residual = {resid:.3e}, info={int(res.info)}")
     if not err <= 1e-10 * N_REF or int(res.info) != 0 or not resid < 1e-12:
         raise RuntimeError("reference comparison failed")
+    # pure fp64 through the two-stage reduction: the fp64 instances of K6,
+    # K8 and K10 (replay group g = band)
+    res = zhegvdx_planar_host(a, b, il=1, iu=IU_REF, device="cuda",
+                              cfg=SolverConfig(tridiag_mode="two"))
+    w = res.w.cpu().numpy()
+    z = res.zr.cpu().numpy() + 1j * res.zi.cpu().numpy()
+    err = float(np.abs(w - w_ref).max())
+    resid = ge_residual(a, b, w, z)
+    log(f"reference n={N_REF} iu={IU_REF} fp64 tridiag_mode=two: max |w - scipy| = {err:.3e} "
+        f"(tol {1e-10 * N_REF:.1e}), ge_residual = {resid:.3e}, info={int(res.info)}")
+    if not err <= 1e-10 * N_REF or int(res.info) != 0 or not resid < 1e-12:
+        raise RuntimeError("reference comparison failed (fp64, tridiag_mode=two)")
 
 
 def phase_main_real(torch):
@@ -824,7 +1129,7 @@ def phase_main_real(torch):
         resid = float(torch.max(torch.linalg.vector_norm(r, dim=0)) / (n * anorm))
         finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.z).all())
         shapes = (tuple(res.w.shape), tuple(res.z.shape))
-        times = wall_ms(solve, iters=2)
+        times = wall_ms(solve, iters=1)
         log(f"main real use_pallas={use_pallas}: n={n} iu={iu} info={info} "
             f"residual={resid:.3e} first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms "
             f"launches K4={k4} peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -913,6 +1218,92 @@ def phase_main_real_two(torch):
     return counts
 
 
+def phase_main_planar_two(torch):
+    """zhegvdx n=4096 il=1..iu=1024 mp with tridiag_mode='two': one solve that
+    counts launches, 3 timed solves through K1, K6, K8 and K10, the stage
+    breakdown; then one n=1024 solve by the plain torch route
+    (mosaic_kernels=False), which must launch none of them. Returns the
+    kernels' launches per solve."""
+    from eigensolver_gpu_torch import SolverConfig, zhegvdx_planar
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.latrd import latrd_panel_planar
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar
+    from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel
+    from eigensolver_gpu_torch.utils import tracing
+    from eigensolver_gpu_torch.utils.convert import planar_from_numpy
+    from eigensolver_gpu_torch.utils.testing import random_hpd_pair
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    wrappers = (pchol_block_planar, latrd_panel_planar, ql_panel_planar,
+                bulge_chase_planar_kernel, apply_q2_planar_kernel)
+
+    def check(args, res, n, iu, what):
+        resid = _device_residual(torch, args, res)
+        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
+                      and torch.isfinite(res.zi).all())
+        if int(res.info) != 0 or not finite or not resid <= 1e-13:
+            raise RuntimeError(
+                f"{what} wrong: info={int(res.info)} finite={finite} residual={resid}")
+        shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape))
+        if shapes != ((iu,), (n, iu), (n, iu)) or res.w.dtype != torch.float64 \
+                or res.zr.dtype != torch.float64:
+            raise RuntimeError(f"{what} shapes {shapes} dtype {res.w.dtype}")
+        return resid
+
+    n, iu = N_MAIN, IU_MAIN
+    args = planar_from_numpy(*random_hpd_pair(n, seed=0), device="cuda", dtype=torch.float64)
+    cfg = SolverConfig(compute_dtype="float32", tridiag_mode="two")
+    solve = lambda: zhegvdx_planar(*args, il=1, iu=iu, cfg=cfg)
+    for fn in wrappers:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, first_ms = _timed_once(torch, solve)
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    resid = check(args, res, n, iu, "planar two-stage path")
+    times = wall_ms(solve, iters=3)
+    log(f"main planar two-stage mosaic_kernels=True: n={n} iu={iu} info=0 residual={resid:.3e} "
+        f"first={first_ms:.1f} ms timed={[round(x, 1) for x in times]} ms launches "
+        f"K1={counts['pchol_block_planar']} K2={counts['latrd_panel_planar']} "
+        f"K6={counts['ql_panel_planar']} K8={counts['bulge_chase_planar_kernel']} "
+        f"K10={counts['apply_q2_planar_kernel']} "
+        f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {"pchol_block_planar": n // 128, "latrd_panel_planar": 0,
+            "ql_panel_planar": n // BAND - 1, "bulge_chase_planar_kernel": 1,
+            "apply_q2_planar_kernel": 1}
+    if counts != want:
+        raise RuntimeError(f"launch counts {counts}, want {want}")
+    _breakdown(torch, solve, sorted(times)[1])
+    del args, res
+
+    # the plain torch route, one solve, with synchronizing ranges
+    n, iu = N_PLAIN_ROUTE, N_PLAIN_ROUTE // 4
+    args = planar_from_numpy(*random_hpd_pair(n, seed=2), device="cuda", dtype=torch.float64)
+    cfg_plain = SolverConfig(compute_dtype="float32", tridiag_mode="two", mosaic_kernels=False)
+    for fn in wrappers:
+        fn.launches = 0
+    tracing.clear()
+    tracing.enable(sync=True)
+    try:
+        res, plain_ms = _timed_once(
+            torch, lambda: zhegvdx_planar(*args, il=1, iu=iu, cfg=cfg_plain))
+    finally:
+        tracing.disable()
+    stages = {}
+    for name, sec in tracing.timings():
+        stages[name] = stages.get(name, 0.0) + sec * 1e3
+    tracing.clear()
+    resid = check(args, res, n, iu, "planar two-stage path (plain route)")
+    if any(fn.launches for fn in wrappers):
+        raise RuntimeError("mosaic_kernels=False launched a kernel of the planar two-stage path: "
+                           f"{ {fn.__name__: fn.launches for fn in wrappers} }")
+    log(f"main planar two-stage mosaic_kernels=False: n={n} iu={iu} info=0 residual={resid:.3e} "
+        f"one solve with synchronizing ranges {plain_ms:.1f} ms, no kernel launched")
+    log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
+    return {k: v for k, v in counts.items() if k in (
+        "ql_panel_planar", "bulge_chase_planar_kernel", "apply_q2_planar_kernel")}
+
+
 def phase_reference_real(torch):
     import numpy as np
     import scipy.linalg
@@ -951,12 +1342,14 @@ def main():
         phase_device(torch)
         phase_build()
         kernels = [check_k1(torch), check_k2(torch), check_k3(torch), check_k4(torch),
-                   check_k5(torch), check_k7(torch), check_k9(torch)]
+                   check_k5(torch), check_k6(torch), check_k7(torch), check_k8(torch),
+                   check_k9(torch), check_k10(torch)]
         launches = phase_main(torch)
         phase_reference(torch)
         launches["symv"] = phase_main_real(torch)
         phase_reference_real(torch)
         launches.update(phase_main_real_two(torch))
+        launches.update(phase_main_planar_two(torch))
     except Exception:  # noqa: BLE001 -- report and fail the smoke run
         traceback.print_exc()
         return 1

@@ -9,7 +9,9 @@ The reference's 5-phase pipeline (zhegvdx_gpu.F90:131-180):
                              diagonal blocks by kernel K1 in fp32)
   2. C = L^{-1} A L^{-H}     two planar triangular solves
   3. hetrd_planar -> real (d, e) -> stedc -> select il..iu
-     -> unmtr_planar back-transform   (kernel K2 with use_pallas=True)
+     -> unmtr_planar back-transform   (kernel K2 with use_pallas=True);
+     or, two-stage: psbrd (kernel K6 per panel) -> planar bulge chase
+     (K8) -> phase_normalize -> stedc -> Q2 replay (K10) -> Q1 replay
   4. x = L^{-H} y            planar upper solve
   5. results stay on the device as planar pairs
 
@@ -18,9 +20,23 @@ pipeline runs in fp32 and the selected block is refined in fp64
 (ops/refine_planar.py). Entry points run on the device of their inputs:
 CUDA tensors for the card, CPU tensors for the tests.
 
-Not ported yet: ``tridiag_mode='two'`` (the planar two-stage
-reduction), ``planar_solve_mode='trinv'`` and ``zhegvdx_planar_batched``.
-``'auto'`` stays one-stage, as the JAX package does off-TPU.
+The two-stage reduction (ops/sbrd_planar.py -> ops/sb2st_planar.py)
+follows the JAX shape rules: ``tridiag_mode='two'`` engages it when the
+padded size is a multiple of ``cfg.band`` and at least ``3 * cfg.band``,
+else the one-stage branch runs. ``'auto'`` stays one-stage: the size at
+which it should switch on this card waits for a benchmark's numbers
+(``cfg.planar_two_stage_min_n`` is kept in the config and not read). With
+``cfg.mosaic_kernels`` (the default) the Cholesky blocks, the panel, the
+chase and the replay go through their kernel wrappers (K1, K6, K8, K10 on
+CUDA tensors, the plain versions on CPU tensors); without it they take the
+plain torch functions. There is no probe and no fallback: a kernel that
+cannot take its arguments raises. So a replay window past the kernel's 128
+rows (``band + g - 1 > 128``, for example band 64 in fp32 with the default
+g) is a ValueError under ``mosaic_kernels``: set ``replay_g`` to at most
+``129 - band``, or take the plain route with ``mosaic_kernels=False``.
+
+Not ported yet: ``planar_solve_mode='trinv'`` and
+``zhegvdx_planar_batched``.
 """
 
 from __future__ import annotations
@@ -91,11 +107,45 @@ def _tri_eigh(d, e, cfg):
     return stedc(d, e, leaf=cfg.stedc_leaf)
 
 
+def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
+    """PHASE 3 by the two-stage reduction: returns (w, (yr, yi)) with the
+    eigenvector chain y = Q1 Q2 D z_tri (D from phase_normalize)."""
+    from eigensolver_gpu_torch.ops.sb2st import dense_to_band
+    from eigensolver_gpu_torch.ops.sb2st_planar import (
+        apply_q2_planar,
+        bulge_chase_planar,
+        phase_normalize,
+    )
+    from eigensolver_gpu_torch.ops.sbrd_planar import apply_q1_planar, psbrd
+
+    npad, band = cr_p.shape[0], cfg.band
+    (abr, abi), vs, ts = psbrd(cr_p, ci_p, band=band, bucket=512,
+                               panel_kernel=cfg.mosaic_kernels)
+    band_r = dense_to_band(abr, band)
+    band_i = dense_to_band(abi, band)
+    if cfg.mosaic_kernels:
+        from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+
+        d, (e_r, e_i), vt, taut = bulge_chase_planar_kernel(band_r, band_i, band)
+    else:
+        d, (e_r, e_i), vt, taut = bulge_chase_planar(band_r, band_i, band)
+    (p_r, p_i), e_abs = phase_normalize(e_r, e_i)
+    w_all, q_tri = _tri_eigh(d, e_abs, cfg)
+    z0 = q_tri[:, il - 1 : iu]
+    y0 = (z0 * p_r[:, None], z0 * p_i[:, None])
+    # replay group size: the JAX default, 3*band in fp32 (l_win = 127 at
+    # band 32) and band in fp64
+    g = cfg.replay_g or (3 * band if cr_p.dtype == torch.float32 else band)
+    if cfg.mosaic_kernels:
+        from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel
+
+        y = apply_q2_planar_kernel(vt, taut, y0, npad, band, g=g)
+    else:
+        y = apply_q2_planar(vt, taut, y0, npad, band, g=g)
+    return w_all[il - 1 : iu], apply_q1_planar(vs, ts, y)
+
+
 def _check_ported(cfg):
-    if cfg.tridiag_mode == "two":
-        raise NotImplementedError(
-            "tridiag_mode='two' (planar two-stage reduction) is not ported yet"
-        )
     if cfg.planar_solve_mode == "trinv":
         raise NotImplementedError(
             "planar_solve_mode='trinv' (ptrinv_lower) is not ported yet"
@@ -162,7 +212,7 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         _solve_l = ptrsm_left_lower
 
     with trace_range("zhegvdx_planar"):
-        l, info = pcholesky_lower((br, bi), nb=nb_chol)
+        l, info = pcholesky_lower((br, bi), nb=nb_chol, block_kernel=cfg.mosaic_kernels)
         # PHASE 2: C = L^{-1} A L^{-H} = L^{-1} (L^{-1} A^H)^H
         x = _solve_l(l, (ar, ai), nb=nb_chol)
         y = _solve_l(l, pH(x), nb=nb_chol)
@@ -174,13 +224,17 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         nbt = cfg.nb_tridiag
         npad = -(-n // nbt) * nbt
         cr_p, ci_p = _pad_planar(cr, ci, npad)
-        (pr, pi), d, e, (taur, taui) = hetrd_planar(
-            cr_p, ci_p, nb=nbt, bucket=128, use_pallas=cfg.use_pallas
-        )
-        w_all, q_tri = _tri_eigh(d, e, cfg)
-        w = w_all[il - 1 : iu]
-        zr0 = q_tri[:, il - 1 : iu]
-        yr, yi = unmtr_planar(pr, pi, taur, taui, zr0, torch.zeros_like(zr0), nb=cfg.nb_back)
+        if cfg.tridiag_mode == "two" and npad % cfg.band == 0 and npad >= 3 * cfg.band:
+            w, (yr, yi) = _two_stage_planar(cr_p, ci_p, il, iu, cfg)
+        else:
+            (pr, pi), d, e, (taur, taui) = hetrd_planar(
+                cr_p, ci_p, nb=nbt, bucket=128, use_pallas=cfg.use_pallas
+            )
+            w_all, q_tri = _tri_eigh(d, e, cfg)
+            w = w_all[il - 1 : iu]
+            zr0 = q_tri[:, il - 1 : iu]
+            yr, yi = unmtr_planar(pr, pi, taur, taui, zr0, torch.zeros_like(zr0),
+                                  nb=cfg.nb_back)
         yr, yi = yr[:n], yi[:n]
 
         # PHASE 4: x = L^{-H} y  (L^H is upper triangular)

@@ -173,7 +173,7 @@ def ptrsm_left_upper(u, b, nb=128, solve_lower=ptrsm_left_lower):
 
 
 @highest_precision
-def pcholesky_lower(b, nb=128):
+def pcholesky_lower(b, nb=128, block_kernel=True):
     """Planar Cholesky B = L L^H (left-looking, one nb-column block at a
     time).
 
@@ -181,18 +181,19 @@ def pcholesky_lower(b, nb=128):
     first non-positive pivot, 0 on success (cuSOLVER devInfo semantics,
     zhegvdx_gpu.F90:136-142), as an int32 0-d tensor.
 
-    In fp32 every diagonal block goes to the Cholesky-block kernel K1
+    block_kernel (the JAX argument, fed from ``cfg.mosaic_kernels``): in
+    fp32 every diagonal block goes to the Cholesky-block kernel K1
     (ops/pchol.py; any nb <= 128), which also returns inv(L_d), so the
     subdiagonal panel solve is one planar gemm (forward error
-    eps32 * kappa(block), which the fp64 refinement absorbs). In fp64 the
-    block is factored by ``_pchol_base`` and the panel solved by
-    substitution.
+    eps32 * kappa(block), which the fp64 refinement absorbs). In fp64, or
+    with ``block_kernel=False``, the block is factored by ``_pchol_base``
+    and the panel solved by substitution.
     """
     br, bi = b
     n = br.shape[0]
     if n % nb != 0:
         raise ValueError(f"pcholesky requires n % nb == 0, got n={n}, nb={nb}")
-    use_kernel = br.dtype == torch.float32
+    use_kernel = block_kernel and br.dtype == torch.float32
     lr = torch.zeros_like(br)
     li = torch.zeros_like(bi)
     fail = torch.zeros((), dtype=torch.int32, device=br.device)

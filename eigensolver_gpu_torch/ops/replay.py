@@ -1,4 +1,5 @@
-"""Replay of the bulge-chase reflectors, y <- Q2 y, in one call (kernel K9).
+"""Replay of the bulge-chase reflectors, y <- Q2 y, in one call (kernels
+K9, real, and K10, planar).
 
 Replaces the Pallas kernel ``apply_q2_pallas``
 (eigensolver_gpu_tpu/ops/replay_pallas.py:674; ``pallas_call`` :763,
@@ -24,16 +25,40 @@ raises if it cannot be built or launched), a CPU tensor takes
 ``ops/sb2st.apply_q2`` with ``tsolve='qform'``, the plain version.
 float32 and float64; any m >= 1; any b >= 2, g >= 1 with
 ``l_win = b + g - 1 <= 128``.
+
+``apply_q2_planar_kernel`` (kernel K10) is the planar complex twin. It
+replaces ``apply_q2_planar_pallas`` (replay_pallas.py:560; ``pallas_call``
+:646, ``_replay_kernel_planar`` :538, ``_wave_body`` :96, windows from
+``window_qs_planar`` :433); the CUDA source is ``csrc/replay_planar.cu``.
+``window_qs_planar`` returns ONE tensor ``(2, n_waves, n_slots, 128, 128)``,
+plane 0 the real parts and plane 1 the imaginary parts of the window
+unitaries (the JAX function concatenates the two planes of a window into a
+(128, 256) block ``[Q_r | Q_i]``; ``torch.cat([qw[0], qw[1]], dim=-1)`` gives
+that block). An invalid slot holds ``Q_r = I``, ``Q_i = 0``. vt, taut and y
+are ``(re, im)`` pairs; the plain version is
+``ops/sb2st_planar.apply_q2_planar``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from eigensolver_gpu_torch.ops.sb2st import _padded_pack, _staircase, apply_q2, window_q
+from eigensolver_gpu_torch.ops.sb2st import (
+    _padded_pack,
+    _staircase,
+    _wave_gather,
+    _wave_plan,
+    apply_q2,
+    window_q,
+)
+from eigensolver_gpu_torch.ops.sb2st_planar import (
+    _padded_pack_planar,
+    _planar_staircase,
+    apply_q2_planar,
+    window_q_planar,
+)
 from eigensolver_gpu_torch.utils import kernel_guard
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
@@ -44,37 +69,10 @@ _CHUNK = 8  # waves of windows formed per batched pass
 
 
 def _geometry(n, b, g):
-    """Static wave-schedule geometry (numpy), mirrors ops/sb2st.apply_q2."""
-    kmax = max((n - 3) // b, 0)
-    n_groups = -(-max(n - 2, 1) // g)
-    n_u = kmax // 2 + 1
-    n_act = min(n_u, -(-(n - 2) // (g + 2 * b)) + 1)
-    n_waves = 2 * (n_groups - 1) + kmax + 1
-    waves = np.arange(n_waves)
-    par = waves % 2
-    return dict(
-        kmax=kmax, l_win=b + g - 1, n_groups=n_groups, n_u=n_u, n_act=n_act,
-        n_waves=n_waves, par=par, c0=n_groups - 1 - (waves - par) // 2,
-        n_slots=-(-n_act // SLOT_ROUND) * SLOT_ROUND,
-    )
-
-
-def _wave_gather(geo, n, b, g, kp, nvp):
-    """Slot i of wave tau -> window (j, k) -> first row of its g reflectors
-    in the (kp, nvp, b)-padded sweep-major pack, flattened. Returns
-    (valid (n_waves, n_slots) bool, flat_idx (n_waves, n_slots, g)); invalid
-    slots index zero padding (sweep n_groups*g.., k row kp-1). The clamp of
-    the first slot matches csrc/replay.cu."""
-    n_groups, n_slots = geo["n_groups"], geo["n_slots"]
-    u_lo = np.minimum(np.maximum(0, -geo["c0"]), max(geo["n_u"] - n_slots, 0))
-    u = u_lo[:, None] + np.arange(n_slots)[None, :]
-    jarr = geo["c0"][:, None] + u
-    karr = geo["par"][:, None] + 2 * u
-    valid = ((jarr >= 0) & (jarr < n_groups) & (karr <= geo["kmax"])
-             & (jarr * g + karr * b <= n - 3))
-    jj = np.where(valid, jarr, n_groups)
-    kk = np.where(valid, karr, kp - 1)
-    return valid, kk[:, :, None] * nvp + jj[:, :, None] * g + np.arange(g)
+    """The wave schedule of ops/sb2st._wave_plan at the window store's slot
+    count: ``n_slots`` is a multiple of 4 and the clamp of the first slot
+    read follows it, as csrc/replay.cu and csrc/replay_planar.cu compute it."""
+    return _wave_plan(n, b, g, slot_round=SLOT_ROUND)
 
 
 @highest_precision
@@ -90,7 +88,7 @@ def window_qs(vt, taut, n, b, g):
         raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
     dev = vt.device
     v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
-    _, flat_idx = _wave_gather(geo, n, b, g, kp, nvp)
+    _, flat_idx = _wave_gather(geo, n, b, g, nvp, kp)
     flat_idx = torch.from_numpy(flat_idx).to(dev)
     qw = torch.zeros((n_waves, n_slots, P, P), dtype=vt.dtype, device=dev)
     tail = torch.arange(l_win, P, device=dev)
@@ -143,3 +141,75 @@ def apply_q2_kernel(vt, taut, y, n, b, g=None):
 
 
 apply_q2_kernel.launches = 0
+
+
+@highest_precision
+def window_qs_planar(vt, taut, n, b, g):
+    """Every wave-slot's planar window unitary, batched: qw
+    (2, n_waves, n_slots, 128, 128), plane 0 real and plane 1 imaginary,
+    with qw[:, tau, i] = [[Q, 0], [0, I]], Q the (l_win, l_win) compact-WY
+    unitary of the window that ``window_qs`` puts in this slot, or the
+    identity for an invalid slot."""
+    geo = _geometry(n, b, g)
+    l_win, n_waves, n_slots = geo["l_win"], geo["n_waves"], geo["n_slots"]
+    if l_win > P:
+        raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
+    dev = vt[0].device
+    v2f, t2f, nvp, kp = _padded_pack_planar(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
+    _, flat_idx = _wave_gather(geo, n, b, g, nvp, kp)
+    flat_idx = torch.from_numpy(flat_idx).to(dev)
+    qw = torch.zeros((2, n_waves, n_slots, P, P), dtype=vt[0].dtype, device=dev)
+    tail = torch.arange(l_win, P, device=dev)
+    qw[0, :, :, tail, tail] = 1.0
+    for w0 in range(0, n_waves, _CHUNK):
+        q_r, q_i = window_q_planar(*_planar_staircase(v2f, t2f, flat_idx[w0 : w0 + _CHUNK], g, b))
+        qw[0, w0 : w0 + _CHUNK, :, :l_win, :l_win] = q_r
+        qw[1, w0 : w0 + _CHUNK, :, :l_win, :l_win] = q_i
+    return qw
+
+
+def apply_q2_planar_kernel(vt, taut, y, n, b, g=None):
+    """Kernel K10: planar y <- Q2 y (see the module docstring). ``g``
+    defaults to 3b, as in the Pallas function."""
+    if g is None:
+        g = 3 * b
+    n, b, g = int(n), int(b), int(g)
+    y_r, y_i = y
+    if b + g - 1 > P:
+        raise ValueError(f"l_win = b + g - 1 = {b + g - 1} exceeds the window size {P}: "
+                         f"take g <= {P + 1 - b}, or the plain apply_q2_planar")
+    if b < 2 or g < 1 or n < 3:
+        raise ValueError(f"apply_q2_planar_kernel needs n >= 3, b >= 2, g >= 1; got {n}, {b}, {g}")
+    if y_r.ndim != 2 or y_r.shape[0] != n or y_r.shape[1] < 1 or y_i.shape != y_r.shape:
+        raise ValueError(f"both planes of y must be (n={n}, m >= 1), got "
+                         f"{tuple(y_r.shape)} and {tuple(y_i.shape)}")
+    if any(x.dtype != y_r.dtype or x.device != y_r.device for x in (y_i, *vt, *taut)):
+        raise ValueError("apply_q2_planar_kernel: y and the reflectors differ in dtype or device")
+    if y_r.device.type == "cpu":
+        return apply_q2_planar(vt, taut, y, n, b, g=g)
+    if y_r.dtype == torch.float32:
+        name = "apply_q2_planar_f32_launch"
+    elif y_r.dtype == torch.float64:
+        name = "apply_q2_planar_f64_launch"
+    else:
+        raise TypeError(f"the planar replay kernel takes float32 or float64, got {y_r.dtype}")
+    fn = getattr(kernel_guard.load("replay_planar"), name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with trace_range("apply_q2_planar_qs"):
+        qw = window_qs_planar(vt, taut, n, b, g)
+    m = y_r.shape[1]
+    out = torch.empty((2, n, m), dtype=y_r.dtype, device=y_r.device)  # updated in place
+    out[0], out[1] = y_r, y_i
+    with trace_range("apply_q2_planar"), torch.cuda.device(y_r.device):
+        status = fn(
+            qw[0].data_ptr(), qw[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            m, n, m, b, g, qw.shape[1], qw.shape[2],
+            torch.cuda.current_stream(y_r.device).cuda_stream,
+        )
+        kernel_guard.check(status, "apply_q2_planar launch")
+        apply_q2_planar_kernel.launches += 1
+    return out[0], out[1]
+
+
+apply_q2_planar_kernel.launches = 0

@@ -28,6 +28,7 @@ TPU; here plain index tensors do the same moves.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from eigensolver_gpu_torch.utils.precision import highest_precision
@@ -225,6 +226,65 @@ def window_q(vw, taus):
     return eye - vw @ (_triu_inv(_tinv(vw, taus)) @ vw.transpose(-1, -2))
 
 
+def _wave_plan(n, b, g, slot_round=1):
+    """Static wave schedule of the replay (see apply_q2), the one place
+    that keeps it: per wave (numpy arrays over the waves) its parity
+    ``par``, first group ``c0``, first slot read ``u_lo`` and row base
+    ``base``; the front pad ``fy`` and height ``rows_p`` of the padded y in
+    which every slot's rows exist (the clamped bases dip below row 0 and the
+    top windows reach past n). ``n_slots`` is the active slot count rounded
+    up to a multiple of ``slot_round`` (the replay kernels' window store
+    keeps the JAX multiple of 4); the clamp of ``u_lo`` depends on it."""
+    kmax = max((n - 3) // b, 0)
+    l_win = b + g - 1
+    n_groups = -(-max(n - 2, 1) // g)
+    n_u = kmax // 2 + 1
+    # windows that meet rows [0, n) number at most cdiv(n-2, g+2b)+1
+    n_act = min(n_u, -(-(n - 2) // (g + 2 * b)) + 1)
+    n_slots = -(-n_act // slot_round) * slot_round
+    spacing = g + 2 * b
+    n_waves = 2 * (n_groups - 1) + kmax + 1
+    waves = np.arange(n_waves)
+    par = waves % 2
+    c0 = n_groups - 1 - (waves - par) // 2
+    u_lo = np.minimum(np.maximum(0, -c0), max(n_u - n_slots, 0))
+    base = (c0 + u_lo) * g + 1 + par * b + 2 * b * u_lo
+    fy = max(0, -int(base.min())) + 8
+    rows_p = fy + max(int(base.max()) + n_slots * spacing + l_win, n) + 8
+    return dict(kmax=kmax, l_win=l_win, n_groups=n_groups, n_u=n_u, n_act=n_act,
+                n_slots=n_slots, n_waves=n_waves, spacing=spacing, par=par, c0=c0,
+                u_lo=u_lo, base=base, fy=fy, rows_p=rows_p)
+
+
+def _wave_gather(plan, n, b, g, nvp, kp):
+    """Slot i of wave tau -> window (j, k) -> the rows of the (kp, nvp, b)-
+    padded sweep-major reflector pack that hold its g reflectors, flattened.
+    Returns numpy (valid (n_waves, n_slots) bool, flat_idx (n_waves,
+    n_slots, g)); a slot outside the schedule indexes zero padding (sweep
+    n_groups*g.., k row kp-1). csrc/replay.cu and csrc/replay_planar.cu
+    derive the same (j, k) per block."""
+    n_groups = plan["n_groups"]
+    u = plan["u_lo"][:, None] + np.arange(plan["n_slots"])[None, :]
+    jarr = plan["c0"][:, None] + u
+    karr = plan["par"][:, None] + 2 * u
+    valid = ((jarr >= 0) & (jarr < n_groups) & (karr <= plan["kmax"])
+             & (jarr * g + karr * b <= n - 3))
+    jj = np.where(valid, jarr, n_groups)
+    kk = np.where(valid, karr, kp - 1)
+    return valid, kk[:, :, None] * nvp + jj[:, :, None] * g + np.arange(g)
+
+
+def _wave_indices(plan, n, b, g, nvp, kp, dev):
+    """Every wave's gathers, as tensors on ``dev``: ``ridx`` (n_waves,
+    n_slots, g) from _wave_gather, and ``rows`` (n_waves, n_slots, l_win),
+    each slot's rows of the padded y."""
+    _, ridx = _wave_gather(plan, n, b, g, nvp, kp)
+    rows = (plan["fy"] + plan["base"][:, None, None]
+            + (np.arange(plan["n_slots"]) * plan["spacing"])[None, :, None]
+            + np.arange(plan["l_win"])[None, None, :])
+    return torch.from_numpy(ridx).to(dev), torch.from_numpy(rows).to(dev)
+
+
 @highest_precision
 def apply_q2(vt, taut, y, n, b, g=None, tsolve="qform"):
     """y <- Q2 y where Q2 is the accumulated bulge-chase transform
@@ -247,51 +307,19 @@ def apply_q2(vt, taut, y, n, b, g=None, tsolve="qform"):
         g = b
     if tsolve not in ("qform", "inv", "solve"):
         raise ValueError(f"unknown tsolve {tsolve!r}")
-    m = y.shape[1]
-    dtype, dev = y.dtype, y.device
-    kmax = max((n - 3) // b, 0)
-    l_win = b + g - 1
-    n_groups = -(-max(n - 2, 1) // g)
-    n_u = kmax // 2 + 1
-    # windows that meet rows [0, n) number at most cdiv(n-2, g+2b)+1
-    n_act = min(n_u, -(-(n - 2) // (g + 2 * b)) + 1)
-    n_waves = 2 * (n_groups - 1) + kmax + 1
-    spacing = g + 2 * b
-
+    plan = _wave_plan(n, b, g)
     with trace_range("apply_q2_repack"):
-        v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, n_groups, kmax)
-
-    # static wave schedule: parity, first group, first slot read, row base
-    sched = []
-    for wave in range(n_waves):
-        par = wave % 2
-        c0 = n_groups - 1 - (wave - par) // 2
-        u_lo = min(max(0, -c0), n_u - n_act)
-        sched.append((par, c0, u_lo, (c0 + u_lo) * g + 1 + par * b + 2 * b * u_lo))
-    # y padded so every slot's rows exist: the clamped bases dip below
-    # row 0 and the top windows reach past n
-    fy = max(0, -min(s[3] for s in sched)) + 8
-    rows_p = fy + max(max(s[3] for s in sched) + n_act * spacing + l_win, n) + 8
-    y_p = torch.zeros((rows_p, m), dtype=dtype, device=dev)
+        v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
+    fy = plan["fy"]
+    y_p = torch.zeros((plan["rows_p"], y.shape[1]), dtype=y.dtype, device=y.device)
     y_p[fy : fy + n] = y
-    iota_u = torch.arange(n_act, device=dev)
-    iota_g = torch.arange(g, device=dev)
-    iota_l = torch.arange(l_win, device=dev)
 
     with trace_range("apply_q2"):
-        for par, c0, u_lo, base in sched:
-            u = u_lo + iota_u
-            jw = c0 + u
-            kw = par + 2 * u
-            ok = (jw >= 0) & (jw < n_groups) & (kw <= kmax) & (jw * g + kw * b <= n - 3)
-            jj = torch.where(ok, jw, torch.full_like(jw, n_groups))  # zero sweeps
-            kk = torch.where(ok, kw, torch.full_like(kw, kp - 1))  # zero k row
-            ridx = (kk * nvp + jj * g)[:, None] + iota_g[None, :]
+        ridx_all, rows_all = _wave_indices(plan, n, b, g, nvp, kp, y.device)
+        for ridx, rows in zip(ridx_all, rows_all):
             taus = t2f[ridx]
-            vw = _staircase(v2f[ridx], taus, g, b)  # (n_act, l_win, g)
-
-            rows = (fy + base + iota_u * spacing)[:, None] + iota_l[None, :]
-            yw = y_p[rows]  # (n_act, l_win, m)
+            vw = _staircase(v2f[ridx], taus, g, b)  # (n_slots, l_win, g)
+            yw = y_p[rows]  # (n_slots, l_win, m)
             if tsolve == "qform":
                 yw = window_q(vw, taus) @ yw
             else:

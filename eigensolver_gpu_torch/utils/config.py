@@ -6,23 +6,26 @@ hold the two against each other. Options whose code path has not been
 ported yet are accepted here and refused with ``NotImplementedError``
 where the solver would take them:
 
-  * ``tridiag_mode='two'`` on the planar path (models/zhegvdx_planar.py;
-    the real two-stage reduction is ported: models/syevdx.py);
-  * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``).
+  * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``);
+  * ``gemm='ozaki'`` in the refinement (ops/refine.py, ops/refine_planar.py).
 
 ``use_pallas`` keeps its JAX name: it selects the hand-written latrd
 panel kernel (ops/latrd.py) for the planar hetrd column loop, and the
 upper-tile symv kernel (ops/symv.py) for the real sytrd column loop.
-``mosaic_kernels`` keeps its JAX name too: on the real two-stage path it
-selects the kernel wrappers for the QL panel, the bulge chase and the
-replay (ops/ql_panel.py, ops/chase.py, ops/replay.py: the CUDA kernels
-on the card, their plain versions on CPU tensors); False takes the plain
-torch functions of ops/sbrd.py and ops/sb2st.py. It has no effect on the
-fp32 Cholesky, which always factors its diagonal blocks with kernel K1
-(ops/pchol.py).
-``'auto'`` tridiagonalization follows the JAX rule for fp64 compute
-(two-stage at n >= ``two_stage_min_n``) and stays one-stage for fp32
-compute (see models/syevdx.py).
+``mosaic_kernels`` keeps its JAX name too: on the two-stage paths, real
+and planar, it selects the kernel wrappers for the QL panel, the bulge
+chase and the replay (ops/ql_panel.py, ops/chase.py, ops/replay.py: the
+CUDA kernels on the card, their plain versions on CPU tensors), and on the
+planar path the Cholesky-block kernel of the fp32 factorization
+(ops/pchol.py, through ``pcholesky_lower(block_kernel=...)``); False takes
+the plain torch functions of ops/sbrd.py, ops/sb2st.py, their planar
+twins and ops/planar.py.
+``'auto'`` tridiagonalization follows the JAX rule: on real input
+two-stage for fp64 compute at n >= ``two_stage_min_n`` and one-stage for
+fp32 compute (models/syevdx.py); on the planar path one-stage at every n
+(models/zhegvdx_planar.py): ``planar_two_stage_min_n`` is kept so that one
+configuration drives both packages, and is not read here until a
+benchmark on the card sets it.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ The two-stage reduction's intermediate state crosses the same way, so a
 reflector store made by one package can be replayed by the other:
 ``band_from_numpy`` (lower band storage, ops/sb2st.dense_to_band),
 ``chase_from_numpy`` (``(d, e, vt, taut)`` of ops/sb2st.bulge_chase) and
-``sbrd_from_numpy`` (``(ab, vs, ts)`` of ops/sbrd.sbrd). Each checks the
+``sbrd_from_numpy`` (``(ab, vs, ts)`` of ops/sbrd.sbrd), and their planar
+twins ``planar_band_from_numpy``, ``planar_chase_from_numpy`` and
+``psbrd_from_numpy``, which take and return ``(re, im)`` pairs in the
+nesting of ops/sb2st_planar.py and ops/sbrd_planar.py. Each checks the
 layout's shapes, and takes ``dtype`` and ``device`` explicitly.
 """
 
@@ -92,3 +95,28 @@ def sbrd_from_numpy(ab, vs, ts, band, device="cuda", dtype=None):
     if got != want:
         raise ValueError(f"sbrd outputs have shapes {got}, the layout needs {want}")
     return tuple(_carry(x, device, dtype) for x in (ab, vs, ts))
+
+
+def planar_band_from_numpy(band_r, band_i, b, device="cuda", dtype=None):
+    """Both (n, 2b) lower band planes of a Hermitian band (the imaginary
+    plane holds -Im of the upper triangle) as contiguous tensors."""
+    planes = (band_from_numpy(band_r, b, device, dtype), band_from_numpy(band_i, b, device, dtype))
+    if planes[0].shape != planes[1].shape:
+        raise ValueError(f"band planes differ in shape: {planes[0].shape}, {planes[1].shape}")
+    return planes
+
+
+def planar_chase_from_numpy(d, e, vt, taut, n, b, device="cuda", dtype=None):
+    """(d, (e_r, e_i), (vt_r, vt_i), (taut_r, taut_i)) of a planar bulge
+    chase as contiguous tensors in the same nesting."""
+    d_t, e_r, vt_r, tt_r = chase_from_numpy(d, e[0], vt[0], taut[0], n, b, device, dtype)
+    _, e_i, vt_i, tt_i = chase_from_numpy(d, e[1], vt[1], taut[1], n, b, device, dtype)
+    return d_t, (e_r, e_i), (vt_r, vt_i), (tt_r, tt_i)
+
+
+def psbrd_from_numpy(ab, vs, ts, band, device="cuda", dtype=None):
+    """((abr, abi), (vs_r, vs_i), (ts_r, ts_i)) of the planar band
+    reduction as contiguous tensors in the same nesting."""
+    re = sbrd_from_numpy(ab[0], vs[0], ts[0], band, device, dtype)
+    im = sbrd_from_numpy(ab[1], vs[1], ts[1], band, device, dtype)
+    return tuple(zip(re, im))

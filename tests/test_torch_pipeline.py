@@ -245,11 +245,7 @@ def test_zhegvdx_uplo_contract():
     assert torch.allclose(w0, w1, atol=1e-11 * n)
 
 
-@pytest.mark.parametrize(
-    "cfg",
-    [SolverConfig(tridiag_mode="two"), SolverConfig(planar_solve_mode="trinv")],
-    ids=["two_stage", "trinv"],
-)
+@pytest.mark.parametrize("cfg", [SolverConfig(planar_solve_mode="trinv")], ids=["trinv"])
 def test_unported_options_raise(cfg):
     a, b = random_hpd_pair(32, seed=99)
     with pytest.raises(NotImplementedError):

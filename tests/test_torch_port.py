@@ -100,7 +100,8 @@ def test_loader_raises_without_a_compiler(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         kernel_guard.load("pchol_block")
     assert {p.stem for p in kernel_guard.CSRC.glob("*.cu")} == {
-        "chase", "latrd_panel", "pchol_block", "ql_panel", "replay", "symv"}
+        "chase", "chase_planar", "latrd_panel", "pchol_block", "ql_panel", "ql_panel_planar",
+        "replay", "replay_planar", "symv"}
 
 
 def _imports(path):
@@ -121,7 +122,8 @@ def test_port_file_list_covers_the_package():
     assert len(_PORT_FILES) > 25
     for name in ("models/sygvdx.py", "models/syevdx.py", "ops/symv.py", "ops/sytrd.py",
                  "ops/refine.py", "utils/kernel_guard.py", "ops/sbrd.py", "ops/sb2st.py",
-                 "ops/ql_panel.py", "ops/chase.py", "ops/replay.py"):
+                 "ops/ql_panel.py", "ops/chase.py", "ops/replay.py", "ops/sbrd_planar.py",
+                 "ops/sb2st_planar.py", "models/zhegvdx_planar.py"):
         assert f"eigensolver_gpu_torch/{name}" in _PORT_FILES
 
 
