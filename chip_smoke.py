@@ -153,32 +153,43 @@ def check_k1(torch):
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     dev = "cuda"
+    max_abs = 0.0
+    # HPD blocks at every width the blocking treats differently (one column,
+    # ragged, whole block columns), all four outputs held
+    for nb in (1, 31, 32, 33, 100, 128):
+        dr, di = _hpd_block(torch, nb, nb, dev)
+        got = pchol_block_planar(dr, di)
+        want = pchol_block_plain(dr, di)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got[:4], want[:4])]
+        max_abs = max(max_abs, max(e[1] for e in errs))
+        log(f"K1 hpd nb={nb}: fail={int(got[4])}/{int(want[4])} rel_err ld_r ld_i inv_r inv_i="
+            f"{[f'{e[0]:.2e}' for e in errs]}")
+        if int(got[4]) != 0 or int(want[4]) != 0 or not max(e[0] for e in errs) <= K1_TOL:
+            raise RuntimeError(f"K1 disagrees with its plain version on an HPD block, nb={nb}")
+
+    # a bad pivot in each block column, a ragged one, and a NaN pivot: fail
+    # exact, all four outputs held on the leading block before the pivot
+    for nb, row, value in ((128, 0, -1e4), (128, 31, -1e4), (128, 32, -1e4), (128, 37, -1e4),
+                           (128, 127, -1e4), (33, 32, -1e4), (128, 64, float("nan"))):
+        br, bi = _hpd_block(torch, nb, 1, dev)
+        br[row, row] = value
+        got_b = pchol_block_planar(br, bi)
+        want_b = pchol_block_plain(br, bi)
+        torch.cuda.synchronize()
+        fk, fp = int(got_b[4]), int(want_b[4])
+        lead = [rel_err(g[:row, :row], w[:row, :row])[0] if row else 0.0
+                for g, w in zip(got_b[:4], want_b[:4])]
+        log(f"K1 nb={nb} pivot {row} set to {value}: fail kernel={fk} plain={fp} "
+            f"rel_err(leading {row} x {row}) {[f'{e:.2e}' for e in lead]}")
+        if fk != fp or fk != row + 1 or not max(lead) <= K1_TOL:
+            raise RuntimeError(f"K1 fail contract differs from its plain version (pivot {row})")
+
     nb = 128
     dr, di = _hpd_block(torch, nb, 0, dev)
-    got = pchol_block_planar(dr, di)
-    want = pchol_block_plain(dr, di)
-    torch.cuda.synchronize()
-    errs = [rel_err(g, w) for g, w in zip(got[:4], want[:4])]
-    worst = max(e[0] for e in errs)
-    log(f"K1 hpd nb={nb}: fail={int(got[4])}/{int(want[4])} rel_err="
-        f"{[f'{e[0]:.2e}' for e in errs]}")
-    if int(got[4]) != 0 or int(want[4]) != 0 or not worst <= K1_TOL:
-        raise RuntimeError("K1 disagrees with its plain version on an HPD block")
-
-    # a block with a bad pivot: fail must match exactly, and the columns
-    # before it must agree
-    br, bi = _hpd_block(torch, nb, 1, dev)
-    br[37, 37] = -1e4
-    got_b = pchol_block_planar(br, bi)
-    want_b = pchol_block_plain(br, bi)
-    torch.cuda.synchronize()
-    fk, fp = int(got_b[4]), int(want_b[4])
-    cols = max(fk - 1, 1)
-    err_b = rel_err(got_b[0][:, :cols], want_b[0][:, :cols])[0]
-    log(f"K1 bad pivot: fail kernel={fk} plain={fp} rel_err(cols<{cols})={err_b:.2e}")
-    if fk != fp or fk == 0 or not err_b <= K1_TOL:
-        raise RuntimeError("K1 fail contract differs from its plain version")
-
+    if not all(torch.equal(x, y) for x, y in zip(pchol_block_planar(dr, di),
+                                                 pchol_block_planar(dr, di))):
+        raise RuntimeError("K1 is not reproducible from run to run")
     ms = device_ms(lambda: pchol_block_planar(dr, di), iters=50)
     plain_ms = device_ms(lambda: pchol_block_plain(dr, di), iters=3)
     zc = torch.complex(dr, di)
@@ -197,8 +208,7 @@ def check_k1(torch):
         flops += 2 * (j + 1) + 8 * m * (j + 1)  # inverse row, downdate
     nbytes = 4 * (2 + 4) * nb * nb + 4
     bound_ms, bound_by = bound(nbytes, flops)
-    max_abs = max(e[1] for e in errs)
-    log(f"K1 times: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    log(f"K1 times at nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"library (cholesky_ex + solve_triangular, complex64) {library_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({bound_by})")
     return {
@@ -381,11 +391,11 @@ def check_k3(torch):
             f"vs dense complex64 a @ v {max(errs_d) / scale:.2e}")
         if not max(errs) <= MV_TOL * scale or not max(errs_d) <= MV_TOL * scale:
             raise RuntimeError(f"K3 disagrees with its plain version at {label}")
-    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=100)
+    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=1000)
     plain_ms = device_ms(lambda: hemv_planar_plain(ar, ai, vr, vi), iters=2)
     ac, vc = torch.complex(ar, ai), torch.complex(vr, vi)
     with true_fp32():
-        library_ms = device_ms(lambda: torch.mv(ac, vc), iters=100)
+        library_ms = device_ms(lambda: torch.mv(ac, vc), iters=1000)
     bound_ms, bound_by = _mv_bound(4096, 2)
     log(f"K3 times at n=4096 fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"library (torch.mv, complex64, full matrix) {library_ms:.4f} ms, "
@@ -712,9 +722,16 @@ def _k6_work(m, b, rb, itemsize):
 
 
 def check_k6(torch):
+    import ctypes
+
     import numpy as np
 
-    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar, ql_panel_planar_plain
+    from eigensolver_gpu_torch.ops.ql_panel import (
+        ql_panel_planar,
+        ql_panel_planar_geometry,
+        ql_panel_planar_plain,
+    )
+    from eigensolver_gpu_torch.utils import kernel_guard
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     dev = "cuda"
@@ -722,36 +739,62 @@ def check_k6(torch):
     big_r = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
     big_i = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
     r32, i32 = big_r.float(), big_i.float()
-    tr_r, tr_i = r32[:128, :16].clone(), i32[:128, :16].clone()
-    tr_r[: 64 + 15, 15] = 0.0  # last column: zero tail, real pivot (trivial)
-    tr_i[: 64 + 16, 15] = 0.0
-    tr_r[: 64 + 14, 14] = 0.0  # the one before: zero tail, complex pivot
-    tr_i[: 64 + 14, 14] = 0.0
+    # trivial (zero tail, real pivot) and phase-only (zero tail, complex
+    # pivot) columns whose tails cross the row slabs of a 4-block launch
+    rb_t = 1000
+    tr_r, tr_i = r32[:1100, :16].clone(), i32[:1100, :16].clone()
+    tr_r[: rb_t + 15, 15] = 0.0
+    tr_i[: rb_t + 16, 15] = 0.0
+    tr_r[: rb_t + 14, 14] = 0.0
+    tr_i[: rb_t + 14, 14] = 0.0
     sl = lambda x, rows, c0, c1: x[:rows, c0:c1]
-    cases = [  # (label, real plane, imaginary plane, rows_below, tolerance)
-        ("(4096, 32) rb=4032", r32[:, :32].contiguous(), i32[:, :32].contiguous(), 4032, K6_TOL),
-        ("(4096, 32) rb=4032, column slices of 4096^2", sl(r32, 4096, 4032, 4064),
-         sl(i32, 4096, 4032, 4064), 4032, K6_TOL),
-        ("(2048, 32) rb=1984, slices of a leading block", sl(r32, 2048, 2016, 2048),
-         sl(i32, 2048, 2016, 2048), 1984, K6_TOL),
+    # every panel psbrd factors at n = 4096, band 32: column slices of the
+    # 4096^2 planes, row stride 4096
+    cases = []  # (label, real plane, imaginary plane, rows_below, tolerance)
+    for p in range(4096 // BAND - 1):
+        pend = 4096 - p * BAND
+        mrows = pend - BAND
+        cases.append((f"psbrd panel {p} ({pend}, {BAND}) rb={mrows - BAND}",
+                      sl(r32, pend, mrows, pend), sl(i32, pend, mrows, pend), mrows - BAND, K6_TOL))
+    cases += [
+        ("(4096, 32) rb=4032 contiguous", r32[:, :32].contiguous(), i32[:, :32].contiguous(), 4032,
+         K6_TOL),
         ("(1000, 24) rb=500", sl(r32, 1000, 7, 31), sl(i32, 1000, 7, 31), 500, K6_TOL),
-        ("(128, 16) rb=64 trivial and phase-only columns", tr_r, tr_i, 64, K6_TOL),
-        ("(1024, 32) rb=960 fp64", sl(big_r, 1024, 64, 96), sl(big_i, 1024, 64, 96), 960,
-         K6_TOL64),
+        ("(300, 1) rb=0", sl(r32, 300, 5, 6), sl(i32, 300, 5, 6), 0, K6_TOL),
+        ("(700, 24) rb=0", sl(r32, 700, 40, 64), sl(i32, 700, 40, 64), 0, K6_TOL),
+        ("(700, 64) rb=0", sl(r32, 700, 0, 64), sl(i32, 700, 0, 64), 0, K6_TOL),
+        ("(20, 16) rb=2, fewer rows than a slab", sl(r32, 20, 3, 19), sl(i32, 20, 3, 19), 2,
+         K6_TOL),
+        ("(1100, 16) rb=1000 trivial and phase-only columns across slabs", tr_r, tr_i, rb_t,
+         K6_TOL),
+        ("(1024, 32) rb=960 fp64", sl(big_r, 1024, 64, 96), sl(big_i, 1024, 64, 96), 960, K6_TOL64),
+        ("(700, 64) rb=0 fp64", sl(big_r, 700, 0, 64), sl(big_i, 700, 0, 64), 0, K6_TOL64),
+        ("(4096, 64) rb=3968 fp64, slabs in global memory", sl(big_r, 4096, 100, 164),
+         sl(big_i, 4096, 100, 164), 4096 - 128, K6_TOL64),
     ]
+    geometry = kernel_guard.load("ql_panel_planar").ql_panel_planar_geometry
+    geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    geometry.restype = ctypes.c_int
     names = ["pf_r", "pf_i", "v_r", "v_i", "tau_r", "tau_i", "t_r", "t_i"]
-    max_abs = 0.0
+    max_abs, worst = 0.0, (0.0, "")
     for label, pr, pi, rb, tol in cases:
+        m, b = pr.shape
+        geo = (ctypes.c_int * 4)()
+        if geometry(m, b, rb, pr.element_size(), geo) != 0 \
+                or tuple(geo) != ql_panel_planar_geometry(b, rb, pr.element_size()):
+            raise RuntimeError(f"K6 launch geometry differs from its Python mirror at {label}")
         got = ql_panel_planar(pr, pi, rb)
         want = ql_panel_planar_plain(pr, pi, rb)
         torch.cuda.synchronize()
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         if tol == K6_TOL:
             max_abs = max(max_abs, max(e[1] for e in errs))
-        log(f"K6 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
+        worst = max(worst, (max(e[0] for e in errs), label))
+        if not label.startswith("psbrd") or label.startswith("psbrd panel 0 "):
+            log(f"K6 {label} (blocks, slab rows, slab in shared memory, bytes) {tuple(geo)}: "
+                "rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
         if any(g.shape != w.shape for g, w in zip(got, want)) or not max(e[0] for e in errs) <= tol:
             raise RuntimeError(f"K6 disagrees with its plain version at {label}")
-        b = pr.shape[1]
         if any(float(got[1][: rb + j + 1, j].abs().max()) != 0.0 for j in range(b)):
             raise RuntimeError(f"K6 left an imaginary part on or above a pivot at {label}")
         if "trivial" in label:
@@ -761,10 +804,12 @@ def check_k6(torch):
                 raise RuntimeError("K6 trivial column: tau, v or the column break the contract")
             if float(got[5][b - 2]) == 0.0 or float(got[2][rb + b - 2, b - 2]) != 1.0:
                 raise RuntimeError("K6 phase-only column: a complex pivot must give a reflector")
-    _, pr, pi, rb, _ = cases[1]
-    if not all(torch.equal(x, y) for x, y in zip(ql_panel_planar(pr, pi, rb),
-                                                 ql_panel_planar(pr, pi, rb))):
-        raise RuntimeError("K6 is not reproducible from run to run")
+        if label.startswith("psbrd panel 0 ") or "fp64" in label or "trivial" in label:
+            if not all(torch.equal(x, y) for x, y in zip(got, ql_panel_planar(pr, pi, rb))):
+                raise RuntimeError(f"K6 is not reproducible from run to run at {label}")
+    log(f"K6: {len(cases)} shapes held, the 127 psbrd panels among them; worst rel_err "
+        f"{worst[0]:.1e} at {worst[1]}")
+    _, pr, pi, rb, _ = cases[0]
     ms = device_ms(lambda: ql_panel_planar(pr, pi, rb), iters=20)
     plain_ms = device_ms(lambda: ql_panel_planar_plain(pr, pi, rb), iters=2)
     bound_ms, bound_by = bound(*_k6_work(4096, 32, rb, 4))
@@ -982,10 +1027,11 @@ def _device_residual(torch, args, res):
     return float(torch.max(torch.sqrt(r2)) / (n * anorm))
 
 
-def _breakdown(torch, solve, wall):
+def _breakdown(torch, solve, wall, kernels=()):
     """One solve with synchronizing trace ranges (stage ms), then one under
     torch.profiler: device busy ms (sum of kernel self times), the idle
-    share against the unprofiled wall time ``wall``, and the top kernels.
+    share against the unprofiled wall time ``wall``, the top kernels, and
+    the device total of every kernel whose name holds one of ``kernels``.
     Returns the stage ms by range name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1018,6 +1064,10 @@ def _breakdown(torch, solve, wall):
     idle = f"{1.0 - busy / wall:.3f}" if busy > 0 else "not measured"
     log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
     log(f"  device busy {busy:.1f} ms of {wall:.1f} ms wall, idle share {idle}; top: {top}")
+    for key in kernels:
+        hits = [v for k, v in per_kernel.items() if key in k]
+        log(f"  kernel {key}: {sum(v[0] for v in hits):.2f} ms device time in "
+            f"{sum(v[1] for v in hits)} launches over one solve (kineto)")
     return stages
 
 
@@ -1060,7 +1110,7 @@ def phase_main(torch):
             raise RuntimeError(f"main path shapes {shapes}")
         if k1 != N_MAIN // 128 or k2 != want_k2:
             raise RuntimeError(f"launch counts K1={k1} K2={k2}, want {N_MAIN // 128} and {want_k2}")
-        _breakdown(torch, solve, min(times))
+        _breakdown(torch, solve, min(times), kernels=("latrd_",) if use_pallas else ())
     return launches
 
 
@@ -1273,7 +1323,8 @@ def phase_main_planar_two(torch):
             "apply_q2_planar_kernel": 1}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, want {want}")
-    _breakdown(torch, solve, sorted(times)[1])
+    _breakdown(torch, solve, sorted(times)[1],
+               kernels=("pchol_block_kernel", "ql_panel_planar_kernel"))
     del args, res
 
     # the plain torch route, one solve, with synchronizing ranges

@@ -91,7 +91,9 @@ def _check(dr, di):
         raise TypeError("pchol block kernel takes float32 planes")
     if dr.device != di.device:
         raise ValueError("pchol block planes on different devices")
-    if dr.stride(1) != 1 or di.stride(1) != 1 or dr.stride(0) != di.stride(0):
+    # a 1 x 1 block is read at offset 0 whatever its strides (numpy's
+    # ``.real`` of a 1 x 1 complex array has strides of two floats)
+    if nb > 1 and (dr.stride(1) != 1 or di.stride(1) != 1 or dr.stride(0) != di.stride(0)):
         raise ValueError("pchol block planes need unit column stride and one row stride")
 
 

@@ -48,26 +48,37 @@ def _planes(x, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [32, 100, 128])
+@pytest.mark.parametrize("nb", [1, 32, 33, 100, 128])
 def test_pchol_block_kernel_matches_plain(cuda_device, nb):
-    """K1 within 1e-4 relative (Frobenius) of its plain version, fail exact,
-    also past a bad pivot."""
+    """K1 within 1e-4 relative (Frobenius) of its plain version in all four
+    outputs (both planes of L and of its inverse), fail exact, also past a
+    bad pivot (rows 7, 31 and 32: inside, at the end of and just past the
+    first 32-column block) and a NaN pivot, where the leading block before
+    the pivot is held; two calls bit-identical."""
     rng = np.random.default_rng(nb)
     t = rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb))
-    a = t @ t.conj().T + nb * np.eye(nb)
-    for bad in (None, 7):
-        if bad is not None:
-            a[bad, bad] = -1e4
+    a0 = t @ t.conj().T + nb * np.eye(nb)
+    for bad in (None, 7, 31, 32, "nan"):
+        a = a0.copy()
+        row = nb // 2 if bad == "nan" else bad
+        if row is not None and row >= nb:
+            continue
+        if row is not None:
+            a[row, row] = np.nan if bad == "nan" else -1e4
         dr, di = _planes(a, cuda_device)
         before = pchol_block_planar.launches
         got = pchol_block_planar(dr, di)
         want = pchol_block_plain(dr, di)
         assert pchol_block_planar.launches == before + 1
-        assert int(got[4]) == int(want[4]) == (0 if bad is None else bad + 1)
-        cols = nb if bad is None else bad
-        for g, w in zip(got[:2], want[:2]):
-            g, w = g[:, :cols].cpu(), w[:, :cols].cpu()
-            assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) < 1e-4
+        assert int(got[4]) == int(want[4]) == (0 if row is None else row + 1)
+        k = nb if row is None else row
+        for g, w in zip(got[:4], want[:4]):
+            g, w = g[:k, :k].cpu(), w[:k, :k].cpu()
+            # an all-zero plane (the imaginary parts at nb = 1) must match exactly
+            assert float(torch.linalg.norm(g - w)) <= 1e-4 * float(torch.linalg.norm(w))
+        # bit-identical from call to call, NaN where NaN (past a bad pivot)
+        again = pchol_block_planar(dr, di)
+        assert all(bool(((x == y) | (x.isnan() & y.isnan())).all()) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -203,17 +214,23 @@ def test_replay_kernel_matches_plain(cuda_device, n, b, g, m, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,b,rb,dtype", [
     (512, 32, 448, torch.float32), (1000, 24, 500, torch.float32),
-    (128, 16, 64, torch.float32), (512, 32, 448, torch.float64), (200, 64, 100, torch.float64)])
+    (128, 16, 64, torch.float32), (512, 32, 448, torch.float64), (200, 64, 100, torch.float64),
+    (40, 8, 20, torch.float32), (4096, 32, 4032, torch.float32), (300, 1, 250, torch.float32),
+    (1100, 16, 1000, torch.float32), (4096, 64, 3968, torch.float64)])
 def test_ql_panel_planar_kernel_matches_plain(cuda_device, m, b, rb, dtype):
     """K6 within 1e-4 relative of its plain version in fp32 (sums in another
     order), 1e-11 in fp64, on column slices of wider planes; a trivial column
     (zero tail, real pivot) and a phase-only column (zero tail, complex
-    pivot: tau != 0, the pivot rotated to real) exactly as the contract says."""
+    pivot: tau != 0, the pivot rotated to real) exactly as the contract says,
+    at m = 128 in one block and at m = 1100 with both tails across the row
+    slabs of 4 blocks; a panel with fewer rows than a slab (m = 40), the
+    main path's (4096, 32), b = 1, and fp64 slabs in global memory."""
     rng = np.random.default_rng(m)
     wide_r = torch.tensor(rng.standard_normal((m, b + 40)), dtype=dtype, device=cuda_device)
     wide_i = torch.tensor(rng.standard_normal((m, b + 40)), dtype=dtype, device=cuda_device)
     pr, pi = wide_r[:, 11 : 11 + b], wide_i[:, 11 : 11 + b]
-    if m == 128:
+    special = m in (128, 1100)
+    if special:
         pr[: rb + b - 1, b - 1] = 0.0  # trivial: zero tail, real pivot
         pi[: rb + b, b - 1] = 0.0
         pr[: rb + b - 2, b - 2] = 0.0  # phase only: zero tail, complex pivot
@@ -229,7 +246,7 @@ def test_ql_panel_planar_kernel_matches_plain(cuda_device, m, b, rb, dtype):
     # pivots are real: the imaginary plane is zero on and above them
     for j in range(b):
         assert float(got[1][: rb + j + 1, j].abs().max()) == 0.0
-    if m == 128:
+    if special:
         assert float(got[4][b - 1]) == 0.0 == float(got[5][b - 1])
         assert float(got[2][:, b - 1].abs().max()) == 0.0 == float(got[3][:, b - 1].abs().max())
         assert torch.equal(got[0][:, b - 1], pr[:, b - 1])

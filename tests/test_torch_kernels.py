@@ -74,6 +74,22 @@ def test_pchol_block_fail_contract(bad):
         assert _frob_rel(l_got, l_ref) < 1e-4
 
 
+@pytest.mark.parametrize("value", [4.0, -1.0])
+def test_pchol_block_takes_a_one_by_one_block_of_any_strides(value):
+    """numpy's ``.real`` of a 1 x 1 complex array keeps strides of two
+    floats; the wrapper takes it (the Pallas kernel needs nb % 8 == 0, so
+    the reference is the scalar factor: L = sqrt(a), inv = 1 / L)."""
+    a = np.array([[value + 0j]])
+    dr = torch.tensor(a.real, dtype=torch.float32)
+    assert dr.stride() != (1, 1)
+    got = pchol_block_planar(dr, torch.tensor(a.imag, dtype=torch.float32))
+    assert int(got[4]) == (0 if value > 0 else 1)
+    if value > 0:
+        want = (np.sqrt(value), 0.0, 1 / np.sqrt(value), 0.0)
+        for g, w in zip(got[:4], want):
+            assert g.shape == (1, 1) and abs(float(g) - w) <= 1e-6 * max(abs(w), 1)
+
+
 def test_pchol_block_nan_pivot():
     nb = 8
     ar, ai = _hpd_block(nb, 4)
