@@ -169,7 +169,8 @@ def check_k1(torch):
             raise RuntimeError(f"K1 disagrees with its plain version on an HPD block, nb={nb}")
 
     # a bad pivot in each block column, a ragged one, and a NaN pivot: fail
-    # exact, all four outputs held on the leading block before the pivot
+    # exact, L held on all rows of the columns before the pivot, its inverse
+    # on the leading block before it
     for nb, row, value in ((128, 0, -1e4), (128, 31, -1e4), (128, 32, -1e4), (128, 37, -1e4),
                            (128, 127, -1e4), (33, 32, -1e4), (128, 64, float("nan"))):
         br, bi = _hpd_block(torch, nb, 1, dev)
@@ -178,10 +179,13 @@ def check_k1(torch):
         want_b = pchol_block_plain(br, bi)
         torch.cuda.synchronize()
         fk, fp = int(got_b[4]), int(want_b[4])
-        lead = [rel_err(g[:row, :row], w[:row, :row])[0] if row else 0.0
-                for g, w in zip(got_b[:4], want_b[:4])]
+        lead = [rel_err(g[:, :row], w[:, :row])[0] if row else 0.0
+                for g, w in zip(got_b[:2], want_b[:2])]
+        lead += [rel_err(g[:row, :row], w[:row, :row])[0] if row else 0.0
+                 for g, w in zip(got_b[2:4], want_b[2:4])]
         log(f"K1 nb={nb} pivot {row} set to {value}: fail kernel={fk} plain={fp} "
-            f"rel_err(leading {row} x {row}) {[f'{e:.2e}' for e in lead]}")
+            f"rel_err ld_r ld_i (columns < {row}), inv_r inv_i (leading {row} x {row}) "
+            f"{[f'{e:.2e}' for e in lead]}")
         if fk != fp or fk != row + 1 or not max(lead) <= K1_TOL:
             raise RuntimeError(f"K1 fail contract differs from its plain version (pivot {row})")
 
@@ -722,16 +726,9 @@ def _k6_work(m, b, rb, itemsize):
 
 
 def check_k6(torch):
-    import ctypes
-
     import numpy as np
 
-    from eigensolver_gpu_torch.ops.ql_panel import (
-        ql_panel_planar,
-        ql_panel_planar_geometry,
-        ql_panel_planar_plain,
-    )
-    from eigensolver_gpu_torch.utils import kernel_guard
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar, ql_panel_planar_plain
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     dev = "cuda"
@@ -772,17 +769,10 @@ def check_k6(torch):
         ("(4096, 64) rb=3968 fp64, slabs in global memory", sl(big_r, 4096, 100, 164),
          sl(big_i, 4096, 100, 164), 4096 - 128, K6_TOL64),
     ]
-    geometry = kernel_guard.load("ql_panel_planar").ql_panel_planar_geometry
-    geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    geometry.restype = ctypes.c_int
     names = ["pf_r", "pf_i", "v_r", "v_i", "tau_r", "tau_i", "t_r", "t_i"]
     max_abs, worst = 0.0, (0.0, "")
     for label, pr, pi, rb, tol in cases:
-        m, b = pr.shape
-        geo = (ctypes.c_int * 4)()
-        if geometry(m, b, rb, pr.element_size(), geo) != 0 \
-                or tuple(geo) != ql_panel_planar_geometry(b, rb, pr.element_size()):
-            raise RuntimeError(f"K6 launch geometry differs from its Python mirror at {label}")
+        b = pr.shape[1]
         got = ql_panel_planar(pr, pi, rb)
         want = ql_panel_planar_plain(pr, pi, rb)
         torch.cuda.synchronize()
@@ -791,8 +781,7 @@ def check_k6(torch):
             max_abs = max(max_abs, max(e[1] for e in errs))
         worst = max(worst, (max(e[0] for e in errs), label))
         if not label.startswith("psbrd") or label.startswith("psbrd panel 0 "):
-            log(f"K6 {label} (blocks, slab rows, slab in shared memory, bytes) {tuple(geo)}: "
-                "rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
+            log(f"K6 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
         if any(g.shape != w.shape for g, w in zip(got, want)) or not max(e[0] for e in errs) <= tol:
             raise RuntimeError(f"K6 disagrees with its plain version at {label}")
         if any(float(got[1][: rb + j + 1, j].abs().max()) != 0.0 for j in range(b)):

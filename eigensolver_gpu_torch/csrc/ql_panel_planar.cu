@@ -50,9 +50,7 @@
 // code runs on it. Plain FMA arithmetic, four real products per complex one.
 //
 // Any m >= 1, 1 <= b <= 64, 0 <= rb <= m - b; the planes may be column slices
-// of row-major matrices with one common row stride ldp >= b. The launch
-// geometry (ql_panel_planar_geometry) is mirrored in Python by
-// ops/ql_panel.py::ql_panel_planar_geometry.
+// of row-major matrices with one common row stride ldp >= b.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -453,16 +451,4 @@ extern "C" int ql_panel_planar_f64_launch(
     double* tmr, double* tmi, void* stream) {
   return ql_panel_planar_launch<double>(pr, pi, ldp, m, b, rb, rr, ri, vr, vi,
                                         taur, taui, tmr, tmi, stream);
-}
-
-// The launch geometry for (m, b, rb) and an element size of 4 or 8 bytes:
-// out = {blocks, slab rows, slab in shared memory (0/1), shared bytes}.
-extern "C" int ql_panel_planar_geometry(int m, int b, int rb, int itemsize, int* out) {
-  if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m) return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry(b, rb, itemsize);
-  out[0] = geo.blocks;
-  out[1] = geo.slab_rows;
-  out[2] = geo.slab_in_smem;
-  out[3] = geo.smem_bytes;
-  return 0;
 }

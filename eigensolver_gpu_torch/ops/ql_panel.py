@@ -35,9 +35,7 @@ forward larft of the CONJUGATED taus, so that
 ``ql_panel_planar_plain``: ``sbrd_planar._ql_panel_planar`` followed by
 ``sbrd_planar._larft_forward_planar(v, tau_r, -tau_i)``. The kernel spreads
 the panel's active rows over the blocks of one thread-block cluster, a row
-slab each (``ql_panel_planar_geometry`` mirrors the launch geometry that the
-CUDA source computes; the launch raises if the cluster cannot be
-co-resident).
+slab each; the launch raises if the cluster cannot be co-resident.
 """
 
 from __future__ import annotations
@@ -51,33 +49,6 @@ from eigensolver_gpu_torch.ops.sbrd_planar import _larft_forward_planar, _ql_pan
 from eigensolver_gpu_torch.utils import kernel_guard
 
 B_MAX = 64  # kMaxB of csrc/ql_panel.cu
-
-# launch geometry of csrc/ql_panel_planar.cu (its constants of the same names)
-QLP_THREADS = 512
-QLP_MAX_BLOCKS = 16  # the largest (non-portable) cluster
-QLP_ROWS_TARGET = 256  # active rows per block
-QLP_SMEM_MAX = 232448  # a block's shared memory on the H100
-
-
-def ql_panel_planar_geometry(b, rows_below, itemsize):
-    """The K6 launch for a panel of width ``b`` with ``rows_below`` (any
-    number of rows past the last pivot) and elements of ``itemsize`` bytes:
-    ``(blocks, slab_rows, slab_in_smem, smem_bytes)``.
-
-    Block g owns the active rows [g * slab_rows, min((g + 1) * slab_rows,
-    rows_below + b)); rows past the last pivot are only copied. The slab of
-    both planes sits in shared memory when it fits beside the published
-    slots, the lane partials and the per-column scalars, else in the output
-    planes in global memory (``smem_bytes`` then holds the rest only)."""
-    mact = rows_below + b
-    blocks = min(QLP_MAX_BLOCKS, -(-mact // QLP_ROWS_TARGET))
-    slab = -(-mact // blocks)
-    slot = 8 + 2 * B_MAX + 2 * b * b
-    base = (slot + 3 * QLP_THREADS + 4 * B_MAX) * itemsize + 4 * B_MAX
-    with_slab = base + 2 * slab * b * itemsize
-    fits = with_slab <= QLP_SMEM_MAX
-    return blocks, slab, int(fits), with_slab if fits else base
-
 
 def ql_panel_plain(p, rows_below):
     """Plain PyTorch version of kernel K5 (same contract)."""

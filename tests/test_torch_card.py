@@ -53,8 +53,9 @@ def test_pchol_block_kernel_matches_plain(cuda_device, nb):
     """K1 within 1e-4 relative (Frobenius) of its plain version in all four
     outputs (both planes of L and of its inverse), fail exact, also past a
     bad pivot (rows 7, 31 and 32: inside, at the end of and just past the
-    first 32-column block) and a NaN pivot, where the leading block before
-    the pivot is held; two calls bit-identical."""
+    first 32-column block) and a NaN pivot, where L is held on all rows of
+    the columns before the pivot and the inverse on the leading block; two
+    calls bit-identical."""
     rng = np.random.default_rng(nb)
     t = rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb))
     a0 = t @ t.conj().T + nb * np.eye(nb)
@@ -72,8 +73,12 @@ def test_pchol_block_kernel_matches_plain(cuda_device, nb):
         assert pchol_block_planar.launches == before + 1
         assert int(got[4]) == int(want[4]) == (0 if row is None else row + 1)
         k = nb if row is None else row
-        for g, w in zip(got[:4], want[:4]):
-            g, w = g[:k, :k].cpu(), w[:k, :k].cpu()
+        # L's columns before the pivot are fixed on every row; the inverse's
+        # leading block is the inverse of L's
+        held = [(x[:, :k], y[:, :k]) for x, y in zip(got[:2], want[:2])]
+        held += [(x[:k, :k], y[:k, :k]) for x, y in zip(got[2:4], want[2:4])]
+        for g, w in held:
+            g, w = g.cpu(), w.cpu()
             # an all-zero plane (the imaginary parts at nb = 1) must match exactly
             assert float(torch.linalg.norm(g - w)) <= 1e-4 * float(torch.linalg.norm(w))
         # bit-identical from call to call, NaN where NaN (past a bad pivot)

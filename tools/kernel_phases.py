@@ -11,6 +11,13 @@ barrier, runs K1 at nb = 128 and K6 at the main path's largest panel
 the SM cycles spent before it summed over the run and how often it was
 reached. The committed kernels carry no instrumentation; the marks cost
 thread 0 a few dozen cycles each. Needs a CUDA device and nvcc.
+
+A mark goes after each ``__syncthreads();`` or ``cluster.sync();`` that
+begins a line of its own, and after the line that equals the kernel's first
+statement given to ``build``; a barrier written behind an ``if`` on the
+same line is not marked, and its time falls to the next mark. Each
+reported line is printed with its text, so the output names what it timed
+whatever the source's line numbers are.
 """
 
 from __future__ import annotations
