@@ -69,6 +69,10 @@ MV_TILE = 64  # tile edge of csrc/symv.cu
 BAND, REPLAY_G = 32, 96  # SolverConfig defaults of the fp32 two-stage path
 K5_TOL = 1e-4  # relative max error, fp32: sums of length <= 4096 in another order
 K5_TOL64 = 1e-11
+# the earlier designs' times at the timed shapes, for the log only (PERF.md §6: NVIDIA H100
+# 80GB HBM3, 700 W, chip_smoke.py of the design's own PR)
+K5_ONE_BLOCK_MS = 2.2412
+K8_LAUNCH_SEQUENCE_MS = 93.789
 # K7: relative max error of d, e, tau and the active reflectors against the
 # plain version. The entries drift apart along the 12 280 dependent steps
 # (on the card: 1.6e-9 in fp64 at n = 4096, order one in fp32), so fp64 is
@@ -473,42 +477,69 @@ def check_k5(torch):
     big = torch.tensor(rng.standard_normal((4096, 4096)), device=dev)
     big32 = big.float()
     trivial = big32[:128, :16].clone()
-    trivial[: 64 + 15, 15] = 0.0  # last column zero above its pivot
-    cases = [  # (label, panel, rows_below, tolerance)
+    trivial[: 64 + 15, 15] = 0.0  # last column zero above its pivot, one block
+    # a trivial column whose zero tail crosses the row slabs of a 5-block launch
+    rb_t = 1000
+    trivial_x = big32[:1100, :16].clone()
+    trivial_x[: rb_t + 15, 15] = 0.0
+    sl = lambda x, rows, c0, c1: x[:rows, c0:c1]
+    # every panel sbrd factors at n = 4096, band 32: column slices of the
+    # 4096^2 matrix, row stride 4096
+    cases = []  # (label, panel, rows_below, tolerance)
+    for p in range(4096 // BAND - 1):
+        pend = 4096 - p * BAND
+        mrows = pend - BAND
+        cases.append((f"sbrd panel {p} ({pend}, {BAND}) rb={mrows - BAND}",
+                      sl(big32, pend, mrows, pend), mrows - BAND, K5_TOL))
+    cases += [
         ("(4096, 32) rb=4032", big32[:, :32].contiguous(), 4096 - 64, K5_TOL),
         ("(4096, 32) rb=4032, column slice of 4096^2", big32[:, 4032:4064], 4096 - 64, K5_TOL),
         ("(2048, 32) rb=1984, slice of a leading block", big32[:2048, 2016:2048], 1984, K5_TOL),
         ("(1000, 32) rb=936", big32[:1000, 100:132], 936, K5_TOL),
         ("(1000, 24) rb=500", big32[:1000, 7:31], 500, K5_TOL),
+        ("(20, 16) rb=2, fewer rows than a slab", sl(big32, 20, 3, 19), 2, K5_TOL),
+        ("(300, 1) rb=250", sl(big32, 300, 5, 6), 250, K5_TOL),
+        ("(700, 64) rb=0", sl(big32, 700, 0, 64), 0, K5_TOL),
         ("(128, 16) rb=64 trivial column", trivial, 64, K5_TOL),
+        ("(1100, 16) rb=1000 trivial column across slabs", trivial_x, rb_t, K5_TOL),
         ("(1024, 32) rb=960 fp64", big[:1024, 64:96], 960, K5_TOL64),
+        ("(4096, 64) rb=3968 fp64", sl(big, 4096, 100, 164), 4096 - 128, K5_TOL64),
     ]
     names = ["r_panel", "v", "tau", "t"]
-    max_abs = 0.0
+    max_abs, worst = 0.0, (0.0, "")
     for label, p, rb, tol in cases:
+        b = p.shape[1]
         got = ql_panel(p, rb)
         want = ql_panel_plain(p, rb)
         torch.cuda.synchronize()
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         if tol == K5_TOL:
             max_abs = max(max_abs, max(e[1] for e in errs))
-        log(f"K5 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
+        worst = max(worst, (max(e[0] for e in errs), label))
+        if not label.startswith("sbrd") or label.startswith("sbrd panel 0 "):
+            log(f"K5 {label}: rel_err " + " ".join(f"{n}={e[0]:.1e}" for n, e in zip(names, errs)))
         if any(g.shape != w.shape for g, w in zip(got, want)) or not max(e[0] for e in errs) <= tol:
             raise RuntimeError(f"K5 disagrees with its plain version at {label}")
         if "trivial" in label:
-            b = p.shape[1]
             if float(got[2][b - 1]) != 0.0 or float(got[1][:, b - 1].abs().max()) != 0.0 \
                     or not torch.equal(got[0][:, b - 1], p[:, b - 1]):
-                raise RuntimeError("K5 trivial column: tau, v or the column break the contract")
-    p, rb = cases[1][1], cases[1][2]
-    if not all(torch.equal(x, y) for x, y in zip(ql_panel(p, rb), ql_panel(p, rb))):
-        raise RuntimeError("K5 is not reproducible from run to run")
+                raise RuntimeError(f"K5 trivial column at {label}: tau, v or the column break "
+                                   "the contract")
+            log(f"K5 {label}: tau = 0, v = 0 and the column kept, exactly")
+        if label.startswith("sbrd panel 0 ") or "fp64" in label or "trivial" in label:
+            if not all(torch.equal(x, y) for x, y in zip(got, ql_panel(p, rb))):
+                raise RuntimeError(f"K5 is not reproducible from run to run at {label}")
+    log(f"K5: {len(cases)} shapes held, the 127 sbrd panels among them; worst rel_err "
+        f"{worst[0]:.1e} at {worst[1]}; two calls bit-identical on sbrd panel 0 (16 blocks), "
+        "the trivial and the fp64 shapes")
+    _, p, rb, _ = cases[4096 // BAND]  # the column slice
     ms = device_ms(lambda: ql_panel(p, rb), iters=20)
     plain_ms = device_ms(lambda: ql_panel_plain(p, rb), iters=2)
     bound_ms, bound_by = bound(*_k5_work(4096, 32, rb, 4))
-    log(f"K5 times at (4096, 32) rb={rb} fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by}); no single library call returns a QL panel "
-        "with its T (library_ms null)")
+    log(f"K5 times at (4096, 32) rb={rb} fp32: kernel {ms:.4f} ms (the one-block design before "
+        f"the cluster: {K5_ONE_BLOCK_MS} ms, PERF.md), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}); no single library call returns a QL panel with its T "
+        "(library_ms null)")
     return {
         "name": "ql_panel", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/ql_panel.cu",
@@ -868,20 +899,33 @@ def _k8_checks(torch, out, band_r, band_i, sci, b):
 
 def check_k8(torch):
     from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
     from eigensolver_gpu_torch.ops.sb2st_planar import bulge_chase_planar
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     flat = lambda o: [o[0], o[1][0], o[1][1], o[2][0], o[2][1], o[3][0], o[3][1]]
     record = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the plain chase costs about a millisecond a timestep: it runs at
     # n = 4096 once, in the main path's type; the fp64 instance is held at
-    # N_K8_HELD and checked through spectrum and similarity at n = 4096
-    for n, b, dtype, with_plain in (
-            (100, 6, torch.float32, True), (100, 6, torch.float64, True),
-            (N_K8_HELD, BAND, torch.float64, True), (4096, BAND, torch.float64, False),
-            (4096, BAND, torch.float32, True)):
+    # N_K8_HELD and checked through spectrum and similarity at n = 4096. At
+    # n = 2400, b = 6 (134 slots) and n = 2048, b = 4 (171) the slots
+    # outnumber the SMs, so a block of the persistent kernel owns several.
+    # At b = 4 the columns of the last sweeps are tiny and their reflectors
+    # ill-conditioned (a perturbation of the band in its last bits moves the
+    # plain chase's own reflectors there by about 1e-6, logged below): d and
+    # e are held whole, the reflectors on the first K7_HEAD sweeps ("head")
+    for n, b, dtype, with_plain, head in (
+            (100, 6, torch.float32, True, False), (100, 6, torch.float64, True, False),
+            (N_K8_HELD, BAND, torch.float64, True, False),
+            (2400, 6, torch.float32, True, False), (2400, 6, torch.float64, True, False),
+            (2048, 4, torch.float64, True, True), (4096, BAND, torch.float64, False, False),
+            (4096, BAND, torch.float32, True, False)):
         f32 = dtype == torch.float32
+        slots = chase_dims(n, b)[0]
         label = f"n={n} b={b} {'fp32' if f32 else 'fp64'}"
+        if slots > sms:
+            label += f" ({slots} slots on {sms} blocks)"
         band_r, band_i, sci = _random_hband(torch, n, b, 8, dtype)
         got = bulge_chase_planar_kernel(band_r, band_i, b)
         if not all(torch.equal(x, y) for x, y in
@@ -909,6 +953,22 @@ def check_k8(torch):
                 errs = [rel_err(x, y) for x, y in zip(mod(g), mod(w))]
                 msg += (f"; rel_err vs plain on the first {h} sweeps d={errs[0][0]:.1e} "
                         f"|e|={errs[1][0]:.1e} |vt|={errs[2][0]:.1e} |taut|={errs[3][0]:.1e}")
+            elif head:
+                h = 3 * K7_HEAD
+                errs = [rel_err(x, y) for x, y in zip(g[:3] + [v[:h] for v in g[3:]],
+                                                      w[:3] + [v[:h] for v in w[3:]])]
+                msg += (f"; rel_err vs plain, d and e whole, reflectors on the first {K7_HEAD} "
+                        "sweeps: " + " ".join(f"{x[0]:.1e}" for x in errs))
+                # how far the plain chase itself moves when the band moves in its
+                # last bits: the yardstick of the whole-array differences below
+                gen = torch.Generator(device="cuda").manual_seed(8)
+                bump = 1 + 1e-15 * torch.randn(band_r.shape, generator=gen, device="cuda",
+                                               dtype=dtype)
+                moved = flat(bulge_chase_planar(band_r * bump, band_i, b))
+                for k in (3, 4):
+                    moved[k] = moved[k] * act
+                msg += "; plain vs plain of the band times (1 + 1e-15 N(0, 1)), whole: " + \
+                    " ".join(f"{rel_err(x, y)[0]:.1e}" for x, y in zip(moved, w))
             else:
                 errs = [rel_err(x, y) for x, y in zip(g, w)]
             msg += "; whole arrays, both planes: " + " ".join(
@@ -925,6 +985,8 @@ def check_k8(torch):
             nbytes, flops, windows = _k7_work(n, b, 4 if f32 else 8)
             bound_ms, bound_by = bound(2 * nbytes, 4 * flops)  # two planes, complex products
             log(f"K8 times at {label}: kernel {ms:.3f} ms"
+                + (f" (the launch sequence before the persistent kernel: "
+                   f"{K8_LAUNCH_SEQUENCE_MS} ms, PERF.md)" if f32 else "")
                 + (f", plain {plain_ms:.1f} ms" if with_plain else "")
                 + f", bound {bound_ms:.4f} ms ({bound_by}; {windows} windows); no single "
                 "library call chases a Hermitian band to tridiagonal (library_ms null)")
@@ -1021,7 +1083,8 @@ def _breakdown(torch, solve, wall, kernels=()):
     torch.profiler: device busy ms (sum of kernel self times), the idle
     share against the unprofiled wall time ``wall``, the top kernels, and
     the device total of every kernel whose name holds one of ``kernels``.
-    Returns the stage ms by range name."""
+    Returns the stage ms by range name and, for each of ``kernels``, its
+    (device ms, launches) over the profiled solve."""
     from torch.profiler import ProfilerActivity, profile
 
     from eigensolver_gpu_torch.utils import tracing
@@ -1053,11 +1116,14 @@ def _breakdown(torch, solve, wall, kernels=()):
     idle = f"{1.0 - busy / wall:.3f}" if busy > 0 else "not measured"
     log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
     log(f"  device busy {busy:.1f} ms of {wall:.1f} ms wall, idle share {idle}; top: {top}")
+    totals = {}
     for key in kernels:
         hits = [v for k, v in per_kernel.items() if key in k]
-        log(f"  kernel {key}: {sum(v[0] for v in hits):.2f} ms device time in "
-            f"{sum(v[1] for v in hits)} launches over one solve (kineto)")
-    return stages
+        totals[key] = (sum(v[0] for v in hits), sum(v[1] for v in hits))
+        log(f"  kernel {key}: {totals[key][0]:.2f} ms device time in "
+            f"{totals[key][1]} launches over one solve (kineto)")
+    log(f"  kernel launches over one solve (kineto): {sum(v[1] for v in per_kernel.values())}")
+    return stages, totals
 
 
 def phase_main(torch):
@@ -1178,7 +1244,7 @@ def phase_main_real(torch):
             raise RuntimeError(f"real path shapes {shapes} dtype {res.w.dtype}")
         if k4 != want_k4:
             raise RuntimeError(f"launch count K4={k4}, want {want_k4}")
-        stages = _breakdown(torch, solve, min(times))
+        stages, _ = _breakdown(torch, solve, min(times))
         # the fp32 pipeline's sygvdx range holds Cholesky, sygst, syevdx
         # and the phase-4 solve; syevdx holds sytrd, stedc and unmtr
         log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
@@ -1231,7 +1297,8 @@ def phase_main_real_two(torch):
     want = {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, want {want}")
-    stages = _breakdown(torch, solve, sorted(times)[1])
+    stages, _ = _breakdown(torch, solve, sorted(times)[1],
+                           kernels=("ql_panel_kernel", "chase_step", "replay_wave"))
     log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
 
     # the plain torch route, one solve, with synchronizing ranges
@@ -1312,8 +1379,12 @@ def phase_main_planar_two(torch):
             "apply_q2_planar_kernel": 1}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, want {want}")
-    _breakdown(torch, solve, sorted(times)[1],
-               kernels=("pchol_block_kernel", "ql_panel_planar_kernel"))
+    _, totals = _breakdown(torch, solve, sorted(times)[1],
+                           kernels=("pchol_block_kernel", "ql_panel_planar_kernel",
+                                    "chase_planar_kernel", "replay_planar_wave"))
+    if totals["chase_planar_kernel"][1] != 1:
+        raise RuntimeError("one planar two-stage solve launched the persistent chase kernel "
+                           f"{totals['chase_planar_kernel'][1]} times (kineto), want 1")
     del args, res
 
     # the plain torch route, one solve, with synchronizing ranges

@@ -1,5 +1,5 @@
 // Kernel K8: planar complex Hermitian band -> complex tridiagonal bulge
-// chase, all wavefront timesteps from one call
+// chase, all wavefront timesteps in one persistent kernel
 // (eigensolver_gpu_torch/ops/chase.py::bulge_chase_planar_kernel, called once
 // per planar two-stage solve by models/zhegvdx_planar.py).
 //
@@ -33,18 +33,61 @@
 // AND writes it as zero (the A11 update is 2 Re(w_p conj(v_p)), real), so
 // rounding never accumulates there.
 //
-// What bounds it on the H100: the 3 (n - 3) + 1 strictly ordered timesteps
-// (12 280 at n = 4096), each a few microseconds of work on at most
-// ceil(n / (3b - 1)) windows of 3 b^2 complex entries. Bytes (the two band
-// planes, read and written once, and the reflector store) and operations
-// are far below what the sequence costs.
+// What bounds it on the H100: the 3 (n - 3) + 1 dependent timesteps (12 280
+// at n = 4096), each a few microseconds of latency on at most
+// ceil(n / (3b - 1)) windows of 3 b^2 complex entries: per step a slot
+// waits for its neighbours' flags, stages its tiles from L2, builds the
+// reflector and applies it. Bytes (the two band planes, read and written
+// once, and the reflector store) and operations are far below that chain.
+// On an NVIDIA H100 80GB HBM3 at 700 W (n = 4096, b = 32, fp32,
+// tools/kernel_phases.py) a step takes about 9 300 SM cycles: staging the
+// tiles after the wait 2 100, the write-back 1 700, the three products
+// 1 600, the flag wait 1 400, the publishing fence 1 100, the zlarfg 900,
+// w 500.
 //
-// Design, the real kernel's: one launch per timestep, all enqueued on the
-// stream from this one C call; the stream orders the timesteps, and within
-// one the active slots are independent blocks. The host computes the
-// contiguous range of active slots and launches only those. A block stages
-// its three b x b complex tiles in shared memory straight from band storage
-// (out-of-matrix columns are guarded), builds the reflector in one warp,
+// Design: one cooperative launch per call of G = min(s_slots, SMs) blocks,
+// block g owning the slots s = g (mod G) and looping over all timesteps;
+// at each it runs its slots in ascending s, and an active slot runs the
+// window arithmetic below.
+//
+// The dependency rule: slot s at t waits for slots s - 1 and s + 1 to have
+// finished t - 1 (its own t - 1 precedes it in its block). Derived from the
+// band footprint of the plain chase (ops/sb2st.py::bulge_chase): slot s at t
+// reads the strip rows j0(t) + s (3b - 1) + [0, 2b), j0(t) = t / 3 + 1 +
+// (t % 3) b - b, and writes those entries with q + d < 3b. From t - 1 to t
+// j0 moves by b (k = 1, 2) or by 1 - 2b (k = 0), so against strips 3b - 1
+// rows apart only the strips of slots s + 1 (k = 1, 2: one shared row) and
+// s - 1 (k = 0: b shared rows) meet slot s's, and a window of t - 1 two
+// slots away lies at least 2b - 1 rows clear of it; the windows of one
+// timestep are disjoint. Every slot, active or not, waits before it
+// publishes, so by induction slot s at t starts after every slot s' has
+// finished every t' with |s' - s| <= t - t'; tests/test_torch_chase_schedule.py
+// checks that every read-after-write and write-after-read pair of the plain
+// footprint, at any distance in time, lies inside that cone.
+//
+// Flags: progress[s] = t + 1 once slot s has finished t (an int scratch of
+// s_slots words, zeroed by the caller on the stream). Publishing is
+// __syncthreads(), then thread 0's fence.acq_rel.gpu and a relaxed
+// device-scope store (a release); waiting is thread 0 spinning on
+// device-scope acquire loads, then __syncthreads(). Band tiles are read
+// with ld.global.cg (L2, never a stale L1 line of another SM's write), all
+// of a thread's tile entries at b = 32 in flight at once; the band is not
+// marked const __restrict__, which would allow non-coherent loads.
+//
+// Co-residency: a spinning block needs its neighbours to run, so all G
+// blocks must be resident at once. G <= the number of SMs and a block takes
+// at most 205 KB of shared memory (fp64, b = 64), so one block per SM
+// always fits; the cooperative launch checks it and fails with an error
+// (cudaErrorCooperativeLaunchTooLarge) rather than run what could hang, and
+// the wrapper raises. There is no fallback. Deadlock-free: block g runs
+// (t, s) only after its own (t, s - G) and (t - 1, *), and every wait is
+// on a (t - 1, *) of another block, so the least unfinished (t, s) in
+// lexicographic order can always run.
+//
+// A block of 512 threads stages its three b x b complex tiles in shared
+// memory straight from band storage (out-of-matrix columns are guarded;
+// thread (p, q0) takes the entries of row p in columns q0, q0 + 512 / b,
+// .., so the loops hold no division), builds the reflector in one warp,
 // forms the three products with 3b threads, and writes the tiles back; it
 // writes nothing outside its window. All sums run in a fixed order, so two
 // calls give the same bits. Plain FMA arithmetic, four real products per
@@ -54,8 +97,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kMaxB = 64;
+constexpr int kTileLoads = 2;  // tile entries a thread loads at once: all of them at b = 32
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -67,12 +111,30 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
+// a band entry from L2, past this SM's L1
+__device__ __forceinline__ float from_l2(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ double from_l2(const double* p) { return __ldcg(p); }
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// after a __syncthreads(): the block's writes, then the flag (fence.acq_rel
+// and a relaxed store make a release at device scope)
+__device__ __forceinline__ void publish(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n\tst.relaxed.gpu.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
+
+// One active window (t, s): stage, reflect, apply, write back. Called by
+// all threads of the block; `smem` holds 6 b (b + 1) + 10 b + 2 elements.
+// Thread (pt, q0) = (tid % b, tid / b) handles the tile entries (pt, q) for
+// q = q0, q0 + qs, .. < b, qs = kThreads / b (none when q0 >= qs).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-chase_planar_step(T* band_r, T* band_i, int n, int b, int t, int s_lo,
-                  int s_slots, T* vt_r, T* vt_i, T* taut_r, T* taut_i) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+__device__ void chase_window(T* band_r, T* band_i, int n, int b, int t, int s,
+                             int s_slots, T* vt_r, T* vt_i, T* taut_r, T* taut_i,
+                             T* smem, int pt, int q0, int qs) {
   const int ld = b + 1;
   const int tile = b * ld;
   // tiles [q][p], p fastest, real plane then imaginary plane
@@ -95,35 +157,54 @@ chase_planar_step(T* band_r, T* band_i, int n, int b, int t, int s_lo,
   T* scal = wwi + b;          // tau_r, tau_i
 
   const int tid = threadIdx.x;
-  const int s = s_lo + blockIdx.x;
   const int k = t % 3 + 3 * s;
   const int r0 = t / 3 - s + 1 + k * b;
   const int w = 2 * b;
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int q = idx / b, p = idx - q * b;
-    const int c10 = r0 - b + q, c11 = r0 + q;
-    const int at = q * ld + p;
-    const bool in10 = c10 >= 0;
-    a10r[at] = in10 ? band_r[(size_t)c10 * w + b + p - q] : T(0);
-    a10i[at] = in10 ? band_i[(size_t)c10 * w + b + p - q] : T(0);
-    T sr = T(0), si = T(0);
-    if (p > q) {  // stored entry A[r0 + p, r0 + q]
-      if (c11 < n) {
-        sr = band_r[(size_t)c11 * w + p - q];
-        si = band_i[(size_t)c11 * w + p - q];
-      }
-    } else if (p == q) {  // the diagonal is real: its imaginary part reads 0
-      if (c11 < n) sr = band_r[(size_t)c11 * w];
-    } else if (r0 + p < n) {  // conj of the stored A[r0 + q, r0 + p]
-      sr = band_r[(size_t)(r0 + p) * w + q - p];
-      si = -band_i[(size_t)(r0 + p) * w + q - p];
+  // columns r0 - b and r0 of both planes; entry (p, q) of A10 and A21 lies
+  // q (2b - 1) + p + b past them, of A11 q (2b - 1) + p (p >= q)
+  const T* c10r = band_r + (ptrdiff_t)(r0 - b) * w;
+  const T* c10i = band_i + (ptrdiff_t)(r0 - b) * w;
+  const T* c11r = band_r + (size_t)r0 * w;
+  const T* c11i = band_i + (size_t)r0 * w;
+
+  // the three tiles: thread (pt, q0) takes the entries (pt, q0 + k qs),
+  // kTileLoads of them (six loads each) in flight at once
+  for (int qb = q0; qb < b; qb += kTileLoads * qs) {
+    T x[kTileLoads][6];
+#pragma unroll
+    for (int u = 0; u < kTileLoads; ++u) {
+      const int q = qb + u * qs, p = pt;
+      if (q >= b) break;
+      const int o = q * (w - 1) + p;
+      const bool in10 = r0 - b + q >= 0, in11 = r0 + q < n;
+      x[u][0] = in10 ? from_l2(c10r + o + b) : T(0);
+      x[u][1] = in10 ? from_l2(c10i + o + b) : T(0);
+      // A11: the stored entry A[r0 + p, r0 + q] (p >= q), else the conj of
+      // the stored A[r0 + q, r0 + p]; the diagonal is real: its imaginary
+      // part reads 0. One load path for all three, so the warp does not split
+      const bool low = p >= q;
+      const int o11 = low ? o : p * (w - 1) + q;
+      const bool in = low ? in11 : r0 + p < n;
+      const T sr = in ? from_l2(c11r + o11) : T(0);
+      const T si = in && p != q ? from_l2(c11i + o11) : T(0);
+      x[u][2] = sr;
+      x[u][3] = low || !in ? si : -si;
+      x[u][4] = in11 ? from_l2(c11r + o + b) : T(0);
+      x[u][5] = in11 ? from_l2(c11i + o + b) : T(0);
     }
-    a11r[at] = sr;
-    a11i[at] = si;
-    const bool in21 = c11 < n;
-    a21r[at] = in21 ? band_r[(size_t)c11 * w + b + p - q] : T(0);
-    a21i[at] = in21 ? band_i[(size_t)c11 * w + b + p - q] : T(0);
+#pragma unroll
+    for (int u = 0; u < kTileLoads; ++u) {
+      const int q = qb + u * qs;
+      if (q >= b) break;
+      const int at = q * ld + pt;
+      a10r[at] = x[u][0];
+      a10i[at] = x[u][1];
+      a11r[at] = x[u][2];
+      a11i[at] = x[u][3];
+      a21r[at] = x[u][4];
+      a21i[at] = x[u][5];
+    }
   }
   __syncthreads();
 
@@ -214,29 +295,29 @@ chase_planar_step(T* band_r, T* band_i, int n, int b, int t, int s_lo,
   }
   __syncthreads();
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int q = idx / b, p = idx - q * b;
-    const int c10 = r0 - b + q, c11 = r0 + q;
+  for (int q = q0; q < b; q += qs) {
+    const int p = pt;
+    const int o = q * (w - 1) + p;
     const int at = q * ld + p;
     const T vpr = vvr[p], vpi = vvi[p], vqr = vvr[q], vqi = vvi[q];
-    if (c10 >= 0) {  // A10 -= v_p (conj(tau) u1_q)
+    if (r0 - b + q >= 0) {  // A10 -= v_p (conj(tau) u1_q)
       const T cr = tr * u1r[q] + ti * u1i[q], ci = tr * u1i[q] - ti * u1r[q];
-      band_r[(size_t)c10 * w + b + p - q] = a10r[at] - (vpr * cr - vpi * ci);
-      band_i[(size_t)c10 * w + b + p - q] = a10i[at] - (vpr * ci + vpi * cr);
+      band_r[(ptrdiff_t)(r0 - b) * w + o + b] = a10r[at] - (vpr * cr - vpi * ci);
+      band_i[(ptrdiff_t)(r0 - b) * w + o + b] = a10i[at] - (vpr * ci + vpi * cr);
     }
-    if (c11 < n) {
+    if (r0 + q < n) {
       if (p >= q) {  // A11 -= w_p conj(v_q) + v_p conj(w_q)
         const T wpr = wwr[p], wpi = wwi[p], wqr = wwr[q], wqi = wwi[q];
-        band_r[(size_t)c11 * w + p - q] =
+        band_r[(size_t)r0 * w + o] =
             a11r[at] - (wpr * vqr + wpi * vqi + vpr * wqr + vpi * wqi);
-        band_i[(size_t)c11 * w + p - q] =
+        band_i[(size_t)r0 * w + o] =
             p == q ? T(0)
                    : a11i[at] - (wpi * vqr - wpr * vqi + vpi * wqr - vpr * wqi);
       }
       // A21 -= (tau y2_p) conj(v_q)
       const T cr = tr * y2r[p] - ti * y2i[p], ci = tr * y2i[p] + ti * y2r[p];
-      band_r[(size_t)c11 * w + b + p - q] = a21r[at] - (cr * vqr + ci * vqi);
-      band_i[(size_t)c11 * w + b + p - q] = a21i[at] - (ci * vqr - cr * vqi);
+      band_r[(size_t)r0 * w + o + b] = a21r[at] - (cr * vqr + ci * vqi);
+      band_i[(size_t)r0 * w + o + b] = a21i[at] - (ci * vqr - cr * vqi);
     }
   }
   if (tid < b) {
@@ -249,36 +330,61 @@ chase_planar_step(T* band_r, T* band_i, int n, int b, int t, int s_lo,
   }
 }
 
+
+// All timesteps: block g owns the slots s = g (mod G).
 template <typename T>
-int chase_planar_launch(T* band_r, T* band_i, int n, int b, T* vt_r, T* vt_i,
-                        T* taut_r, T* taut_i, void* stream) {
-  if (n < 3 || b < 2 || b > kMaxB) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int s_slots = ((n - 3) / b) / 3 + 1;
-  const int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
-  const int stride = 3 * b - 1;
-  const size_t smem = (size_t)(6 * b * (b + 1) + 10 * b + 2) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      chase_planar_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+__global__ void __launch_bounds__(kThreads)
+chase_planar_kernel(T* band_r, T* band_i, int n, int b, int t_total, int s_slots,
+                    T* vt_r, T* vt_i, T* taut_r, T* taut_i, int* progress) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int qs = kThreads / b, pt = threadIdx.x % b;
+  const int q0 = threadIdx.x / b < qs ? threadIdx.x / b : b;  // b: no entries
   for (int t = 0; t < t_total; ++t) {
     const int vmax = t / 3, k0 = t % 3;
-    // slot s is active when 0 <= vmax - s <= n - 3 and
-    // r0 = vmax + 1 + k0 b + s (3b - 1) <= n - 2
-    const int room = n - 3 - vmax - k0 * b;
-    if (room < 0) continue;
-    const int s_lo = vmax - (n - 3) > 0 ? vmax - (n - 3) : 0;
-    int s_hi = room / stride;
-    if (s_hi > vmax) s_hi = vmax;
-    if (s_hi > s_slots - 1) s_hi = s_slots - 1;
-    if (s_hi < s_lo) continue;
-    chase_planar_step<T><<<s_hi - s_lo + 1, kThreads, smem, st>>>(
-        band_r, band_i, n, b, t, s_lo, s_slots, vt_r, vt_i, taut_r, taut_i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    for (int s = blockIdx.x; s < s_slots; s += gridDim.x) {
+      // wait for slots s - 1 and s + 1 to have finished t - 1
+      if (threadIdx.x == 0 && t > 0) {
+        const int* lo = progress + (s > 0 ? s - 1 : s);
+        const int* hi = progress + (s + 1 < s_slots ? s + 1 : s);
+        while (load_acquire(lo) < t || load_acquire(hi) < t) {
+        }
+      }
+      __syncthreads();
+      const int v = vmax - s;
+      if (v >= 0 && v <= n - 3 && v + 1 + (k0 + 3 * s) * b <= n - 2)
+        chase_window<T>(band_r, band_i, n, b, t, s, s_slots, vt_r, vt_i, taut_r, taut_i, smem,
+                        pt, q0, qs);
+      __syncthreads();
+      if (threadIdx.x == 0) publish(progress + s, t + 1);
+    }
   }
-  return (int)cudaSuccess;
+}
+
+template <typename T>
+int chase_planar_launch(T* band_r, T* band_i, int n, int b, T* vt_r, T* vt_i,
+                        T* taut_r, T* taut_i, int* progress, void* stream) {
+  if (n < 3 || b < 2 || b > kMaxB) return (int)cudaErrorInvalidValue;
+  int s_slots = ((n - 3) / b) / 3 + 1;
+  int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
+  const size_t smem = (size_t)(6 * b * (b + 1) + 10 * b + 2) * sizeof(T);
+  auto kernel = chase_planar_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = s_slots < sms ? s_slots : sms;
+  void* args[] = {&band_r, &band_i, &n, &b, &t_total, &s_slots,
+                  &vt_r, &vt_i, &taut_r, &taut_i, &progress};
+  // fails, and launches nothing, if the blocks cannot all be resident
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args,
+                                    smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -287,19 +393,22 @@ int chase_planar_launch(T* band_r, T* band_i, int n, int b, T* vt_r, T* vt_i,
 // of band_r is d, the second columns of the two planes are e on return);
 // vt_r, vt_i: t3 * s_slots * b and taut_r, taut_i: t3 * s_slots elements,
 // zeroed by the caller, with s_slots = ((n - 3) / b) / 3 + 1,
-// t3 = 3 * ceil((3 (n - 3) + 1) / 3).
+// t3 = 3 * ceil((3 (n - 3) + 1) / 3); progress: s_slots ints, zeroed by the
+// caller.
 extern "C" int bulge_chase_planar_f32_launch(float* band_r, float* band_i,
                                              int n, int b, float* vt_r,
                                              float* vt_i, float* taut_r,
-                                             float* taut_i, void* stream) {
+                                             float* taut_i, int* progress,
+                                             void* stream) {
   return chase_planar_launch<float>(band_r, band_i, n, b, vt_r, vt_i, taut_r,
-                                    taut_i, stream);
+                                    taut_i, progress, stream);
 }
 
 extern "C" int bulge_chase_planar_f64_launch(double* band_r, double* band_i,
                                              int n, int b, double* vt_r,
                                              double* vt_i, double* taut_r,
-                                             double* taut_i, void* stream) {
+                                             double* taut_i, int* progress,
+                                             void* stream) {
   return chase_planar_launch<double>(band_r, band_i, n, b, vt_r, vt_i, taut_r,
-                                     taut_i, stream);
+                                     taut_i, progress, stream);
 }

@@ -12,136 +12,309 @@
 // zeroes rows [0, top) of column j against the pivot at row top, applied to
 // the columns < j. Rows past top are never touched. A column already zero
 // above its pivot is trivial: tau = 0, v = 0 including the pivot entry, the
-// column left as it was. Then T (b x b, upper triangular) with
-// H(0) H(1) .. H(b-1) = I - V T V^T: T[:, j] = -tau_j T[:, :j] (V^T V)[:j, j],
-// T[j, j] = tau_j.
+// column left as it was. v and r are separate (m, b) outputs. Then T (b x b,
+// upper triangular) with H(0) H(1) .. H(b-1) = I - V T V^T:
+// T[:, j] = -tau_j T[:, :j] (V^T V)[:j, j], T[j, j] = tau_j.
 //
-// What bounds it on the H100: neither bytes nor operations but the chain of
-// b dependent columns, each a reduction over the strip followed by a rank-1
-// update of it. The strip at m = 4096, b = 32 is 512 KB in fp32 and does
-// not fit the 227 KB of shared memory of a block, so one 1024-thread block
-// works on the output copy in global memory, where the strip stays in L2,
-// with a block barrier between the phases of a column. Only rows
-// [0, rb + b) are read after the first copy. Every sum is taken in a fixed
-// order (per-thread strided partials, then a serial sum over the partials),
-// so the result is the same from run to run. Plain FMA arithmetic.
+// What bounds it on the H100: neither bytes (0.5 MB in fp32 at (4096, 32))
+// nor operations, but the chain of b dependent columns, each a reduction
+// over the strip followed by a rank-1 update of it. On one SM the strip
+// lives in L2 and every column moves it through that SM's path to L2.
+//
+// What the design does about it (the planar twin's, csrc/ql_panel_planar.cu,
+// for real numbers): the active rows [0, rb + b) are cut into contiguous row
+// slabs, one per thread block, and the blocks form one thread-block cluster
+// (up to 16, one per SM; the launch raises if no such cluster can be
+// co-resident). Each block reads its slab once into shared memory and writes
+// it back once; v lives in the entries the reflector zeroes, as in LAPACK.
+// Per column two cluster barriers:
+//   1. each block publishes its partial |x|^2 (and the pivot's owner alpha)
+//      in its shared memory; after the barrier every block reads the
+//      partials from its peers' shared memory and sums them in the same
+//      fixed order, so all hold bit-identical beta and tau;
+//   2. each block scales its rows to v and publishes its partial
+//      v^T P[:, c < j]; after the barrier every block sums the partials in
+//      fixed order, applies the rank-1 update to its rows and, in the same
+//      pass, takes the next column's partial norm.
+// Then each block publishes its partial gram V^T V; block 0 sums them in
+// fixed order and runs the b-step larft. No atomics: bit-reproducible.
+// The number of blocks follows the active rows (one per kRowsTarget rows),
+// so a short panel (rb + b <= 256) runs in one block, whose cluster barrier
+// waits on no peer. Whether the slab is in shared memory is decided at
+// compile time; where it does not fit (fp32 far past m = 4096) it stays in
+// the output r in global memory and the same code runs on it. Plain FMA
+// arithmetic.
 //
 // Any m >= 1, 1 <= b <= 64, 0 <= rb <= m - b; the panel may be a column
 // slice of a row-major matrix (row stride ldp >= b).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kMaxB = 64;
+constexpr int kMaxBlocks = 16;    // the largest (non-portable) cluster
+constexpr int kRowsTarget = 256;  // active rows per block
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+constexpr int kLoads = 8;         // global loads in flight a thread
 
-template <typename T>
+struct Geometry {
+  int blocks, slab_rows, slab_in_smem, smem_bytes;
+};
+
+// Shared memory, in elements of T: the slot a block publishes (norm and
+// alpha, double-buffered by column parity: 4; v^T P: kMaxB; gram: b b),
+// lane partials (2 kThreads), the update vector u and the taus (2 kMaxB),
+// then the trivial flags (kMaxB ints) and, if it fits, the slab
+// (slab_rows b).
+__host__ __device__ inline int slot_len(int b) { return 4 + kMaxB + b * b; }
+
+__host__ __device__ inline size_t base_elems(int b) {
+  return (size_t)slot_len(b) + 2 * kThreads + 2 * kMaxB;
+}
+
+Geometry geometry(int b, int rb, int itemsize) {
+  const int mact = rb + b;
+  int blocks = (mact + kRowsTarget - 1) / kRowsTarget;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int slab = (mact + blocks - 1) / blocks;
+  const size_t base = base_elems(b) * itemsize + kMaxB * sizeof(int);
+  const size_t with_slab = base + (size_t)slab * b * itemsize;
+  const bool fits = with_slab <= (size_t)kSmemMax;
+  return Geometry{blocks, slab, fits ? 1 : 0, (int)(fits ? with_slab : base)};
+}
+
+// kSmemSlab: the slab is in shared memory (known at compile time, so its
+// accesses compile to shared-memory instructions), else in r.
+template <typename T, bool kSmemSlab>
 __global__ void __launch_bounds__(kThreads)
-ql_panel_kernel(const T* __restrict__ p, int ldp, int m, int b, int rb,
+ql_panel_kernel(const T* __restrict__ p, int ldp, int m, int b, int rb, int slab_rows,
                 T* r, T* v, T* tau, T* tmat) {
-  __shared__ T part[kThreads];
-  __shared__ T gram[kMaxB * kMaxB];
-  __shared__ T colsum[kMaxB];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  T* slot = reinterpret_cast<T*>(smem_raw);  // published to the peers
+  // element `off` of block g's copy of the slot array that `q` points into
+  auto peer = [&](T* q, int g, int off) -> T { return cluster.map_shared_rank(q, g)[off]; };
+  T* nslots = slot;                          // 2 x (|x|^2 partial, alpha)
+  T* wslot = slot + 4;                       // v^T P partial, kMaxB
+  T* gslot = wslot + kMaxB;                  // gram partial, b b
+  T* part = slot + slot_len(b);              // kThreads
+  T* npart = part + kThreads;                // kThreads
+  T* u = npart + kThreads;                   // kMaxB
+  T* tau_s = u + kMaxB;                      // kMaxB, all columns
+  int* trivial_of = reinterpret_cast<int*>(tau_s + kMaxB);  // kMaxB
+
   const int tid = threadIdx.x;
-  const int lanes = kThreads / b;  // row lanes of the (row lane, column) layout
+  const int nblocks = gridDim.x;
+  const int rank = blockIdx.x;
+  const int mact = rb + b;
+  const int row0 = rank * slab_rows;
+  const int row1 = min(row0 + slab_rows, mact);
+  const int nrows = max(row1 - row0, 0);
+  T* s = kSmemSlab ? reinterpret_cast<T*>(trivial_of + kMaxB) : r + (size_t)row0 * b;
+  // (row lane, column) layout of the column passes
+  const int lanes = kThreads / b;
   const int c = tid % b;
   const int rl = tid / b;
   const bool in_layout = rl < lanes;
+  auto at = [&](int row, int col) { return (row - row0) * b + col; };
 
-  for (int idx = tid; idx < m * b; idx += kThreads) {
-    const int row = idx / b, col = idx - row * b;
-    r[idx] = p[(size_t)row * ldp + col];
-    v[idx] = T(0);
+  // the slab, kLoads loads in flight a thread
+  for (int base = tid; base < nrows * b; base += kLoads * kThreads) {
+    T x[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int idx = base + q * kThreads;
+      if (idx < nrows * b) x[q] = p[(size_t)(row0 + idx / b) * ldp + idx % b];
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int idx = base + q * kThreads;
+      if (idx < nrows * b) s[idx] = x[q];
+    }
   }
-  for (int idx = tid; idx < b * b; idx += kThreads) tmat[idx] = T(0);
+  // rows past the last pivot are never touched: copied, v = 0
+  for (int idx = rank * kThreads + tid; idx < (m - mact) * b; idx += nblocks * kThreads) {
+    const int row = mact + idx / b, col = idx % b;
+    r[(size_t)row * b + col] = p[(size_t)row * ldp + col];
+    v[(size_t)row * b + col] = T(0);
+  }
   __syncthreads();
+
+  // Publish the partial |x|^2 of column jn over this slab's rows < rb + jn
+  // (acc: this thread's share, if its layout column is jn) and, from the
+  // pivot's owner, alpha; then the cluster barrier. The slot alternates
+  // with the column's parity: a column without an update has only this
+  // barrier, and a slow peer may still read the previous column's slot.
+  auto publish_norm = [&](int jn, T acc) {
+    T* nslot = nslots + 2 * (jn & 1);
+    if (in_layout && c == jn) npart[rl] = acc;
+    __syncthreads();
+    if (tid == 0) {
+      T sum = T(0);
+      for (int l = 0; l < lanes; ++l) sum += npart[l];
+      nslot[0] = sum;
+      const int top = rb + jn;
+      if (top >= row0 && top < row1) nslot[1] = s[at(top, jn)];
+    }
+    cluster.sync();
+  };
+
+  {
+    const int jn = b - 1;
+    T acc = T(0);
+    if (in_layout && c == jn)
+      for (int row = row0 + rl; row < min(row1, rb + jn); row += lanes) {
+        const T x = s[at(row, jn)];
+        acc += x * x;
+      }
+    publish_norm(jn, acc);
+  }
 
   for (int j = b - 1; j >= 0; --j) {
     const int top = rb + j;
-    // ||x||^2 over rows [0, top) of column j
-    T acc = T(0);
-    for (int row = tid; row < top; row += kThreads) {
-      const T x = r[(size_t)row * b + j];
-      acc += x * x;
-    }
-    part[tid] = acc;
-    __syncthreads();
-    for (int half = kThreads / 2; half > 0; half >>= 1) {
-      if (tid < half) part[tid] += part[tid + half];
-      __syncthreads();
-    }
-    const T xnormsq = part[0];
-    const T alpha = r[(size_t)top * b + j];
-    __syncthreads();  // part is reused below
+    T* nslot = nslots + 2 * (j & 1);
+    // every warp sums the peers' partials in the same order (a butterfly
+    // whose pairs add the same two values in every lane)
+    const int lane = tid % 32;
+    T xnormsq = lane < nblocks ? peer(nslot, lane, 0) : T(0);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) xnormsq += __shfl_xor_sync(0xffffffffu, xnormsq, off);
+    const T alpha = peer(nslot, top / slab_rows, 1);
     const bool trivial = xnormsq == T(0);
     const T norm = sqrt(alpha * alpha + xnormsq);
     const T beta = alpha >= T(0) ? -norm : norm;
     const T tau_j = trivial ? T(0) : (beta - alpha) / beta;
     const T denom = trivial ? T(1) : alpha - beta;
-    // v = x / denom above the pivot, 1 at the pivot; the column becomes
-    // (0, .., 0, beta). Each row is read and written by one thread.
-    for (int row = tid; row <= top; row += kThreads) {
-      const size_t at = (size_t)row * b + j;
-      if (row < top) {
-        v[at] = r[at] / denom;
-        r[at] = T(0);
-      } else if (!trivial) {
-        v[at] = T(1);
-        r[at] = beta;
+    // v = x / (alpha - beta) above the pivot (kept in the zeroed entries);
+    // the pivot becomes beta
+    for (int row = row0 + tid; row < min(row1, top + 1); row += kThreads) {
+      const int k = at(row, j);
+      if (row < top)
+        s[k] = s[k] / denom;
+      else if (!trivial)
+        s[k] = beta;
+    }
+    if (tid == 0) {
+      tau_s[j] = tau_j;
+      trivial_of[j] = trivial ? 1 : 0;
+    }
+    if (j == 0) break;
+    const bool update = !trivial;  // uniform over the cluster
+    if (update) {
+      __syncthreads();
+      // vp[c] = sum_row v[row] P[row, c] for the columns c < j
+      T acc = T(0);
+      if (in_layout && c < j) {
+#pragma unroll 4
+        for (int row = row0 + rl; row < min(row1, top + 1); row += lanes) {
+          const T w = row == top ? T(1) : s[at(row, j)];
+          acc += w * s[at(row, c)];
+        }
+      }
+      part[tid] = acc;
+      __syncthreads();
+      if (tid < j) {
+        T sum = T(0);
+        for (int l = 0; l < lanes; ++l) sum += part[l * b + tid];
+        wslot[tid] = sum;
+      }
+      cluster.sync();
+      if (tid < j) {
+        T sum = T(0);
+        T w[kMaxBlocks];  // all remote loads in flight, then the sum
+#pragma unroll
+        for (int g = 0; g < kMaxBlocks; ++g) w[g] = g < nblocks ? peer(wslot, g, tid) : T(0);
+#pragma unroll
+        for (int g = 0; g < kMaxBlocks; ++g) sum += w[g];
+        u[tid] = tau_j * sum;
+      }
+      __syncthreads();
+    }
+    // the rank-1 update of the columns c < j, rows <= top, and the next
+    // column's partial norm over rows < top - 1
+    T acc = T(0);
+    if (in_layout && c < j) {
+#pragma unroll 4
+      for (int row = row0 + rl; row < min(row1, top + 1); row += lanes) {
+        T x = s[at(row, c)];
+        if (update) {
+          const T w = row == top ? T(1) : s[at(row, j)];
+          x -= w * u[c];
+          s[at(row, c)] = x;
+        }
+        if (c == j - 1 && row < top - 1) acc += x * x;
       }
     }
-    if (tid == 0) tau[j] = tau_j;
-    __syncthreads();
-    if (trivial || j == 0) continue;  // uniform: no update to apply
-    // vp[c] = sum_row v[row] r[row, c] for the columns c < j
-    acc = T(0);
-    if (in_layout && c < j) {
-      for (int row = rl; row <= top; row += lanes)
-        acc += v[(size_t)row * b + j] * r[(size_t)row * b + c];
-    }
-    part[tid] = acc;
-    __syncthreads();
-    if (tid < j) {
-      T s = T(0);
-      for (int l = 0; l < lanes; ++l) s += part[l * b + tid];
-      colsum[tid] = s;
-    }
-    __syncthreads();
-    if (in_layout && c < j) {
-      const T scale = tau_j * colsum[c];
-      for (int row = rl; row <= top; row += lanes)
-        r[(size_t)row * b + c] -= scale * v[(size_t)row * b + j];
-    }
-    __syncthreads();
-  }
-
-  // gram = V^T V over the rows that hold reflector entries
-  const int vrows = rb + b;
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int i = idx / b, k = idx - i * b;
-    T acc = T(0);
-    for (int row = 0; row < vrows; ++row)
-      acc += v[(size_t)row * b + i] * v[(size_t)row * b + k];
-    gram[idx] = acc;
+    publish_norm(j - 1, acc);
   }
   __syncthreads();
-  // forward larft: b dependent columns; T is upper triangular, so row i of
-  // column j sums over l in [i, j)
-  for (int j = 0; j < b; ++j) {
-    if (tid < b) {
-      const T tau_j = tau[j];
-      T val = T(0);
-      if (tid < j) {
-        T s = T(0);
-        for (int l = tid; l < j; ++l) s += tmat[tid * b + l] * gram[l * b + j];
-        val = -tau_j * s;
-      } else if (tid == j) {
-        val = tau_j;
+
+  // partial gram (V^T V)[l, k] for l < k over this slab: v_l is nonzero on
+  // rows <= rb + l < rb + k only, where v_k is stored in the slab
+  for (int q = tid; q < b * b; q += kThreads) {
+    const int l = q / b, k = q % b;
+    T acc = T(0);
+    if (l < k) {
+      const int topl = rb + l;
+#pragma unroll 8
+      for (int row = row0; row < min(row1, topl + 1); ++row) {
+        const T a = row < topl ? s[at(row, l)] : (trivial_of[l] ? T(0) : T(1));
+        acc += a * s[at(row, k)];
       }
-      tmat[tid * b + j] = val;
+    }
+    gslot[q] = acc;
+  }
+  __syncthreads();
+  // outputs: above each pivot r = 0 and v as stored; at the pivot r = beta
+  // and v = 1 (0 when trivial); below it r as it stands and v = 0
+  for (int idx = tid; idx < nrows * b; idx += kThreads) {
+    const int row = row0 + idx / b, col = idx % b;
+    const int topc = rb + col;
+    const T x = s[idx];
+    const size_t o = (size_t)row * b + col;
+    if (row < topc) {
+      r[o] = T(0);
+      v[o] = x;
+    } else {
+      r[o] = x;
+      v[o] = row == topc && !trivial_of[col] ? T(1) : T(0);
+    }
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int q = tid; q < b * b; q += kThreads) {
+      T sum = T(0);
+      for (int g = 0; g < nblocks; ++g) sum += peer(gslot, g, q);
+      gslot[q] = sum;
+    }
+  }
+  cluster.sync();  // the peers' shared memory stays readable until here
+  if (rank != 0) return;
+  if (tid < b) tau[tid] = tau_s[tid];
+  // forward larft: b dependent columns; T is upper triangular, so row i of
+  // column j sums over l in [i, j). T[i][j] is kept at the gram's (j, i),
+  // whose lower triangle the gram leaves unused.
+  for (int j = 0; j < b; ++j) {
+    if (tid <= j) {
+      const T tau_j = tau_s[j];
+      T val = tau_j;
+      if (tid < j) {
+        T sum = T(0);
+        for (int l = tid; l < j; ++l) sum += gslot[l * b + tid] * gslot[l * b + j];
+        val = -tau_j * sum;
+      }
+      gslot[j * b + tid] = val;
     }
     __syncthreads();
+  }
+  for (int q = tid; q < b * b; q += kThreads) {
+    const int i = q / b, j = q % b;
+    tmat[q] = i <= j ? gslot[j * b + i] : T(0);
   }
 }
 
@@ -150,8 +323,32 @@ int ql_panel_launch(const T* p, int ldp, int m, int b, int rb, T* r, T* v,
                     T* tau, T* tmat, void* stream) {
   if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m || ldp < b)
     return (int)cudaErrorInvalidValue;
-  ql_panel_kernel<T><<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      p, ldp, m, b, rb, r, v, tau, tmat);
+  const Geometry geo = geometry(b, rb, (int)sizeof(T));
+  auto kernel = geo.slab_in_smem ? ql_panel_kernel<T, true> : ql_panel_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = geo.smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that cannot be co-resident would never run: refuse it
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, p, ldp, m, b, rb, geo.slab_rows, r, v, tau, tmat);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

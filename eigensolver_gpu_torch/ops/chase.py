@@ -27,7 +27,11 @@ band planes (the imaginary plane holds ``-Im(upper)``) and returns
 ``(d, (e_r, e_i), (vt_r, vt_i), (taut_r, taut_i))`` in the layout of
 ``ops/sb2st_planar.bulge_chase_planar``, its plain version. The Pallas
 module's opt-in ``batch3`` re-staging gives the same outputs from another
-schedule of the TPU's memory and has no counterpart here.
+schedule of the TPU's memory and has no counterpart here. The kernel is one
+persistent cooperative launch whose blocks order the timesteps through
+per-slot progress flags; the wrapper hands it those flags as a zeroed int32
+scratch of ``s_slots`` words, and the launch raises if its blocks cannot
+all be resident at once.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def bulge_chase_planar_kernel(band_r, band_i, b):
     else:
         raise TypeError(f"the planar chase kernel takes float32 or float64, got {band_r.dtype}")
     fn = getattr(kernel_guard.load("chase_planar"), name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     s_slots, _, t3 = chase_dims(n, b)
     dev = band_r.device
@@ -109,11 +113,12 @@ def bulge_chase_planar_kernel(band_r, band_i, b):
     work_i = band_i.clone(memory_format=torch.contiguous_format)
     vt = torch.zeros((2, t3, s_slots, b), dtype=band_r.dtype, device=dev)
     taut = torch.zeros((2, t3, s_slots), dtype=band_r.dtype, device=dev)
+    progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)  # the slots' flags
     with trace_range("bulge_chase_planar"), torch.cuda.device(dev):
         status = fn(
             work_r.data_ptr(), work_i.data_ptr(), n, b,
             vt[0].data_ptr(), vt[1].data_ptr(), taut[0].data_ptr(), taut[1].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            progress.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "bulge_chase_planar launch")
         bulge_chase_planar_kernel.launches += 1

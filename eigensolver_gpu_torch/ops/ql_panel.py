@@ -19,7 +19,9 @@ slice of a row-major matrix: the kernel takes its row stride.
 ``ql_panel`` is the wrapper: a CUDA tensor launches the kernel (and raises
 if it cannot be built or launched), a CPU tensor takes ``ql_panel_plain``,
 which is ``sbrd._ql_panel`` followed by ``sbrd._larft_forward``. The
-kernel takes float32 and float64.
+kernel takes float32 and float64. It spreads the panel's active rows over
+the blocks of one thread-block cluster, a row slab each; the launch raises
+if the cluster cannot be co-resident.
 
 ``ql_panel_planar`` (kernel K6) is the planar complex twin. It replaces
 ``ql_panel_planar_pallas`` (ql_panel_pallas.py:251; ``pallas_call`` :263,

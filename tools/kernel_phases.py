@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes inside kernels K1 (csrc/pchol_block.cu) and K6
-(csrc/ql_panel_planar.cu) on the card, by phase.
+"""Where the time goes inside kernels K1 (csrc/pchol_block.cu), K5
+(csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu) and K8
+(csrc/chase_planar.cu) on the card, by phase.
 
     python3 tools/kernel_phases.py
 
 Builds a copy of each source into eigensolver_gpu_torch/build/phases/ in
 which thread 0 of block 0 reads clock64() after every block or cluster
-barrier, runs K1 at nb = 128 and K6 at the main path's largest panel
-((4096, 32), rb = 4032, fp32), and prints, for each barrier of the source,
-the SM cycles spent before it summed over the run and how often it was
-reached. The committed kernels carry no instrumentation; the marks cost
-thread 0 a few dozen cycles each. Needs a CUDA device and nvcc.
+barrier, runs K1 at nb = 128, K5 and K6 at the main paths' largest panel
+((4096, 32), rb = 4032, fp32) and K8 at n = 4096, b = 32, fp32, and
+prints, for each barrier of the source, the SM cycles spent before it
+summed over the run and how often it was reached. The committed kernels
+carry no instrumentation; the marks cost thread 0 a few dozen cycles each.
+Needs a CUDA device and nvcc.
 
 A mark goes after each ``__syncthreads();`` or ``cluster.sync();`` that
-begins a line of its own, and after the line that equals the kernel's first
-statement given to ``build``; a barrier written behind an ``if`` on the
+begins a line of its own, and after each line that equals one of the
+statements given to ``build`` (the kernel's first statement; for K8 also
+the line that publishes a slot's flag, so that the time before the barrier
+after the flag wait is the wait); a barrier written behind an ``if`` on the
 same line is not marked, and its time falls to the next mark. Each
 reported line is printed with its text, so the output names what it timed
 whatever the source's line numbers are.
@@ -34,7 +38,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from eigensolver_gpu_torch.utils import kernel_guard  # noqa: E402
 
-_MARKS = 4096
+_MARKS = 1 << 17  # K8 marks about 7 a timestep, 12 280 timesteps
 _HEADER = f"""__device__ long long g_mark_t[{_MARKS}];
 __device__ int g_mark_line[{_MARKS}];
 __device__ int g_marks;
@@ -52,9 +56,10 @@ extern "C" int marks_reset() {{
 """
 
 
-def build(name: str, start: str):
-    """The instrumented library of csrc/<name>.cu, and a map from its line
-    numbers to the source's."""
+def build(name: str, *after: str):
+    """The instrumented library of csrc/<name>.cu, marked after its barriers
+    and after the lines equal to ``after``, and a map from its line numbers
+    to the source's."""
     src = (kernel_guard.CSRC / f"{name}.cu").read_text()
     lines = src.splitlines()
     out = []
@@ -62,7 +67,7 @@ def build(name: str, start: str):
         for sync in ("__syncthreads();", "cluster.sync();"):
             if line.strip().startswith(sync) or line.strip() == sync:
                 line = line.replace(sync, sync + " MARK();", 1)
-        if line.strip() == start:
+        if line.strip() in after:
             line += " MARK();"
         out.append(line)
     head = _HEADER.count("\n")
@@ -139,6 +144,48 @@ def main():
         kernel_guard.check(status, "instrumented ql_panel_planar launch")
         torch.cuda.synchronize()
     report(lib, lines, to_source, f"K6 ({m}, {b}) rb={rb} fp32")
+
+    lib, lines, to_source = build("ql_panel", "const int tid = threadIdx.x;")
+    fn = lib.ql_panel_f32_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    p = planes[0, :, m - 64 : m - 32]
+    outs = (new(m, b), new(m, b), new(b), new(b, b))
+    for _ in range(2):
+        lib.marks_reset()
+        status = fn(p.data_ptr(), p.stride(0), m, b, rb, *(x.data_ptr() for x in outs),
+                    torch.cuda.current_stream().cuda_stream)
+        kernel_guard.check(status, "instrumented ql_panel launch")
+        torch.cuda.synchronize()
+    report(lib, lines, to_source, f"K5 ({m}, {b}) rb={rb} fp32")
+    del planes
+
+    lib, lines, to_source = build(
+        "chase_planar", "T* smem = reinterpret_cast<T*>(smem_raw);",
+        "if (threadIdx.x == 0) publish(progress + s, t + 1);")
+    fn = lib.bulge_chase_planar_f32_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    n, b = 4096, 32
+    band = np.zeros((2, n, 2 * b))
+    band[0, :, : b + 1] = rng.standard_normal((n, b + 1))
+    band[1, :, 1 : b + 1] = rng.standard_normal((n, b))
+    band[:, np.arange(n)[:, None] + np.arange(2 * b)[None, :] >= n] = 0.0
+    band = torch.tensor(band, dtype=torch.float32, device=dev)
+    s_slots = ((n - 3) // b) // 3 + 1
+    t3 = 3 * ((3 * (n - 3) + 3) // 3)
+    for _ in range(2):
+        work = band.clone()
+        vt = torch.zeros((2, t3, s_slots, b), device=dev)
+        taut = torch.zeros((2, t3, s_slots), device=dev)
+        progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)
+        lib.marks_reset()
+        status = fn(work[0].data_ptr(), work[1].data_ptr(), n, b, vt[0].data_ptr(),
+                    vt[1].data_ptr(), taut[0].data_ptr(), taut[1].data_ptr(), progress.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        kernel_guard.check(status, "instrumented chase_planar launch")
+        torch.cuda.synchronize()
+    report(lib, lines, to_source, f"K8 n={n} b={b} fp32 (block 0: slot 0)")
     return 0
 
 
