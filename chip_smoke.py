@@ -33,12 +33,14 @@ non-zero without printing a result:
                 one-stage and two-stage (fp64 instances of K5, K7, K9);
   8. main (real, two-stage) -- the same dsygvdx n=4096 solve with
                 tridiag_mode='two': sbrd (K5 per panel), bulge chase
-                (K7), replay (K9) and apply_q1, then one solve with
-                mosaic_kernels=False (the plain torch route);
+                (K7, one launch a solve by the profiler), replay (K9) and
+                apply_q1, then one solve with mosaic_kernels=False (the
+                plain torch route);
   9. main (planar, two-stage) -- the zhegvdx n=4096 iu=1024 solve of
                 phase 4 with tridiag_mode='two': psbrd (K6 per panel),
-                planar bulge chase (K8), phase normalisation, replay (K10)
-                and apply_q1_planar, then one n=1024 solve with
+                planar bulge chase (K8), phase normalisation, replay (K10,
+                one launch a solve by the profiler; its window-store bytes
+                logged) and apply_q1_planar, then one n=1024 solve with
                 mosaic_kernels=False (no launch of K1, K6, K8, K10).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -73,6 +75,8 @@ K5_TOL64 = 1e-11
 # 80GB HBM3, 700 W, chip_smoke.py of the design's own PR)
 K5_ONE_BLOCK_MS = 2.2412
 K8_LAUNCH_SEQUENCE_MS = 93.789
+K7_LAUNCH_SEQUENCE_MS = 72.997
+K10_ONE_LAUNCH_A_WAVE_MS = 92.000  # the wrapper with all 5936 slots formed
 # K7: relative max error of d, e, tau and the active reflectors against the
 # plain version. The entries drift apart along the 12 280 dependent steps
 # (on the card: 1.6e-9 in fp64 at n = 4096, order one in fp32), so fp64 is
@@ -453,6 +457,23 @@ def _timed_once(torch, fn):
     return out, start.elapsed_time(stop)
 
 
+def _kineto(torch, fn, key):
+    """(device ms, launches) of the kernels whose name holds ``key`` during
+    one call of ``fn``, from the raw kineto records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, count = 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and key in e.name():
+            ms += e.duration_ns() / 1e6
+            count += 1
+    return ms, count
+
+
 def _k5_work(m, b, rb, itemsize):
     """The panel read once, r, v, tau and T written once; per column the
     norm, the scaling, v^T P and the rank-1 update of the columns before
@@ -587,15 +608,30 @@ def check_k7(torch):
     import scipy.linalg
 
     from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
-    from eigensolver_gpu_torch.ops.sb2st import apply_q2, band_to_dense, bulge_chase
+    from eigensolver_gpu_torch.ops.sb2st import apply_q2, band_to_dense, bulge_chase, chase_dims
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     names = ["d", "e", "vt", "taut"]
     record = {}
-    for n, b, dtype in ((100, 6, torch.float32), (100, 6, torch.float64),
-                        (4096, BAND, torch.float32), (4096, BAND, torch.float64)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # n = 2400, b = 6 has 134 slots: more than the SMs, so a block of the
+    # persistent kernel owns several. There ("ill") the reflectors of the
+    # narrow band are ill-conditioned functions of it: a perturbation of the
+    # band in its last bits moves the plain chase's own reflectors by about
+    # 1e-6 in fp64 (whole arrays) and by 1e-2 and more in fp32 (already on
+    # its first sweeps), logged below beside the kernel's. So there fp64
+    # holds d and e whole and the reflectors on the first K7_HEAD sweeps,
+    # and fp32 d and |e| on the first K7_HEAD sweeps, with the spectrum and
+    # the similarity for the whole output
+    for n, b, dtype, ill in ((100, 6, torch.float32, False), (100, 6, torch.float64, False),
+                             (2400, 6, torch.float32, True), (2400, 6, torch.float64, True),
+                             (4096, BAND, torch.float32, False),
+                             (4096, BAND, torch.float64, False)):
         f32 = dtype == torch.float32
         label = f"n={n} b={b} {'fp32' if f32 else 'fp64'}"
+        slots = chase_dims(n, b)[0]
+        if slots > sms:
+            label += f" ({slots} slots on {sms} blocks)"
         band, sci = _random_band(torch, n, b, 7, dtype)
         got = bulge_chase_kernel(band, b)
         want, plain_ms = _timed_once(torch, lambda: bulge_chase(band, b))
@@ -617,16 +653,31 @@ def check_k7(torch):
         full = [rel_err(g, w)[0] for g, w in
                 ((got[0], want[0]), (got[1], want[1]), (got[2] * act, want[2] * act),
                  (got[3], want[3]))]
+        h = min(K7_HEAD, n - 1)
         if f32:
-            h = min(K7_HEAD, n - 1)
-            pairs = [(got[0][:h], want[0][:h]), (got[1][:h].abs(), want[1][:h].abs()),
-                     ((got[2] * act)[: 3 * h].abs(), (want[2] * act)[: 3 * h].abs()),
+            pairs = [(got[0][:h], want[0][:h]), (got[1][:h].abs(), want[1][:h].abs())]
+            if not ill:
+                pairs += [((got[2] * act)[: 3 * h].abs(), (want[2] * act)[: 3 * h].abs()),
+                          (got[3][: 3 * h], want[3][: 3 * h])]
+        elif ill:
+            pairs = [(got[0], want[0]), (got[1], want[1]),
+                     ((got[2] * act)[: 3 * h], (want[2] * act)[: 3 * h]),
                      (got[3][: 3 * h], want[3][: 3 * h])]
-            errs = [rel_err(g, w) for g, w in pairs]
         else:
-            errs = [rel_err(g, w) for g, w in
-                    ((got[0], want[0]), (got[1], want[1]), (got[2] * act, want[2] * act),
-                     (got[3], want[3]))]
+            pairs = [(got[0], want[0]), (got[1], want[1]), (got[2] * act, want[2] * act),
+                     (got[3], want[3])]
+        errs = [rel_err(g, w) for g, w in pairs]
+        moved = ""
+        if ill:  # the yardstick: the plain chase of the band perturbed in its last bits
+            eps = 1e-7 if f32 else 1e-15
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            bumped = list(bulge_chase(band * (1 + eps * torch.randn(
+                band.shape, generator=gen, device="cuda", dtype=dtype)), b))
+            ref = list(want)
+            bumped[2], ref[2] = bumped[2] * act, ref[2] * act
+            moved = (f"; plain vs plain of the band times (1 + {eps:g} N(0, 1)), whole arrays: "
+                     + " ".join(f"{k}={rel_err(x, y)[0]:.1e}"
+                                for k, x, y in zip(names, bumped, ref)))
         w_band = scipy.linalg.eigvals_banded(sci, lower=True)
         spec = []
         for d, e in (got[:2], want[:2]):
@@ -639,10 +690,12 @@ def check_k7(torch):
             q2 = apply_q2(vt, taut, torch.eye(n, dtype=dtype, device="cuda"), n, b, g=b)
             tri = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
             sim.append(rel_err(q2 @ tri @ q2.T, dense)[0])
-        log(f"K7 {label}: rel_err vs plain " + " ".join(
+        held = ("d, |e|" + ("" if ill else ", |vt|, taut") + f" on the first {h} sweeps" if f32
+                else f"d, e whole, vt, taut on the first {h} sweeps" if ill else "whole arrays")
+        log(f"K7 {label}: rel_err vs plain ({held}) " + " ".join(
             f"{k}={x[0]:.1e}" for k, x in zip(names, errs))
-            + (f" (first {h} sweeps, |e| and |vt|; whole arrays, signed: " + " ".join(
-                f"{k}={x:.1e}" for k, x in zip(names, full)) + ")" if f32 else "")
+            + ("; whole arrays, signed: " + " ".join(
+                f"{k}={x:.1e}" for k, x in zip(names, full)) if f32 or ill else "") + moved
             + f"; spectrum vs the band matrix: kernel {spec[0]:.1e}, plain {spec[1]:.1e}"
             + f"; Q2 T Q2^T vs the band matrix: kernel {sim[0]:.1e}, plain {sim[1]:.1e}")
         tol, spec_tol = (K7_TOL, K7_SPEC_TOL) if f32 else (K7_TOL64, K7_SPEC_TOL64)
@@ -650,11 +703,16 @@ def check_k7(torch):
             raise RuntimeError(f"K7 disagrees with its plain version at {label}")
         if n == 4096:
             ms = device_ms(lambda: bulge_chase_kernel(band, b), iters=3)
+            _, launched = _kineto(torch, lambda: bulge_chase_kernel(band, b), "chase_kernel")
+            if launched != 1:
+                raise RuntimeError(f"one K7 call launched {launched} kernels (kineto), want 1")
             nbytes, flops, windows = _k7_work(n, b, 4 if f32 else 8)
             bound_ms, bound_by = bound(nbytes, flops)
-            log(f"K7 times at {label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}; {windows} windows); no single library call "
-                "chases a band to tridiagonal (library_ms null)")
+            log(f"K7 times at {label}: kernel {ms:.3f} ms in 1 launch (kineto)"
+                + (f" (the launch sequence before the persistent kernel: "
+                   f"{K7_LAUNCH_SEQUENCE_MS} ms, PERF.md)" if f32 else "")
+                + f", plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}; {windows} "
+                "windows); no single library call chases a band to tridiagonal (library_ms null)")
             if f32:
                 record = {
                     "name": "bulge_chase_kernel", "route": "cuda",
@@ -1005,17 +1063,26 @@ def check_k10(torch):
     import numpy as np
 
     from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
-    from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel, window_qs_planar
+    from eigensolver_gpu_torch.ops.replay import (
+        apply_q2_planar_kernel,
+        window_store_planar,
+        window_table,
+    )
     from eigensolver_gpu_torch.ops.sb2st_planar import apply_q2_planar
     from eigensolver_gpu_torch.utils.timer import device_ms
 
     rng = np.random.default_rng(10)
     max_abs = 0.0
     n, b, g = 4096, BAND, REPLAY_G
+    table = window_table(n, b, g)
+    per_wave = np.diff(table["wave_ptr"])
+    log(f"K10 n={n} b={b} g={g}: {len(table['row0'])} valid windows of {table['valid'].size} "
+        f"slots in {len(per_wave)} waves; the first and last waves hold {per_wave[0]} and "
+        f"{per_wave[-1]}")
     band_r, band_i, _ = _random_hband(torch, n, b, 10, torch.float32)
     _, _, vt, taut = bulge_chase_planar_kernel(band_r, band_i, b)
     y_all = torch.tensor(rng.standard_normal((2, n, 4096)), dtype=torch.float32, device="cuda")
-    for m in (512, 100, 4096):
+    for m in (1, 100, 4096):
         y = (y_all[0, :, :m], y_all[1, :, :m])  # column slices: the wrapper takes any layout
         got = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
         want = apply_q2_planar(vt, taut, y, n, b, g=g)
@@ -1032,30 +1099,40 @@ def check_k10(torch):
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         raise RuntimeError("K10 is not reproducible from run to run")
     del got, want, again
-    # fp64 instance at the pure-fp64 path's group size g = b, odd sizes
-    n64, b64 = 1000, 24
-    r64, i64, _ = _random_hband(torch, n64, b64, 11, torch.float64)
-    _, _, vt64, taut64 = bulge_chase_planar_kernel(r64, i64, b64)
-    y64 = tuple(torch.tensor(rng.standard_normal((n64, 70)), device="cuda") for _ in range(2))
-    rel64 = max(rel_err(x, w)[0] for x, w in zip(
-        apply_q2_planar_kernel(vt64, taut64, y64, n64, b64, g=b64),
-        apply_q2_planar(vt64, taut64, y64, n64, b64, g=b64)))
-    log(f"K10 n={n64} b={b64} g={b64} m=70 fp64: rel_err vs plain {rel64:.2e}")
-    if not rel64 <= K10_TOL64:
-        raise RuntimeError("K10 (fp64) disagrees with its plain version")
+    # fp64 instances at the pure-fp64 path's group size g = b, odd sizes and
+    # the reference phase's n = 1024
+    for n64, b64, m64 in ((1000, 24, 70), (N_REF, BAND, IU_REF)):
+        r64, i64, _ = _random_hband(torch, n64, b64, 11, torch.float64)
+        _, _, vt64, taut64 = bulge_chase_planar_kernel(r64, i64, b64)
+        y64 = tuple(torch.tensor(rng.standard_normal((n64, m64)), device="cuda") for _ in range(2))
+        rel64 = max(rel_err(x, w)[0] for x, w in zip(
+            apply_q2_planar_kernel(vt64, taut64, y64, n64, b64, g=b64),
+            apply_q2_planar(vt64, taut64, y64, n64, b64, g=b64)))
+        log(f"K10 n={n64} b={b64} g={b64} m={m64} fp64: rel_err vs plain {rel64:.2e}")
+        if not rel64 <= K10_TOL64:
+            raise RuntimeError("K10 (fp64) disagrees with its plain version")
 
     # the main path replays all n columns (the mixed solve refines from the
     # full fp32 basis): time m = 4096
     y = (y_all[0], y_all[1])
     ms = device_ms(lambda: apply_q2_planar_kernel(vt, taut, y, n, b, g=g), iters=3)
-    qs_ms = device_ms(lambda: window_qs_planar(vt, taut, n, b, g), iters=3)
+    qs_ms = device_ms(lambda: window_store_planar(vt, taut, n, b, g), iters=3)
+    kernel_ms, launched = _kineto(torch, lambda: apply_q2_planar_kernel(vt, taut, y, n, b, g=g),
+                                  "replay_planar_kernel")
+    if launched != 1:
+        raise RuntimeError(f"one K10 call launched {launched} kernels (kineto), want 1")
+    store, _ = window_store_planar(vt, taut, n, b, g)
+    store_mb = store.numel() * store.element_size() / 1e6
+    del store
     plain_ms = device_ms(lambda: apply_q2_planar(vt, taut, y, n, b, g=g), iters=2)
     nbytes, flops, windows = _k9_work(n, 4096, b, g, 4)
     bound_ms, bound_by = bound(2 * nbytes, 4 * flops)  # two planes, complex products
-    log(f"K10 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (of which window_qs_planar "
-        f"{qs_ms:.3f} ms, outside the kernel), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {windows} windows); no single library call replays wave-ordered "
-        "windows (library_ms null)")
+    log(f"K10 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (one launch a wave with every slot "
+        f"formed: {K10_ONE_LAUNCH_A_WAVE_MS} ms, PERF.md), of which the window pass "
+        f"window_store_planar {qs_ms:.3f} ms (outside the kernel; window store {store_mb:.1f} MB) "
+        f"and the kernel {kernel_ms:.3f} ms in 1 launch (kineto); plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {windows} windows); no single library call replays "
+        "wave-ordered windows (library_ms null)")
     return {
         "name": "apply_q2_planar_kernel", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/replay_planar.cu",
@@ -1063,6 +1140,14 @@ def check_k10(torch):
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
+
+
+def _window_store_mb(n, b, g):
+    """MB of K10's fp32 window store at (n, b, g): two planes of 128 x 128
+    for each valid window."""
+    from eigensolver_gpu_torch.ops.replay import P, window_table
+
+    return 2 * len(window_table(n, b, g)["row0"]) * P * P * 4 / 1e6
 
 
 def _device_residual(torch, args, res):
@@ -1297,9 +1382,13 @@ def phase_main_real_two(torch):
     want = {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, want {want}")
-    stages, _ = _breakdown(torch, solve, sorted(times)[1],
-                           kernels=("ql_panel_kernel", "chase_step", "replay_wave"))
+    stages, totals = _breakdown(torch, solve, sorted(times)[1],
+                                kernels=("ql_panel_kernel", "chase_kernel", "replay_wave"))
     log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
+    log(f"  K7 launches per real two-stage solve (kineto): {totals['chase_kernel'][1]}")
+    if totals["chase_kernel"][1] != 1:
+        raise RuntimeError("one real two-stage solve launched the persistent chase kernel "
+                           f"{totals['chase_kernel'][1]} times (kineto), want 1")
 
     # the plain torch route, one solve, with synchronizing ranges
     cfg_plain = SolverConfig(compute_dtype="float32", tridiag_mode="two", mosaic_kernels=False)
@@ -1381,10 +1470,14 @@ def phase_main_planar_two(torch):
         raise RuntimeError(f"launch counts {counts}, want {want}")
     _, totals = _breakdown(torch, solve, sorted(times)[1],
                            kernels=("pchol_block_kernel", "ql_panel_planar_kernel",
-                                    "chase_planar_kernel", "replay_planar_wave"))
-    if totals["chase_planar_kernel"][1] != 1:
-        raise RuntimeError("one planar two-stage solve launched the persistent chase kernel "
-                           f"{totals['chase_planar_kernel'][1]} times (kineto), want 1")
+                                    "chase_planar_kernel", "replay_planar_kernel"))
+    log(f"  K10 launches per planar two-stage solve (kineto): "
+        f"{totals['replay_planar_kernel'][1]}; its window store "
+        f"{_window_store_mb(n, BAND, REPLAY_G):.1f} MB")
+    for key in ("chase_planar_kernel", "replay_planar_kernel"):
+        if totals[key][1] != 1:
+            raise RuntimeError(f"one planar two-stage solve launched {key} {totals[key][1]} "
+                               "times (kineto), want 1")
     del args, res
 
     # the plain torch route, one solve, with synchronizing ranges

@@ -1,6 +1,6 @@
-// Kernel K7: band -> tridiagonal bulge chase, all wavefront timesteps from
-// one call (eigensolver_gpu_torch/ops/chase.py::bulge_chase_kernel, called
-// once per two-stage solve by models/syevdx.py).
+// Kernel K7: band -> tridiagonal bulge chase, all wavefront timesteps in one
+// persistent kernel (eigensolver_gpu_torch/ops/chase.py::bulge_chase_kernel,
+// called once per two-stage solve by models/syevdx.py).
 //
 // Replaces eigensolver_gpu_tpu/ops/chase_pallas.py::bulge_chase_pallas
 // (pallas_call at :1009, bodies _chase_kernel at :240 and _window_update at
@@ -21,31 +21,58 @@
 // and stores v at vt[t, s, :], tau at taut[t, s]. Inactive slots keep the
 // zeros the wrapper put there.
 //
-// What bounds it on the H100: the 3 (n - 3) + 1 strictly ordered timesteps
-// (12 280 at n = 4096), each a few microseconds of work on at most
-// ceil(n / (3b - 1)) windows of 3 b^2 entries. Bytes (the band, read and
-// written once, and the reflector store) and operations are far below what
-// the sequence costs.
+// What bounds it on the H100: the 3 (n - 3) + 1 dependent timesteps (12 280
+// at n = 4096), each a few microseconds of latency on at most
+// ceil(n / (3b - 1)) windows of 3 b^2 entries: per step a slot waits for its
+// neighbours' flags, stages its tiles from L2, builds the reflector and
+// applies it. Bytes (the band, read and written once, and the reflector
+// store) and operations are far below that chain. On an NVIDIA H100 80GB
+// HBM3 at 700 W (n = 4096, b = 32, fp32, tools/kernel_phases.py) a step
+// takes about 7 000 SM cycles: the flag wait 1 400, staging the tiles after
+// it 1 300, the publishing fence 1 200, the write-back 1 100, the dlarfg
+// 800, the three products 800, w 500.
 //
-// Design: one launch per timestep, all enqueued on the stream from this one
-// C call; the stream orders the timesteps, and within one the active slots
-// are independent blocks (their band strips lie 3b - 1 rows apart and are
-// 2b rows tall). The host computes the contiguous range of active slots and
-// launches only those. A grid barrier inside one cooperative kernel would
-// save the launches, but a launch sequence cannot deadlock and needs no
-// co-residency; the sequence is the price. A block stages its three b x b
-// tiles in shared memory straight from band storage (no shear, no padding:
-// out-of-matrix columns are guarded), builds the reflector in one warp,
-// forms the three products with 3b threads, and writes the tiles back. All
-// sums run in a fixed order, so two calls give the same bits. Plain FMA
-// arithmetic; float and double instances.
+// Design, the planar chase's (csrc/chase_planar.cu, whose header derives the
+// dependency rule and the deadlock freedom; tests/test_torch_chase_schedule.py
+// checks the rule against this chase's footprint): one cooperative launch
+// per call of G = min(s_slots, SMs) blocks, block g owning the slots
+// s = g (mod G) and looping over all timesteps; at each it runs its slots in
+// ascending s. Slot s at t waits for slots s - 1 and s + 1 to have finished
+// t - 1, and every slot, active or not, publishes after it waits.
+//
+// Flags: progress[s] = t + 1 once slot s has finished t (an int scratch of
+// s_slots words, zeroed by the caller on the stream). Publishing is
+// __syncthreads(), then thread 0's fence.acq_rel.gpu and a relaxed
+// device-scope store (a release); waiting is thread 0 spinning on
+// device-scope acquire loads, then __syncthreads(). Band tiles are read
+// with ld.global.cg (L2, never a stale L1 line of another SM's write), all
+// of a thread's tile entries at b = 32 in flight at once; the band is not
+// marked const __restrict__, which would allow non-coherent loads.
+//
+// Co-residency: a spinning block needs its neighbours to run, so all G
+// blocks must be resident at once. G <= the number of SMs and a block takes
+// at most 101 KB of shared memory (fp64, b = 64), so one block per SM always
+// fits; the cooperative launch checks it and fails with an error
+// (cudaErrorCooperativeLaunchTooLarge) rather than run what could hang, and
+// the wrapper raises. There is no fallback.
+//
+// A block of 512 threads stages its three b x b tiles in shared memory
+// straight from band storage (out-of-matrix columns are guarded; thread
+// (p, q0) takes the entries of row p in columns q0, q0 + 512 / b, .., so
+// the loops hold no division), builds the reflector in one warp, forms the
+// three products with 3b threads, and writes the tiles back; it writes
+// nothing outside its window. The window arithmetic and the order of every
+// sum are those of the launch sequence this kernel replaced (one launch per
+// timestep), so its outputs are the same bits; two calls give the same
+// bits. Plain FMA arithmetic; float and double instances.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kMaxB = 64;
+constexpr int kTileLoads = 2;  // tile entries a thread loads at once: all of them at b = 32
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -57,12 +84,29 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
+// a band entry from L2, past this SM's L1
+__device__ __forceinline__ float from_l2(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ double from_l2(const double* p) { return __ldcg(p); }
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// after a __syncthreads(): the block's writes, then the flag (fence.acq_rel
+// and a relaxed store make a release at device scope)
+__device__ __forceinline__ void publish(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n\tst.relaxed.gpu.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
+
+// One active window (t, s): stage, reflect, apply, write back. Called by
+// all threads of the block; `smem` holds 3 b (b + 1) + 5 b + 1 elements.
+// Thread (pt, q0) = (tid % b, tid / b) handles the tile entries (pt, q) for
+// q = q0, q0 + qs, .. < b, qs = kThreads / b (none when q0 >= qs).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-chase_step(T* band, int n, int b, int t, int s_lo, int s_slots, T* vt,
-           T* taut) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+__device__ void chase_window(T* band, int n, int b, int t, int s, int s_slots, T* vt,
+                             T* taut, T* smem, int pt, int q0, int qs) {
   const int ld = b + 1;
   T* a10 = smem;            // [q][p], p fastest: entry A[r0 + p, r0 - b + q]
   T* a11 = a10 + b * ld;    // [q][p]: A[r0 + p, r0 + q], both triangles
@@ -75,23 +119,43 @@ chase_step(T* band, int n, int b, int t, int s_lo, int s_slots, T* vt,
   T* scal = ww + b;         // tau
 
   const int tid = threadIdx.x;
-  const int s = s_lo + blockIdx.x;
   const int k = t % 3 + 3 * s;
   const int r0 = t / 3 - s + 1 + k * b;
   const int w = 2 * b;
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int q = idx / b, p = idx - q * b;
-    const int c10 = r0 - b + q, c11 = r0 + q;
-    a10[q * ld + p] = c10 >= 0 ? band[(size_t)c10 * w + b + p - q] : T(0);
-    T sym = T(0);
-    if (p >= q) {
-      if (c11 < n) sym = band[(size_t)c11 * w + p - q];
-    } else if (r0 + p < n) {
-      sym = band[(size_t)(r0 + p) * w + q - p];
+  // columns r0 - b and r0; entry (p, q) of A10 and A21 lies q (2b - 1) + p + b
+  // past them, of A11 q (2b - 1) + p (p >= q)
+  const T* c10 = band + (ptrdiff_t)(r0 - b) * w;
+  const T* c11 = band + (size_t)r0 * w;
+
+  // the three tiles: thread (pt, q0) takes the entries (pt, q0 + k qs),
+  // kTileLoads of them (three loads each) in flight at once
+  for (int qb = q0; qb < b; qb += kTileLoads * qs) {
+    T x[kTileLoads][3];
+#pragma unroll
+    for (int u = 0; u < kTileLoads; ++u) {
+      const int q = qb + u * qs, p = pt;
+      if (q >= b) break;
+      const int o = q * (w - 1) + p;
+      const bool in10 = r0 - b + q >= 0, in11 = r0 + q < n;
+      x[u][0] = in10 ? from_l2(c10 + o + b) : T(0);
+      // A11: the stored entry A[r0 + p, r0 + q] (p >= q), else the stored
+      // A[r0 + q, r0 + p]; one load path for both, so the warp does not split
+      const bool low = p >= q;
+      const int o11 = low ? o : p * (w - 1) + q;
+      const bool in = low ? in11 : r0 + p < n;
+      x[u][1] = in ? from_l2(c11 + o11) : T(0);
+      x[u][2] = in11 ? from_l2(c11 + o + b) : T(0);
     }
-    a11[q * ld + p] = sym;
-    a21[q * ld + p] = c11 < n ? band[(size_t)c11 * w + b + p - q] : T(0);
+#pragma unroll
+    for (int u = 0; u < kTileLoads; ++u) {
+      const int q = qb + u * qs;
+      if (q >= b) break;
+      const int at = q * ld + pt;
+      a10[at] = x[u][0];
+      a11[at] = x[u][1];
+      a21[at] = x[u][2];
+    }
   }
   __syncthreads();
 
@@ -141,50 +205,70 @@ chase_step(T* band, int n, int b, int t, int s_lo, int s_slots, T* vt,
   }
   __syncthreads();
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int q = idx / b, p = idx - q * b;
-    const int c10 = r0 - b + q, c11 = r0 + q;
-    if (c10 >= 0)
-      band[(size_t)c10 * w + b + p - q] = a10[q * ld + p] - tau * vv[p] * u1[q];
-    if (c11 < n) {
-      if (p >= q)
-        band[(size_t)c11 * w + p - q] =
-            a11[q * ld + p] - (vv[p] * ww[q] + ww[p] * vv[q]);
-      band[(size_t)c11 * w + b + p - q] = a21[q * ld + p] - tau * y2[p] * vv[q];
+  for (int q = q0; q < b; q += qs) {
+    const int p = pt;
+    const int o = q * (w - 1) + p;
+    const int at = q * ld + p;
+    if (r0 - b + q >= 0) band[(ptrdiff_t)(r0 - b) * w + o + b] = a10[at] - tau * vv[p] * u1[q];
+    if (r0 + q < n) {
+      if (p >= q) band[(size_t)r0 * w + o] = a11[at] - (vv[p] * ww[q] + ww[p] * vv[q]);
+      band[(size_t)r0 * w + o + b] = a21[at] - tau * y2[p] * vv[q];
     }
   }
   if (tid < b) vt[((size_t)t * s_slots + s) * b + tid] = vv[tid];
   if (tid == 0) taut[(size_t)t * s_slots + s] = tau;
 }
 
+// All timesteps: block g owns the slots s = g (mod G).
 template <typename T>
-int chase_launch(T* band, int n, int b, T* vt, T* taut, void* stream) {
-  if (n < 3 || b < 2 || b > kMaxB) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int s_slots = ((n - 3) / b) / 3 + 1;
-  const int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
-  const int stride = 3 * b - 1;
-  const size_t smem = (size_t)(3 * b * (b + 1) + 5 * b + 1) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      chase_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+__global__ void __launch_bounds__(kThreads)
+chase_kernel(T* band, int n, int b, int t_total, int s_slots, T* vt, T* taut, int* progress) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int qs = kThreads / b, pt = threadIdx.x % b;
+  const int q0 = threadIdx.x / b < qs ? threadIdx.x / b : b;  // b: no entries
   for (int t = 0; t < t_total; ++t) {
     const int vmax = t / 3, k0 = t % 3;
-    // slot s is active when 0 <= vmax - s <= n - 3 and
-    // r0 = vmax + 1 + k0 b + s (3b - 1) <= n - 2
-    const int room = n - 3 - vmax - k0 * b;
-    if (room < 0) continue;
-    const int s_lo = vmax - (n - 3) > 0 ? vmax - (n - 3) : 0;
-    int s_hi = room / stride;
-    if (s_hi > vmax) s_hi = vmax;
-    if (s_hi > s_slots - 1) s_hi = s_slots - 1;
-    if (s_hi < s_lo) continue;
-    chase_step<T><<<s_hi - s_lo + 1, kThreads, smem, st>>>(
-        band, n, b, t, s_lo, s_slots, vt, taut);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    for (int s = blockIdx.x; s < s_slots; s += gridDim.x) {
+      // wait for slots s - 1 and s + 1 to have finished t - 1
+      if (threadIdx.x == 0 && t > 0) {
+        const int* lo = progress + (s > 0 ? s - 1 : s);
+        const int* hi = progress + (s + 1 < s_slots ? s + 1 : s);
+        while (load_acquire(lo) < t || load_acquire(hi) < t) {
+        }
+      }
+      __syncthreads();
+      const int v = vmax - s;
+      if (v >= 0 && v <= n - 3 && v + 1 + (k0 + 3 * s) * b <= n - 2)
+        chase_window<T>(band, n, b, t, s, s_slots, vt, taut, smem, pt, q0, qs);
+      __syncthreads();
+      if (threadIdx.x == 0) publish(progress + s, t + 1);
+    }
   }
-  return (int)cudaSuccess;
+}
+
+template <typename T>
+int chase_launch(T* band, int n, int b, T* vt, T* taut, int* progress, void* stream) {
+  if (n < 3 || b < 2 || b > kMaxB) return (int)cudaErrorInvalidValue;
+  int s_slots = ((n - 3) / b) / 3 + 1;
+  int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
+  const size_t smem = (size_t)(3 * b * (b + 1) + 5 * b + 1) * sizeof(T);
+  auto kernel = chase_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = s_slots < sms ? s_slots : sms;
+  void* args[] = {&band, &n, &b, &t_total, &s_slots, &vt, &taut, &progress};
+  // fails, and launches nothing, if the blocks cannot all be resident
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args,
+                                    smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -192,13 +276,14 @@ int chase_launch(T* band, int n, int b, T* vt, T* taut, void* stream) {
 // band: n * 2b elements, chased in place (its first two columns are d and
 // e on return); vt: t3 * s_slots * b and taut: t3 * s_slots elements, zeroed
 // by the caller, with s_slots = ((n - 3) / b) / 3 + 1,
-// t3 = 3 * ceil((3 (n - 3) + 1) / 3).
-extern "C" int bulge_chase_f32_launch(float* band, int n, int b, float* vt,
-                                      float* taut, void* stream) {
-  return chase_launch<float>(band, n, b, vt, taut, stream);
+// t3 = 3 * ceil((3 (n - 3) + 1) / 3); progress: s_slots ints, zeroed by the
+// caller.
+extern "C" int bulge_chase_f32_launch(float* band, int n, int b, float* vt, float* taut,
+                                      int* progress, void* stream) {
+  return chase_launch<float>(band, n, b, vt, taut, progress, stream);
 }
 
-extern "C" int bulge_chase_f64_launch(double* band, int n, int b, double* vt,
-                                      double* taut, void* stream) {
-  return chase_launch<double>(band, n, b, vt, taut, stream);
+extern "C" int bulge_chase_f64_launch(double* band, int n, int b, double* vt, double* taut,
+                                      int* progress, void* stream) {
+  return chase_launch<double>(band, n, b, vt, taut, progress, stream);
 }

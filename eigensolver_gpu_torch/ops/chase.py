@@ -5,7 +5,7 @@ Replaces the Pallas kernel ``bulge_chase_pallas``
 (eigensolver_gpu_tpu/ops/chase_pallas.py:929; ``pallas_call`` :1009,
 ``_chase_kernel`` :240, ``_window_update`` :162). The CUDA source is
 ``csrc/chase.cu``; its header states what bounds the kernel on the H100
-and why it is a sequence of launches from one C call.
+and what its design does about it.
 
 Contract: ``bulge_chase_kernel(band, b)`` takes the (n, 2b) lower band
 storage of ops/sb2st.dense_to_band and returns ``(d, e, vt, taut)`` in
@@ -27,11 +27,12 @@ band planes (the imaginary plane holds ``-Im(upper)``) and returns
 ``(d, (e_r, e_i), (vt_r, vt_i), (taut_r, taut_i))`` in the layout of
 ``ops/sb2st_planar.bulge_chase_planar``, its plain version. The Pallas
 module's opt-in ``batch3`` re-staging gives the same outputs from another
-schedule of the TPU's memory and has no counterpart here. The kernel is one
-persistent cooperative launch whose blocks order the timesteps through
-per-slot progress flags; the wrapper hands it those flags as a zeroed int32
-scratch of ``s_slots`` words, and the launch raises if its blocks cannot
-all be resident at once.
+schedule of the TPU's memory and has no counterpart here.
+
+Both kernels are one persistent cooperative launch whose blocks order the
+timesteps through per-slot progress flags; the wrapper hands it those flags
+as a zeroed int32 scratch of ``s_slots`` words, and the launch raises if
+its blocks cannot all be resident at once.
 """
 
 from __future__ import annotations
@@ -65,16 +66,18 @@ def bulge_chase_kernel(band, b):
     else:
         raise TypeError(f"the chase kernel takes float32 or float64, got {band.dtype}")
     fn = getattr(kernel_guard.load("chase"), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     s_slots, _, t3 = chase_dims(n, b)
+    dev = band.device
     work = band.clone(memory_format=torch.contiguous_format)  # chased in place
-    vt = torch.zeros((t3, s_slots, b), dtype=band.dtype, device=band.device)
-    taut = torch.zeros((t3, s_slots), dtype=band.dtype, device=band.device)
-    with trace_range("bulge_chase"), torch.cuda.device(band.device):
+    vt = torch.zeros((t3, s_slots, b), dtype=band.dtype, device=dev)
+    taut = torch.zeros((t3, s_slots), dtype=band.dtype, device=dev)
+    progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)  # the slots' flags
+    with trace_range("bulge_chase"), torch.cuda.device(dev):
         status = fn(
-            work.data_ptr(), n, b, vt.data_ptr(), taut.data_ptr(),
-            torch.cuda.current_stream(band.device).cuda_stream,
+            work.data_ptr(), n, b, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "bulge_chase launch")
         bulge_chase_kernel.launches += 1

@@ -30,19 +30,26 @@ float32 and float64; any m >= 1; any b >= 2, g >= 1 with
 replaces ``apply_q2_planar_pallas`` (replay_pallas.py:560; ``pallas_call``
 :646, ``_replay_kernel_planar`` :538, ``_wave_body`` :96, windows from
 ``window_qs_planar`` :433); the CUDA source is ``csrc/replay_planar.cu``.
-``window_qs_planar`` returns ONE tensor ``(2, n_waves, n_slots, 128, 128)``,
-plane 0 the real parts and plane 1 the imaginary parts of the window
-unitaries (the JAX function concatenates the two planes of a window into a
-(128, 256) block ``[Q_r | Q_i]``; ``torch.cat([qw[0], qw[1]], dim=-1)`` gives
-that block). An invalid slot holds ``Q_r = I``, ``Q_i = 0``. vt, taut and y
-are ``(re, im)`` pairs; the plain version is
-``ops/sb2st_planar.apply_q2_planar``.
+Its window pass forms the valid windows only: ``window_table`` lists them
+in replay order (wave after wave, slots ascending) from the static
+geometry, and ``window_store_planar`` forms their unitaries, in the same
+batched library products as before, into a compact store
+``(2, n_valid, 128, 128)`` (2 795 of the 5 936 slots at n = 4096, b = 32,
+g = 96); the kernel runs through the store in order. ``window_qs_planar``
+keeps the JAX layout, ONE tensor ``(2, n_waves, n_slots, 128, 128)``, plane
+0 the real parts and plane 1 the imaginary parts of the window unitaries
+(the JAX function concatenates the two planes of a window into a (128, 256)
+block ``[Q_r | Q_i]``; ``torch.cat([qw[0], qw[1]], dim=-1)`` gives that
+block): the compact store scattered into identity-filled slots, so an
+invalid slot holds ``Q_r = I``, ``Q_i = 0``. vt, taut and y are
+``(re, im)`` pairs; the plain version is ``ops/sb2st_planar.apply_q2_planar``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from eigensolver_gpu_torch.ops.sb2st import (
@@ -65,7 +72,8 @@ from eigensolver_gpu_torch.utils.tracing import trace_range
 
 P = 128  # stored window size (kP of csrc/replay.cu), the largest l_win
 SLOT_ROUND = 4  # the JAX layout rounds the slot count to a multiple of 4
-_CHUNK = 8  # waves of windows formed per batched pass
+_CHUNK = 8  # waves of windows formed per batched pass (window_qs)
+_WINDOWS = 256  # valid windows formed per batched pass (window_store_planar)
 
 
 def _geometry(n, b, g):
@@ -143,28 +151,64 @@ def apply_q2_kernel(vt, taut, y, n, b, g=None):
 apply_q2_kernel.launches = 0
 
 
-@highest_precision
-def window_qs_planar(vt, taut, n, b, g):
-    """Every wave-slot's planar window unitary, batched: qw
-    (2, n_waves, n_slots, 128, 128), plane 0 real and plane 1 imaginary,
-    with qw[:, tau, i] = [[Q, 0], [0, I]], Q the (l_win, l_win) compact-WY
-    unitary of the window that ``window_qs`` puts in this slot, or the
-    identity for an invalid slot."""
+def window_table(n, b, g):
+    """The valid windows of the replay's wave schedule (at the window
+    store's slot count, see ``_geometry``), in replay order: wave after
+    wave, slots ascending. A dict with the geometry ``geo``, the
+    (n_waves, n_slots) ``valid`` mask of ``_wave_gather``, and numpy arrays
+    over the valid windows: ``wave`` and ``slot`` (the window's place in
+    the layout of ``window_qs_planar``), ``row0`` (its first row of y),
+    ``ridx`` (n_valid, g), the rows of the padded reflector pack that hold
+    its reflectors; and ``wave_ptr`` (n_waves + 1,): the windows of wave w
+    are entries wave_ptr[w] : wave_ptr[w + 1]."""
     geo = _geometry(n, b, g)
-    l_win, n_waves, n_slots = geo["l_win"], geo["n_waves"], geo["n_slots"]
+    valid, ridx = _wave_gather(geo, n, b, g, geo["n_groups"] * g + g, geo["kmax"] + 2)
+    wave, slot = np.nonzero(valid)
+    return dict(geo=geo, valid=valid, wave=wave, slot=slot,
+                row0=geo["base"][wave] + slot * geo["spacing"], ridx=ridx[wave, slot],
+                wave_ptr=np.concatenate([[0], np.cumsum(valid.sum(axis=1))]))
+
+
+@highest_precision
+def window_store_planar(vt, taut, n, b, g):
+    """The planar window unitaries of the valid windows only, in replay
+    order: ``(store, table)`` with ``table = window_table(n, b, g)`` and
+    store (2, n_valid, 128, 128), plane 0 real and plane 1 imaginary,
+    store[:, v] = [[Q, 0], [0, I]] for window v of the table, Q its
+    (l_win, l_win) compact-WY unitary. ``_WINDOWS`` windows are formed at
+    a time to bound the temporaries."""
+    table = window_table(n, b, g)
+    geo = table["geo"]
+    l_win = geo["l_win"]
     if l_win > P:
         raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
     dev = vt[0].device
-    v2f, t2f, nvp, kp = _padded_pack_planar(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
-    _, flat_idx = _wave_gather(geo, n, b, g, nvp, kp)
-    flat_idx = torch.from_numpy(flat_idx).to(dev)
-    qw = torch.zeros((2, n_waves, n_slots, P, P), dtype=vt[0].dtype, device=dev)
+    v2f, t2f, _, _ = _padded_pack_planar(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
+    ridx = torch.from_numpy(table["ridx"]).to(dev)
+    store = torch.zeros((2, ridx.shape[0], P, P), dtype=vt[0].dtype, device=dev)
     tail = torch.arange(l_win, P, device=dev)
-    qw[0, :, :, tail, tail] = 1.0
-    for w0 in range(0, n_waves, _CHUNK):
-        q_r, q_i = window_q_planar(*_planar_staircase(v2f, t2f, flat_idx[w0 : w0 + _CHUNK], g, b))
-        qw[0, w0 : w0 + _CHUNK, :, :l_win, :l_win] = q_r
-        qw[1, w0 : w0 + _CHUNK, :, :l_win, :l_win] = q_i
+    store[0, :, tail, tail] = 1.0
+    for v0 in range(0, ridx.shape[0], _WINDOWS):
+        q_r, q_i = window_q_planar(*_planar_staircase(v2f, t2f, ridx[v0 : v0 + _WINDOWS], g, b))
+        store[0, v0 : v0 + _WINDOWS, :l_win, :l_win] = q_r
+        store[1, v0 : v0 + _WINDOWS, :l_win, :l_win] = q_i
+    return store, table
+
+
+def window_qs_planar(vt, taut, n, b, g):
+    """Every wave-slot's planar window unitary in the JAX layout: qw
+    (2, n_waves, n_slots, 128, 128), plane 0 real and plane 1 imaginary,
+    with qw[:, tau, i] = [[Q, 0], [0, I]], Q the (l_win, l_win) compact-WY
+    unitary of the window that ``window_qs`` puts in this slot, or the
+    identity for an invalid slot: the compact store of
+    ``window_store_planar`` scattered into an identity-filled layout."""
+    store, table = window_store_planar(vt, taut, n, b, g)
+    geo = table["geo"]
+    dev = store.device
+    qw = torch.zeros((2, geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype, device=dev)
+    diag = torch.arange(P, device=dev)
+    qw[0, :, :, diag, diag] = 1.0
+    qw[:, torch.from_numpy(table["wave"]).to(dev), torch.from_numpy(table["slot"]).to(dev)] = store
     return qw
 
 
@@ -194,22 +238,28 @@ def apply_q2_planar_kernel(vt, taut, y, n, b, g=None):
     else:
         raise TypeError(f"the planar replay kernel takes float32 or float64, got {y_r.dtype}")
     fn = getattr(kernel_guard.load("replay_planar"), name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    dev = y_r.device
     with trace_range("apply_q2_planar_qs"):
-        qw = window_qs_planar(vt, taut, n, b, g)
+        store, table = window_store_planar(vt, taut, n, b, g)
+        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
     m = y_r.shape[1]
-    out = torch.empty((2, n, m), dtype=y_r.dtype, device=y_r.device)  # updated in place
-    out[0], out[1] = y_r, y_i
-    with trace_range("apply_q2_planar"), torch.cuda.device(y_r.device):
+    ldy = -(-m // 4) * 4  # 16-byte rows for the kernel's copies
+    out = (torch.empty if ldy == m else torch.zeros)((2, n, ldy), dtype=y_r.dtype, device=dev)
+    out[0, :, :m], out[1, :, :m] = y_r, y_i  # updated in place
+    with trace_range("apply_q2_planar"), torch.cuda.device(dev):
         status = fn(
-            qw[0].data_ptr(), qw[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            m, n, m, b, g, qw.shape[1], qw.shape[2],
-            torch.cuda.current_stream(y_r.device).cuda_stream,
+            store[0].data_ptr(), store[1].data_ptr(), row0.data_ptr(), row0.numel(),
+            out[0].data_ptr(), out[1].data_ptr(), ldy, n, m, table["geo"]["l_win"],
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "apply_q2_planar launch")
         apply_q2_planar_kernel.launches += 1
-    return out[0], out[1]
+    if ldy == m:
+        return out[0], out[1]
+    return out[0, :, :m].contiguous(), out[1, :, :m].contiguous()
 
 
 apply_q2_planar_kernel.launches = 0

@@ -201,6 +201,68 @@ def test_chase_kernel_matches_plain(cuda_device, n, b, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chase_kernel_with_more_slots_than_sms(cuda_device, dtype):
+    """K7 at n = 2400, b = 6: its 134 slots outnumber the H100's 132 SMs,
+    so two blocks of the persistent kernel own two slots. The reflectors of
+    so narrow a band are ill-conditioned functions of it (a perturbation of
+    the band in its last bits moves the plain chase's own by about 1e-6 in
+    fp64, whole arrays, and by 1e-2 and more in fp32, already on its first
+    sweeps; chip_smoke.py logs both beside the kernel's), so, as
+    chip_smoke.py holds it: fp64 d and e whole and the reflectors on the
+    first 64 sweeps (1e-7); fp32 d and |e| on the first 64 sweeps (1e-3);
+    and the whole output through what it must satisfy, the spectrum of
+    (d, e) and Q2 T Q2^T = A (Q2 the plain replay of the kernel's
+    reflectors), both to 1e-4 relative. Two calls bit-identical."""
+    n, b, h = 2400, 6, 64
+    a, band = _band(n, b, dtype, cuda_device, 24)
+    got = bulge_chase_kernel(band, b)
+    want = bulge_chase(band, b)
+    act = (want[3] != 0)[..., None]
+    if dtype == torch.float64:
+        pairs = [(got[0], want[0]), (got[1], want[1]),
+                 ((got[2] * act)[: 3 * h], (want[2] * act)[: 3 * h]),
+                 (got[3][: 3 * h], want[3][: 3 * h])]
+        tol = 1e-7
+    else:
+        pairs = [(got[0][:h], want[0][:h]), (got[1][:h].abs(), want[1][:h].abs())]
+        tol = 1e-3
+    for g, w in pairs:
+        assert g.shape == w.shape and _rel(g, w) <= tol
+    assert all(torch.equal(x, y) for x, y in zip(got, bulge_chase_kernel(band, b)))
+    d, e = got[0].double(), got[1].double()
+    tri = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+    w_a = np.linalg.eigvalsh(a)
+    w_t = np.linalg.eigvalsh(tri.cpu().numpy())
+    assert np.abs(w_t - w_a).max() <= 1e-4 * np.abs(w_a).max()
+    q2 = apply_q2(got[2], got[3], torch.eye(n, dtype=dtype, device=cuda_device), n, b, g=b)
+    sim = q2.double() @ tri @ q2.double().T
+    assert _rel(sim, torch.tensor(a, device=cuda_device)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_chase_kernel_launches_once_per_real_two_stage_solve(cuda_device):
+    """A real two-stage solve launches K7's persistent kernel once, counted
+    by the profiler's device records and by the wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
+
+    a, b = random_spd_pair(512, seed=5)
+    cfg = SolverConfig(tridiag_mode="two")
+    dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg)  # builds the kernels
+    before = bulge_chase_kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg)
+        torch.cuda.synchronize()
+    assert int(res.info) == 0 and bulge_chase_kernel.launches == before + 1
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("chase_kernel" in x for x in names) == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,b,g,m,dtype", [(512, 32, 96, 100, torch.float32),
                                            (300, 8, 24, 70, torch.float32),
                                            (250, 6, 5, 3, torch.float32),
@@ -337,3 +399,48 @@ def test_replay_planar_kernel_matches_plain(cuda_device, n, b, g, m, dtype):
         assert x.shape == w.shape
         assert _rel(x, w) <= (1e-4 if dtype == torch.float32 else 1e-11)
         assert _rel(w, y0) > 0.1  # the replay moves y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,g,m,dtype", [(4096, 32, 96, 1, torch.float32),
+                                           (4096, 32, 96, 100, torch.float32),
+                                           (4096, 32, 96, 4096, torch.float32),
+                                           (1024, 32, 32, 256, torch.float64)])
+def test_replay_planar_kernel_across_widths(cuda_device, n, b, g, m, dtype):
+    """K10 at the main path's shape (n = 4096, b = 32, g = 96: its first and
+    last waves hold a single window) at m = 1, 100 and 4096 columns, and in
+    fp64 at the pure-fp64 path's g = b: within 1e-4 (fp32) and 1e-11 (fp64)
+    relative of sb2st_planar.apply_q2_planar; one launch a call."""
+    from eigensolver_gpu_torch.ops.replay import window_table
+
+    per_wave = np.diff(window_table(n, b, g)["wave_ptr"])
+    assert per_wave[0] == per_wave[-1] == 1 and per_wave.max() > 1
+    _, (band_r, band_i) = _hband(n, b, dtype, cuda_device, 7)
+    _, _, vt, taut = bulge_chase_planar_kernel(band_r, band_i, b)
+    rng = np.random.default_rng(m)
+    y = tuple(torch.tensor(rng.standard_normal((n, m)), dtype=dtype, device=cuda_device)
+              for _ in range(2))
+    before = apply_q2_planar_kernel.launches
+    got = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+    assert apply_q2_planar_kernel.launches == before + 1
+    want = apply_q2_planar(vt, taut, y, n, b, g=g)
+    for x, w, y0 in zip(got, want, y):
+        assert x.shape == w.shape == (n, m)
+        assert _rel(x, w) <= (1e-4 if dtype == torch.float32 else 1e-11)
+        assert _rel(w, y0) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,g,m,dtype", [(1024, 32, 96, 300, torch.float32),
+                                           (300, 32, 32, 33, torch.float64)])
+def test_replay_planar_kernel_is_bit_reproducible(cuda_device, n, b, g, m, dtype):
+    """Two K10 calls on the same inputs give the same bits (the sums run in
+    a fixed order)."""
+    _, (band_r, band_i) = _hband(n, b, dtype, cuda_device, 8)
+    _, _, vt, taut = bulge_chase_planar_kernel(band_r, band_i, b)
+    rng = np.random.default_rng(n)
+    y = tuple(torch.tensor(rng.standard_normal((n, m)), dtype=dtype, device=cuda_device)
+              for _ in range(2))
+    first = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+    second = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+    assert all(torch.equal(x, z) for x, z in zip(first, second))

@@ -1,8 +1,8 @@
 """The dependency rule of the bulge chase's wavefront schedule, on which the
-persistent planar chase kernel (K8, eigensolver_gpu_torch/csrc/chase_planar.cu)
-relies.
+persistent chase kernels (K7, eigensolver_gpu_torch/csrc/chase.cu, and K8,
+csrc/chase_planar.cu) rely.
 
-That kernel runs every timestep in one launch: slot s starts timestep t
+Each kernel runs every timestep in one launch: slot s starts timestep t
 once slots s - 1 and s + 1 have finished t - 1 (and its own block has
 finished s at t - 1), inactive slots included. By induction slot s at t
 then starts only after every slot s' has finished every timestep t' with

@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """Where the time goes inside kernels K1 (csrc/pchol_block.cu), K5
-(csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu) and K8
-(csrc/chase_planar.cu) on the card, by phase.
+(csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu), K7 (csrc/chase.cu), K8
+(csrc/chase_planar.cu) and K10 (csrc/replay_planar.cu) on the card, by
+phase.
 
     python3 tools/kernel_phases.py
 
 Builds a copy of each source into eigensolver_gpu_torch/build/phases/ in
 which thread 0 of block 0 reads clock64() after every block or cluster
 barrier, runs K1 at nb = 128, K5 and K6 at the main paths' largest panel
-((4096, 32), rb = 4032, fp32) and K8 at n = 4096, b = 32, fp32, and
-prints, for each barrier of the source, the SM cycles spent before it
-summed over the run and how often it was reached. The committed kernels
-carry no instrumentation; the marks cost thread 0 a few dozen cycles each.
-Needs a CUDA device and nvcc.
+((4096, 32), rb = 4032, fp32), K7 and K8 at n = 4096, b = 32, fp32, and K10
+at n = m = 4096, b = 32, g = 96, fp32, and prints, for each barrier of the
+source, the SM cycles spent before it summed over the run and how often it
+was reached. The committed kernels carry no instrumentation; the marks
+cost thread 0 a few dozen cycles each. Needs a CUDA device and nvcc.
 
 A mark goes after each ``__syncthreads();`` or ``cluster.sync();`` that
 begins a line of its own, and after each line that equals one of the
-statements given to ``build`` (the kernel's first statement; for K8 also
-the line that publishes a slot's flag, so that the time before the barrier
-after the flag wait is the wait); a barrier written behind an ``if`` on the
-same line is not marked, and its time falls to the next mark. Each
-reported line is printed with its text, so the output names what it timed
-whatever the source's line numbers are.
+statements given to ``build`` (the kernel's first statement; for K7 and K8
+also the line that publishes a slot's flag, so that the time before the
+barrier after the flag wait is the wait; for K10 the wait for a chunk's
+copies, the refill and the FMA loop of a chunk, so that a window's time
+splits into staging waits, barriers, copy issue, FMAs and write-back); a
+barrier written behind an ``if`` on the same line is not marked, and its
+time falls to the next mark. Each reported line is printed with its text,
+so the output names what it timed whatever the source's line numbers are.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from eigensolver_gpu_torch.utils import kernel_guard  # noqa: E402
 
-_MARKS = 1 << 17  # K8 marks about 7 a timestep, 12 280 timesteps
+_MARKS = 1 << 17  # K7 and K8 mark about 7 a timestep, 12 280 timesteps
 _HEADER = f"""__device__ long long g_mark_t[{_MARKS}];
 __device__ int g_mark_line[{_MARKS}];
 __device__ int g_marks;
@@ -186,6 +189,56 @@ def main():
         kernel_guard.check(status, "instrumented chase_planar launch")
         torch.cuda.synchronize()
     report(lib, lines, to_source, f"K8 n={n} b={b} fp32 (block 0: slot 0)")
+
+    lib, lines, to_source = build(
+        "chase", "T* smem = reinterpret_cast<T*>(smem_raw);",
+        "if (threadIdx.x == 0) publish(progress + s, t + 1);")
+    fn = lib.bulge_chase_f32_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    band = band[0].clone()  # the real part: a symmetric band
+    for _ in range(2):
+        work = band.clone()
+        vt = torch.zeros((t3, s_slots, b), device=dev)
+        taut = torch.zeros((t3, s_slots), device=dev)
+        progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)
+        lib.marks_reset()
+        status = fn(work.data_ptr(), n, b, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        kernel_guard.check(status, "instrumented chase launch")
+        torch.cuda.synchronize()
+    report(lib, lines, to_source, f"K7 n={n} b={b} fp32 (block 0: slot 0)")
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.replay import window_store_planar
+
+    lib, lines, to_source = build(
+        "replay_planar", "extern __shared__ __align__(1024) unsigned char smem_raw[];",
+        "mbar_wait(bars + f % kStages, (f / kStages) & 1);", "issue();",
+        "fma_chunk<T>(stage, ty, tx, acc_r, acc_i);")
+    fn = lib.apply_q2_planar_f32_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    g, m = 96, 4096
+    hb = np.zeros((2, n, 2 * b))
+    hb[0, :, : b + 1] = rng.standard_normal((n, b + 1))
+    hb[1, :, 1 : b + 1] = rng.standard_normal((n, b))
+    hb[:, np.arange(n)[:, None] + np.arange(2 * b)[None, :] >= n] = 0.0
+    hb = torch.tensor(hb, dtype=torch.float32, device=dev)
+    _, _, vt, taut = bulge_chase_planar_kernel(hb[0], hb[1], b)
+    store, table = window_store_planar(vt, taut, n, b, g)
+    row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
+    y = torch.tensor(rng.standard_normal((2, n, m)), dtype=torch.float32, device=dev)
+    for _ in range(2):
+        lib.marks_reset()
+        status = fn(store[0].data_ptr(), store[1].data_ptr(), row0.data_ptr(), row0.numel(),
+                    y[0].data_ptr(), y[1].data_ptr(), m, n, m, table["geo"]["l_win"],
+                    torch.cuda.current_stream().cuda_stream)
+        kernel_guard.check(status, "instrumented replay_planar launch")
+        torch.cuda.synchronize()
+    report(lib, lines, to_source,
+           f"K10 n={n} m={m} b={b} g={g} fp32 (block 0: columns 0-31, {row0.numel()} windows)")
     return 0
 
 
