@@ -21,7 +21,8 @@ non-zero without printing a result:
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
                 (K1 and K2): launch counts from one solve, then a timed
-                solve, residual computed on the device;
+                solve, residual computed on the device; one K2 launch a
+                panel by the profiler;
   5. reference -- n=1024 eigenvalues against scipy.linalg.eigh, mixed
                 one-stage, then pure fp64 with tridiag_mode='two' (the
                 fp64 instances of K6, K8, K10);
@@ -33,9 +34,9 @@ non-zero without printing a result:
                 one-stage and two-stage (fp64 instances of K5, K7, K9);
   8. main (real, two-stage) -- the same dsygvdx n=4096 solve with
                 tridiag_mode='two': sbrd (K5 per panel), bulge chase
-                (K7, one launch a solve by the profiler), replay (K9) and
-                apply_q1, then one solve with mosaic_kernels=False (the
-                plain torch route);
+                (K7, one launch a solve by the profiler), replay (K9, one
+                launch a solve by the profiler) and apply_q1, then one
+                solve with mosaic_kernels=False (the plain torch route);
   9. main (planar, two-stage) -- the zhegvdx n=4096 iu=1024 solve of
                 phase 4 with tridiag_mode='two': psbrd (K6 per panel),
                 planar bulge chase (K8), phase normalisation, replay (K10,
@@ -77,6 +78,8 @@ K5_ONE_BLOCK_MS = 2.2412
 K8_LAUNCH_SEQUENCE_MS = 93.789
 K7_LAUNCH_SEQUENCE_MS = 72.997
 K10_ONE_LAUNCH_A_WAVE_MS = 92.000  # the wrapper with all 5936 slots formed
+K2_LAUNCH_SEQUENCE_MS = 4.234  # 65 launches a panel, mb = 4096
+K9_ONE_LAUNCH_A_WAVE_MS = 44.270  # the wrapper with all 5936 slots formed
 # K7: relative max error of d, e, tau and the active reflectors against the
 # plain version. The entries drift apart along the 12 280 dependent steps
 # (on the card: 1.6e-9 in fp64 at n = 4096, order one in fp32), so fp64 is
@@ -233,12 +236,16 @@ def check_k1(torch):
 
 
 def _k2_work(mb, pe, nb):
-    """Bytes and flops one panel needs (leading block reads, column reads,
-    output writes; matvecs and compact-WY corrections)."""
-    nbytes = 8 * (pe - 1) ** 2 + 8 * mb * nb + 4 * (6 * mb * nb + 4 * nb)
+    """Bytes and flops one panel needs. Each column's y = A v needs the v of
+    the column before it, so the leading cj x cj block of both planes is
+    read once a column (8 cj^2 bytes; at mb = 4096 it is 134 MB, more than
+    the 50 MB L2); the raw columns are read once and the outputs written
+    once. Flops: the matvecs and the compact-WY corrections."""
+    nbytes = 8 * mb * nb + 4 * (6 * mb * nb + 4 * nb)
     flops = 0
     for s in range(nb):
         cj = pe - 1 - s
+        nbytes += 8 * cj * cj  # the leading block, streamed for this column's y
         flops += 8 * cj * cj  # y = A v on the leading cj x cj block
         flops += 16 * s * cj * 2  # W^H v, V^H v and their application
         flops += 16 * s * mb  # a_col corrections
@@ -282,14 +289,29 @@ def check_k2(torch):
             if not worst <= K2_TOL:
                 raise RuntimeError(
                     f"K2 disagrees with its plain version at mb={mb}{layout} pe={pe}")
+            if pe == mb:  # the sums run in a fixed order: two calls, the same bits
+                again = latrd_panel_planar(ar, ai, pe, nb=nb)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise RuntimeError(f"K2 is not reproducible at mb={mb}{layout}")
     mb = 4096
     ar, ai = planes[mb]
+    kernel_ms, launched = _kineto(torch, lambda: latrd_panel_planar(ar, ai, mb, nb=nb), "latrd_")
+    if launched != 1:
+        raise RuntimeError(f"one K2 call launched {launched} kernels (kineto), want 1")
     ms = device_ms(lambda: latrd_panel_planar(ar, ai, mb, nb=nb), iters=5)
     plain_ms = device_ms(lambda: latrd_panel_plain(ar, ai, mb, nb=nb), iters=2)
     bound_ms, bound_by = bound(*_k2_work(mb, mb, nb))
-    log(f"K2 times at mb={mb} pe={mb}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); no single library call computes a "
-        f"zlatrd panel (library_ms null)")
+    log(f"K2 times at mb={mb} pe={mb}: kernel {ms:.3f} ms in 1 launch (kineto {kernel_ms:.3f} ms; "
+        f"the launch sequence of 65 kernels: {K2_LAUNCH_SEQUENCE_MS} ms, PERF.md), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); no single library call "
+        "computes a zlatrd panel (library_ms null)")
+    # smaller contiguous blocks, whose two planes fit in the 50 MB L2
+    for mbs in (2048, 1024):
+        xr, xi = ar[:mbs, :mbs].contiguous(), ai[:mbs, :mbs].contiguous()
+        small_ms = device_ms(lambda: latrd_panel_planar(xr, xi, mbs, nb=nb), iters=5)
+        b_ms, b_by = bound(*_k2_work(mbs, mbs, nb))
+        log(f"K2 times at mb={mbs} pe={mbs} (contiguous): kernel {small_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, device memory; the block fits in L2)")
     return {
         "name": "latrd_panel_planar", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/latrd_panel.cu",
@@ -457,19 +479,35 @@ def _timed_once(torch, fn):
     return out, start.elapsed_time(stop)
 
 
+def _device_records(torch, fn, keys=(), tries=3):
+    """The (name, ns) of every kernel and copy the device ran during one call
+    of ``fn``, from the raw kineto records. A profile that caught no device
+    record at all, or none of a kernel named by ``keys`` (both seen on the
+    card now and then; the kernels' own launch counters are checked apart)
+    is no reading: it is taken again, up to ``tries`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        records = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if records and all(any(k in name for name, _ in records) for k in keys):
+            return records
+    if not records:
+        raise RuntimeError(f"the profiler caught no device record in {tries} profiled calls")
+    return records
+
+
 def _kineto(torch, fn, key):
     """(device ms, launches) of the kernels whose name holds ``key`` during
     one call of ``fn``, from the raw kineto records."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     ms, count = 0.0, 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and key in e.name():
-            ms += e.duration_ns() / 1e6
+    for name, ns in _device_records(torch, fn, (key,)):
+        if key in name:
+            ms += ns / 1e6
             count += 1
     return ms, count
 
@@ -745,7 +783,7 @@ def check_k9(torch):
     import numpy as np
 
     from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
-    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel, window_qs
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel, window_store
     from eigensolver_gpu_torch.ops.sb2st import apply_q2
     from eigensolver_gpu_torch.utils.timer import device_ms
 
@@ -783,15 +821,24 @@ def check_k9(torch):
     # the main path replays all n columns (the mixed solve refines from the
     # full fp32 basis): time m = 4096
     ms = device_ms(lambda: apply_q2_kernel(vt, taut, y_all, n, b, g=g), iters=3)
-    qs_ms = device_ms(lambda: window_qs(vt, taut, n, b, g), iters=3)
+    qs_ms = device_ms(lambda: window_store(vt, taut, n, b, g), iters=3)
+    kernel_ms, launched = _kineto(torch, lambda: apply_q2_kernel(vt, taut, y_all, n, b, g=g),
+                                  "replay_kernel")
+    if launched != 1:
+        raise RuntimeError(f"one K9 call launched {launched} kernels (kineto), want 1")
+    store, _ = window_store(vt, taut, n, b, g)
+    store_mb = store.numel() * store.element_size() / 1e6
+    del store
     plain_ms = device_ms(lambda: apply_q2(vt, taut, y_all, n, b, g=g), iters=2)
     ms512 = device_ms(lambda: apply_q2_kernel(vt, taut, y_all[:, :512], n, b, g=g), iters=3)
     nbytes, flops, windows = _k9_work(n, 4096, b, g, 4)
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"K9 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (of which window_qs {qs_ms:.3f} ms, "
-        f"outside the kernel), at m=512 {ms512:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {windows} windows); no single library call replays "
-        "wave-ordered windows (library_ms null)")
+    log(f"K9 times at n={n} m=4096 fp32: wrapper {ms:.3f} ms (one launch a wave with every slot "
+        f"formed: {K9_ONE_LAUNCH_A_WAVE_MS} ms, PERF.md), of which the window pass window_store "
+        f"{qs_ms:.3f} ms (outside the kernel; window store {store_mb:.1f} MB) and the kernel "
+        f"{kernel_ms:.3f} ms in 1 launch (kineto); at m=512 {ms512:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {windows} windows); no single "
+        "library call replays wave-ordered windows (library_ms null)")
     return {
         "name": "apply_q2_kernel", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/replay.cu",
@@ -1170,8 +1217,6 @@ def _breakdown(torch, solve, wall, kernels=()):
     the device total of every kernel whose name holds one of ``kernels``.
     Returns the stage ms by range name and, for each of ``kernels``, its
     (device ms, launches) over the profiled solve."""
-    from torch.profiler import ProfilerActivity, profile
-
     from eigensolver_gpu_torch.utils import tracing
 
     tracing.clear()
@@ -1186,15 +1231,11 @@ def _breakdown(torch, solve, wall, kernels=()):
     tracing.clear()
     # device activity only, read from the raw kineto records: building
     # the profiler's per-op event tree for ~10^5 small ops takes minutes
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solve()
-        torch.cuda.synchronize()
     per_kernel = {}  # name -> [ms, count]; one stream, so times add up
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            acc = per_kernel.setdefault(e.name(), [0.0, 0])
-            acc[0] += e.duration_ns() / 1e6
-            acc[1] += 1
+    for name, ns in _device_records(torch, solve, kernels):
+        acc = per_kernel.setdefault(name, [0.0, 0])
+        acc[0] += ns / 1e6
+        acc[1] += 1
     busy = sum(v[0] for v in per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     top = ", ".join(f"{k[:48]}={v[0]:.1f}ms/{v[1]}" for k, v in ranked)
@@ -1250,7 +1291,11 @@ def phase_main(torch):
             raise RuntimeError(f"main path shapes {shapes}")
         if k1 != N_MAIN // 128 or k2 != want_k2:
             raise RuntimeError(f"launch counts K1={k1} K2={k2}, want {N_MAIN // 128} and {want_k2}")
-        _breakdown(torch, solve, min(times), kernels=("latrd_",) if use_pallas else ())
+        _, totals = _breakdown(torch, solve, min(times),
+                               kernels=("latrd_",) if use_pallas else ())
+        if use_pallas and totals["latrd_"][1] != want_k2:
+            raise RuntimeError(f"one use_pallas solve launched {totals['latrd_'][1]} K2 kernels "
+                               f"(kineto), want {want_k2}: one a panel")
     return launches
 
 
@@ -1383,12 +1428,14 @@ def phase_main_real_two(torch):
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, want {want}")
     stages, totals = _breakdown(torch, solve, sorted(times)[1],
-                                kernels=("ql_panel_kernel", "chase_kernel", "replay_wave"))
+                                kernels=("ql_panel_kernel", "chase_kernel", "replay_kernel"))
     log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")
-    log(f"  K7 launches per real two-stage solve (kineto): {totals['chase_kernel'][1]}")
-    if totals["chase_kernel"][1] != 1:
-        raise RuntimeError("one real two-stage solve launched the persistent chase kernel "
-                           f"{totals['chase_kernel'][1]} times (kineto), want 1")
+    log(f"  K7 and K9 launches per real two-stage solve (kineto): {totals['chase_kernel'][1]} "
+        f"and {totals['replay_kernel'][1]}")
+    for key in ("chase_kernel", "replay_kernel"):
+        if totals[key][1] != 1:
+            raise RuntimeError(f"one real two-stage solve launched {key} {totals[key][1]} "
+                               "times (kineto), want 1")
 
     # the plain torch route, one solve, with synchronizing ranges
     cfg_plain = SolverConfig(compute_dtype="float32", tridiag_mode="two", mosaic_kernels=False)

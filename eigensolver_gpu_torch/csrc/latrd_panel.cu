@@ -1,5 +1,6 @@
 // Kernel K2: one nb-column zlatrd panel of the planar hetrd (nb <= 32,
-// mb <= 4096), columns panel_end-1 down to panel_end-nb.
+// mb <= 4096), columns panel_end-1 down to panel_end-nb, in one cooperative
+// launch.
 //
 // Replaces: eigensolver_gpu_tpu/ops/latrd_pallas.py::latrd_panel_planar
 // (pallas_call at :333, _latrd_kernel at :228, _phase at :58), itself the
@@ -7,41 +8,82 @@
 // zhemv -> stacked_zgemv_C -> stacked_zgemv_N_finish_W, glued there by an
 // atomics-based software grid barrier (zhetrd_gpu.F90:142-163).
 //
-// What bounds it on the H100: memory. Each column's y = A v streams the
-// leading cj x cj block of both planes: 8 * cj^2 bytes, up to 134 MB at
-// mb = 4096, i.e. ~40 us per column at 3.35 TB/s, ~1.3 ms per panel. The
-// rest is latency: per column one dependent chain of small reductions
-// (the compact-WY corrections, zlarfg, the W finish) that no amount of
-// parallelism shortens.
+// What bounds it on the H100: memory. Each column's y = A v needs the v of
+// the column before it, so the leading cj x cj block of both planes is
+// streamed once a column: 8 cj^2 bytes, 134 MB at cj = 4096, about 40 us a
+// column at 3.35 TB/s, 1.27 ms for a panel at mb = 4096 (the block does not
+// fit in the 50 MB L2; at mb <= 2048 its two planes can stay there). The
+// rest is latency: a column's scalars (zlarfg, the compact-WY coefficients,
+// w^H v) are grid-wide sums that each wait for the one before. On an NVIDIA
+// H100 80GB HBM3 at 700 W a panel at mb = pe = 4096 takes 1.74 ms; block 0
+// spends 79 % of its SM cycles in the matvecs (85 900 a column, about
+// 3.1 TB/s), 3 000-6 000 a column in each grid barrier (the one after the
+// matvec waits for the slowest rows) and 3 300 a column reducing W^H x and
+// V^H x, whose parts every block reads from every block (8 MB of L2 reads a
+// column at 128 blocks) (tools/kernel_phases.py).
 //
-// What the design does about it: the Pallas kernel carried y, a_col and
-// tau from one step of its sequential (nb+2, tiles) grid to the next; a
-// CUDA grid has no order, so each column is two launches on one stream:
-//   * latrd_matvec -- row-parallel, one warp per row, reads A's rows
-//     < cj coalesced and writes y = A v (v is zero from row cj on, so
-//     only the leading cj x cj block is read);
-//   * latrd_step -- one block of 1024 threads: finishes W for the column
-//     whose y just arrived (corrections, tau, the alpha update), then
-//     prepares the next column (its raw column read from A, the
-//     corrections, a branch-free zlarfg, the v / packed-column / scalar
-//     writes). Block-wide sums go through warp shuffles.
-// The work panels are kept slot-major (a slot's column is contiguous), so
-// every per-slot read in the step kernel is coalesced; the caller sees
-// them as (mb, nb) views. Sums are taken in another order than the TPU's,
-// so outputs agree to a tolerance, not bitwise.
+// Design: one cooperative launch of ceil(mb / 32) blocks of 1024 threads;
+// block b owns rows [32 b, 32 b + 32), one warp a row, and keeps its rows
+// of V and W in shared memory. v = scale x + e_{cj-1}, with x the corrected
+// column below cj - 1 and scale the zlarfg scaling, so every product with v
+// splits into a product with x, which is known before the norm is reduced,
+// and a term of row cj - 1. A column is three phases between grid barriers:
+//   1. the slab's rows of a = A[:, cj] - V conj(W[cj, :]) - W conj(V[cj, :])
+//      (the raw column kept from the phase 2 before), published as x, and
+//      the slab's part of |x|^2;
+//   2. every block reduces |x|^2 and runs the branch-free zlarfg; the slab's
+//      rows of v and of the packed column; u = A[:cj, :cj - 1] x on the slab
+//      rows, streamed from device memory (a warp a row, 16-byte loads, x in
+//      shared memory), with A[:, cj - 1], the next column's raw column; the
+//      slab's parts of W^H x and V^H x;
+//   3. W^H v and V^H v from the reduced parts; the slab's rows of
+//      y = scale u + A[:, cj - 1] - V (W^H v) - W (V^H v) and w = tau y; the
+//      slab's part of w^H v;
+// then, behind the third barrier, alpha = -tau (w^H v) / 2 and the slab's
+// rows of W[:, s] = w + alpha v. Row cj - 1 of W, which the next column's
+// corrections need on every block, is formed by each block from the
+// published w there (rounded without contraction, so it is the owner's
+// bits). The parts are reduced in block order by every block (no float
+// atomics), so two calls give the same bits. Sums are taken in another
+// order than the TPU's, so outputs agree to a tolerance, not bitwise. The
+// launch fails (cudaErrorCooperativeLaunchTooLarge) when the blocks cannot
+// all be resident; there is no fallback.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRows = kWarps;  // rows a block owns: one warp each
+constexpr int kSlabLd = kRows + 1;  // the slab's row stride: lane k of a row hits bank k
+constexpr int kNbMax = 32;     // one lane per slot
 constexpr int kMbMax = 4096;
-constexpr int kRows = kMbMax / kThreads;  // rows per thread in the step
-constexpr int kNbMax = 32;                // one warp per slot
-constexpr int kMvWarps = 8;               // rows per matvec block
+constexpr int kGMax = kMbMax / kRows;  // blocks at most
 
 enum Plane { VR = 0, VI, WR, WI, CR, CI };
+// published scalars: d, alpha (row cj - 1 of a), w at row cj - 1
+enum Pub { P_D = 0, P_AR, P_AI, P_WR, P_WI, kPub = 8 };
+// per-block parts, field-major: |x|^2, w^H v, then (W^H x, V^H x) per slot
+enum Field { F_XN = 0, F_HR, F_HI, F_Z, kFields = F_Z + 4 * kNbMax };
+// slab-row vectors in shared memory: a, the raw column, u, v, w
+enum Row { R_AR = 0, R_AI, R_CR, R_CI, R_UR, R_UI, R_VR, R_VI, R_WR, R_WI, kRowVecs };
+// block-wide scalars in shared memory
+enum Sc { S_XN = 0, S_D, S_AR, S_AI, S_HR, S_HI, S_WLR, S_WLI, S_PWR, S_PWI, kSc };
+
+struct Panel {
+  const float* ar;
+  const float* ai;
+  int lda, mb, pe, nb;
+  float* pan;   // [6][nb][mb] slot-major
+  float* scal;  // [4][nb]
+  float* scr;   // x [2][mb], kPub scalars, kFields x gridDim.x parts
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -49,176 +91,166 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Sum of (a, b) over the block; every thread gets the totals.
-__device__ float2 block_sum2(float a, float b, float* red) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read from a previous call
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = b;
-  }
-  __syncthreads();
-  return make_float2(warp_sum(red[lane]), warp_sum(red[kWarps + lane]));
+// Sum of the G <= kGMax parts at f over the blocks, in block order, on one
+// warp (every lane gets the total; every block computes the same bits). A
+// lane's loads are all asked for before the first add.
+__device__ __forceinline__ float parts_sum(const float* f, int G, int lane) {
+  float v[kGMax / 32];
+#pragma unroll
+  for (int i = 0; i < kGMax / 32; ++i)
+    v[i] = lane + 32 * i < G ? __ldcg(f + lane + 32 * i) : 0.f;
+  float q = v[0];
+#pragma unroll
+  for (int i = 1; i < kGMax / 32; ++i) q += v[i];
+  return warp_sum(q);
 }
 
-// y[r] = sum_{c < n} A[r, c] v[c] for r < n (planar complex).
-__global__ void __launch_bounds__(kMvWarps * 32)
-latrd_matvec(const float* __restrict__ ar, const float* __restrict__ ai,
-             int lda, int n, const float* __restrict__ vr,
-             const float* __restrict__ vi, float* __restrict__ yr,
-             float* __restrict__ yi) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kMvWarps + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const float* pr = ar + (size_t)row * lda;
-  const float* pi = ai + (size_t)row * lda;
-  float sr = 0.0f, si = 0.0f;
-#pragma unroll 4
-  for (int c = lane; c < n; c += 32) {
+// w + alpha v on one entry, rounded as the plain version's tensor ops are
+__device__ __forceinline__ float2 w_final(float wr, float wi, float alr, float ali, float vr,
+                                          float vi) {
+  return make_float2(__fsub_rn(__fadd_rn(wr, __fmul_rn(alr, vr)), __fmul_rn(ali, vi)),
+                     __fadd_rn(__fadd_rn(wi, __fmul_rn(alr, vi)), __fmul_rn(ali, vr)));
+}
+
+// (sum_c A[r, c] x[c]) over c < ncol on one warp, row pointers pr / pi
+template <bool kVec>
+__device__ __forceinline__ float2 row_dot(const float* __restrict__ pr,
+                                          const float* __restrict__ pi, const float* xr,
+                                          const float* xi, int ncol, int lane) {
+  float sr = 0.f, si = 0.f;
+  int c0 = 0;
+  if (kVec) {
+    const int n4 = ncol >> 2;
+    const float4* a4 = reinterpret_cast<const float4*>(pr);
+    const float4* b4 = reinterpret_cast<const float4*>(pi);
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* z4 = reinterpret_cast<const float4*>(xi);
+#pragma unroll 2
+    for (int q = lane; q < n4; q += 32) {
+      const float4 a = __ldg(a4 + q), b = __ldg(b4 + q);
+      const float4 x = x4[q], z = z4[q];
+      sr += a.x * x.x - b.x * z.x;
+      si += a.x * z.x + b.x * x.x;
+      sr += a.y * x.y - b.y * z.y;
+      si += a.y * z.y + b.y * x.y;
+      sr += a.z * x.z - b.z * z.z;
+      si += a.z * z.z + b.z * x.z;
+      sr += a.w * x.w - b.w * z.w;
+      si += a.w * z.w + b.w * x.w;
+    }
+    c0 = n4 << 2;
+  }
+  for (int c = c0 + lane; c < ncol; c += 32) {
     const float a = __ldg(pr + c), b = __ldg(pi + c);
-    const float x = __ldg(vr + c), z = __ldg(vi + c);
-    sr += a * x - b * z;
-    si += a * z + b * x;
+    sr += a * xr[c] - b * xi[c];
+    si += a * xi[c] + b * xr[c];
   }
-  sr = warp_sum(sr);
-  si = warp_sum(si);
-  if (lane == 0) {
-    yr[row] = sr;
-    yi[row] = si;
-  }
+  return make_float2(warp_sum(sr), warp_sum(si));
 }
 
-// Finish W for slot s_fin (if >= 0), then prepare slot s_prep (if >= 0).
-// pan: [6][nb][mb] slot-major planes; scal: [4][nb] = (d, e, tau_r, tau_i).
-__global__ void __launch_bounds__(kThreads)
-latrd_step(const float* __restrict__ ar, const float* __restrict__ ai, int lda,
-           int mb, int pe, int nb, int s_fin, int s_prep, float* pan,
-           float* scal, const float* __restrict__ y) {
-  __shared__ float v_r[kMbMax], v_i[kMbMax];
-  __shared__ float zc[4][kNbMax];
-  __shared__ float red[2 * kWarps];
-  __shared__ float sc[3];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  auto slot = [&](int plane, int k) {
-    return pan + ((size_t)plane * nb + k) * mb;
-  };
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int mbp = (p.mb + 3) & ~3;
+  float* xs_r = smem;                        // x of the whole column
+  float* xs_i = xs_r + mbp;
+  float* sv = xs_i + mbp;                    // [4][kNbMax][kSlabLd]: the slab's V_r V_i W_r W_i
+  float* rv = sv + 4 * kNbMax * kSlabLd;     // [kRowVecs][kRows]
+  float* zc = rv + kRowVecs * kRows;         // [4][kNbMax]: per-slot coefficients
+  float* zr = zc + 4 * kNbMax;               // [4 kNbMax]: reduced W^H x, V^H x
+  float* sc = zr + 4 * kNbMax;               // [kSc]
+  auto slab = [&](int plane, int k) { return sv + (plane * kNbMax + k) * kSlabLd; };
+  auto vec = [&](int which) { return rv + which * kRows; };
+  auto slot = [&](int plane, int k) { return p.pan + ((size_t)plane * p.nb + k) * p.mb; };
 
-  if (s_fin >= 0) {
-    const int s = s_fin, cj = pe - 1 - s;
-    for (int r = t; r < mb; r += kThreads) {
-      v_r[r] = slot(VR, s)[r];
-      v_i[r] = slot(VI, s)[r];
-    }
-    __syncthreads();
-    // warp k: (W^H v)_k and (V^H v)_k over rows < cj (v is zero below)
-    if (warp < s) {
-      const float *wkr = slot(WR, warp), *wki = slot(WI, warp);
-      const float *vkr = slot(VR, warp), *vki = slot(VI, warp);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int r = lane; r < cj; r += 32) {
-        const float x = v_r[r], z = v_i[r];
-        float p = wkr[r], q = wki[r];
-        a0 += p * x + q * z;
-        a1 += p * z - q * x;
-        p = vkr[r];
-        q = vki[r];
-        a2 += p * x + q * z;
-        a3 += p * z - q * x;
-      }
-      a0 = warp_sum(a0);
-      a1 = warp_sum(a1);
-      a2 = warp_sum(a2);
-      a3 = warp_sum(a3);
-      if (lane == 0) {
-        zc[0][warp] = a0;
-        zc[1][warp] = a1;
-        zc[2][warp] = a2;
-        zc[3][warp] = a3;
-      }
-    }
-    __syncthreads();
-    // y -= V (W^H v) + W (V^H v);  w = tau y;  h = w^H v
-    const float tr = scal[2 * nb + s], ti = scal[3 * nb + s];
-    float w_r[kRows], w_i[kRows];
-    float hr = 0.f, hi = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = t + i * kThreads;
-      float yr = 0.f, yi = 0.f;
-      if (r < cj) {
-        yr = y[r];
-        yi = y[mb + r];
-        for (int k = 0; k < s; ++k) {
-          const float vr = slot(VR, k)[r], vi = slot(VI, k)[r];
-          const float wr = slot(WR, k)[r], wi = slot(WI, k)[r];
-          yr -= vr * zc[0][k] - vi * zc[1][k] + wr * zc[2][k] - wi * zc[3][k];
-          yi -= vr * zc[1][k] + vi * zc[0][k] + wr * zc[3][k] + wi * zc[2][k];
-        }
-      }
-      w_r[i] = tr * yr - ti * yi;
-      w_i[i] = tr * yi + ti * yr;
-      if (r < mb) {
-        hr += w_r[i] * v_r[r] + w_i[i] * v_i[r];
-        hi += w_r[i] * v_i[r] - w_i[i] * v_r[r];
-      }
-    }
-    const float2 h = block_sum2(hr, hi, red);
-    const float al_r = -0.5f * (tr * h.x - ti * h.y);
-    const float al_i = -0.5f * (tr * h.y + ti * h.x);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = t + i * kThreads;
-      if (r < mb) {
-        const bool keep = r < cj;
-        slot(WR, s)[r] = keep ? w_r[i] + al_r * v_r[r] - al_i * v_i[r] : 0.f;
-        slot(WI, s)[r] = keep ? w_i[i] + al_r * v_i[r] + al_i * v_r[r] : 0.f;
-      }
-    }
-    __syncthreads();  // W[s] and zc reads done before the prepare phase
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int r_lo = blk * kRows;
+  const int nrow = min(kRows, p.mb - r_lo);
+  float* xg_r = p.scr;
+  float* xg_i = xg_r + p.mb;
+  float* pub = xg_i + p.mb;
+  float* part = pub + kPub;
+  auto field = [&](int f) { return part + (size_t)f * G; };
+
+  if (t < nrow) {  // the first column's raw entries
+    vec(R_CR)[t] = __ldg(p.ar + (size_t)(r_lo + t) * p.lda + p.pe - 1);
+    vec(R_CI)[t] = __ldg(p.ai + (size_t)(r_lo + t) * p.lda + p.pe - 1);
   }
 
-  if (s_prep >= 0) {
-    const int s = s_prep, cj = pe - 1 - s;
-    const int pidx = cj > 0 ? cj - 1 : 0;
+  for (int s = 0; s < p.nb; ++s) {
+    const int cj = p.pe - 1 - s;
     const bool has_r = cj > 0;
-    if (t < s) {  // row cj of W and V, the zlacgv'd pair
-      zc[0][t] = slot(WR, t)[cj];
-      zc[1][t] = slot(WI, t)[cj];
-      zc[2][t] = slot(VR, t)[cj];
-      zc[3][t] = slot(VI, t)[cj];
+    const int pidx = has_r ? cj - 1 : 0;
+    const int ncol = cj > 1 ? cj - 1 : 0;  // x is zero from row cj - 1 on
+    __syncthreads();
+
+    // ---- 1. a = A[:, cj] - V conj(W[cj, :s]) - W conj(V[cj, :s]) on the slab
+    if (t < s) {  // row cj of W and V; W[cj, s - 1] is this block's own copy
+      const bool last = t == s - 1;
+      zc[t] = last ? sc[S_WLR] : __ldcg(slot(WR, t) + cj);
+      zc[kNbMax + t] = last ? sc[S_WLI] : __ldcg(slot(WI, t) + cj);
+      zc[2 * kNbMax + t] = __ldcg(slot(VR, t) + cj);
+      zc[3 * kNbMax + t] = __ldcg(slot(VI, t) + cj);
     }
     __syncthreads();
-    // a = A[:, cj] - V conj(w_row) - W conj(v_row)
-    float a_r[kRows], a_i[kRows];
-    float xn = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = t + i * kThreads;
-      float xr = 0.f, xi = 0.f;
-      if (r < mb) {
-        xr = ar[(size_t)r * lda + cj];
-        xi = ai[(size_t)r * lda + cj];
-        for (int k = 0; k < s; ++k) {
-          const float vr = slot(VR, k)[r], vi = slot(VI, k)[r];
-          const float wr = slot(WR, k)[r], wi = slot(WI, k)[r];
-          xr -= vr * zc[0][k] + vi * zc[1][k] + wr * zc[2][k] + wi * zc[3][k];
-          xi -= vi * zc[0][k] - vr * zc[1][k] + wi * zc[2][k] - wr * zc[3][k];
-        }
-        if (r == cj) sc[0] = xr;
-        if (r == pidx) {
-          sc[1] = xr;
-          sc[2] = xi;
-        }
-        if (r < cj - 1) xn += xr * xr + xi * xi;
+    if (warp < nrow) {
+      const int i = warp, r = r_lo + i;
+      float cr = 0.f, ci = 0.f;
+      if (lane < s) {
+        const float vr = slab(0, lane)[i], vi = slab(1, lane)[i];
+        const float wr = slab(2, lane)[i], wi = slab(3, lane)[i];
+        const float z0 = zc[lane], z1 = zc[kNbMax + lane];
+        const float z2 = zc[2 * kNbMax + lane], z3 = zc[3 * kNbMax + lane];
+        cr = vr * z0 + vi * z1 + wr * z2 + wi * z3;
+        ci = vi * z0 - vr * z1 + wi * z2 - wr * z3;
       }
-      a_r[i] = xr;
-      a_i[i] = xi;
+      cr = warp_sum(cr);
+      ci = warp_sum(ci);
+      if (lane == 0) {
+        const float xr = vec(R_CR)[i] - cr, xi = vec(R_CI)[i] - ci;
+        vec(R_AR)[i] = xr;
+        vec(R_AI)[i] = xi;
+        const bool xm = r < cj - 1;
+        xg_r[r] = xm ? xr : 0.f;
+        xg_i[r] = xm ? xi : 0.f;
+        if (r == cj) pub[P_D] = xr;
+        if (r == pidx) {
+          pub[P_AR] = xr;
+          pub[P_AI] = xi;
+        }
+      }
     }
-    const float xnormsq = block_sum2(xn, 0.f, red).x;  // also publishes sc
-    const float d_val = sc[0], alphr = sc[1], alphi = sc[2];
+    __syncthreads();
+    if (warp == 0) {
+      float q = 0.f;
+      if (lane < nrow && r_lo + lane < cj - 1) {
+        const float xr = vec(R_AR)[lane], xi = vec(R_AI)[lane];
+        q = xr * xr + xi * xi;
+      }
+      q = warp_sum(q);
+      if (lane == 0) field(F_XN)[blk] = q;
+    }
+    grid.sync();
 
+    // ---- 2. zlarfg, v and the packed column; u = A x; W^H x and V^H x
+    if (warp == 0) {
+      const float d = __ldcg(pub + P_D), alr = __ldcg(pub + P_AR), ali = __ldcg(pub + P_AI);
+      const float q = parts_sum(field(F_XN), G, lane);
+      if (lane == 0) {
+        sc[S_XN] = q;
+        sc[S_D] = d;
+        sc[S_AR] = alr;
+        sc[S_AI] = ali;
+      }
+    }
+    for (int c = t; c < ncol; c += kThreads) {
+      xs_r[c] = __ldcg(xg_r + c);
+      xs_i[c] = __ldcg(xg_i + c);
+    }
+    __syncthreads();
+    const float xnormsq = sc[S_XN], d_val = sc[S_D], alphr = sc[S_AR], alphi = sc[S_AI];
     // branch-free planar zlarfg (ops/sytrd_planar.py::_larfg_planar)
     const float norm = sqrtf(alphr * alphr + alphi * alphi + xnormsq);
     float beta = alphr >= 0.f ? -norm : norm;
@@ -231,72 +263,247 @@ latrd_step(const float* __restrict__ ar, const float* __restrict__ ai, int lda,
     float sc_r = dr / safe_den, sc_i = -alphi / safe_den;
     if (trivial || !has_r) tk_r = tk_i = sc_r = sc_i = 0.f;
     if (trivial) beta = alphr;
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = t + i * kThreads;
-      if (r < mb) {
-        const bool xm = r < cj - 1;
-        const bool one = has_r && r == cj - 1;
-        float vr = xm ? a_r[i] * sc_r - a_i[i] * sc_i : 0.f;
-        float vi = xm ? a_r[i] * sc_i + a_i[i] * sc_r : 0.f;
-        if (one) {
-          vr = 1.f;
-          vi = 0.f;
+    if (blk == 0 && t == 0) {
+      p.scal[s] = d_val;
+      p.scal[p.nb + s] = has_r ? beta : 0.f;
+      p.scal[2 * p.nb + s] = tk_r;
+      p.scal[3 * p.nb + s] = tk_i;
+    }
+    if (t < nrow) {
+      const int r = r_lo + t;
+      const float ar_ = vec(R_AR)[t], ai_ = vec(R_AI)[t];
+      const bool xm = r < cj - 1;
+      const bool one = has_r && r == cj - 1;
+      float vr = xm ? ar_ * sc_r - ai_ * sc_i : 0.f;
+      float vi = xm ? ar_ * sc_i + ai_ * sc_r : 0.f;
+      if (one) {
+        vr = 1.f;
+        vi = 0.f;
+      }
+      slot(VR, s)[r] = vr;
+      slot(VI, s)[r] = vi;
+      slab(0, s)[t] = vr;
+      slab(1, s)[t] = vi;
+      vec(R_VR)[t] = vr;
+      vec(R_VI)[t] = vi;
+      float cr = xm ? vr : ar_, ci = xm ? vi : ai_;
+      if (one) {
+        cr = beta;
+        ci = 0.f;
+      }
+      if (r == cj) {
+        cr = d_val;
+        ci = 0.f;
+      }
+      slot(CR, s)[r] = cr;
+      slot(CI, s)[r] = ci;
+    }
+    if (warp < nrow) {  // a warp a slab row
+      const int i = warp, r = r_lo + i;
+      if (r < cj) {
+        const float2 u = row_dot<kVec>(p.ar + (size_t)r * p.lda, p.ai + (size_t)r * p.lda,
+                                       xs_r, xs_i, ncol, lane);
+        if (lane == 0) {
+          vec(R_UR)[i] = u.x;
+          vec(R_UI)[i] = u.y;
         }
-        slot(VR, s)[r] = vr;
-        slot(VI, s)[r] = vi;
-        float cr = xm ? vr : a_r[i], ci = xm ? vi : a_i[i];
-        if (one) {
-          cr = beta;
-          ci = 0.f;
-        }
-        if (r == cj) {
-          cr = d_val;
-          ci = 0.f;
-        }
-        slot(CR, s)[r] = cr;
-        slot(CI, s)[r] = ci;
+      }
+      if (lane == 1 && has_r) {  // A[r, cj - 1]: y's term of v's unit entry, the next raw column
+        vec(R_CR)[i] = __ldg(p.ar + (size_t)r * p.lda + cj - 1);
+        vec(R_CI)[i] = __ldg(p.ai + (size_t)r * p.lda + cj - 1);
       }
     }
-    if (t == 0) {
-      scal[s] = d_val;
-      scal[nb + s] = has_r ? beta : 0.f;
-      scal[2 * nb + s] = tk_r;
-      scal[3 * nb + s] = tk_i;
+    if (warp < s) {  // warp k: the slab's (W^H x)_k and (V^H x)_k
+      const int k = warp;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      if (lane < nrow && r_lo + lane < cj - 1) {
+        const float x = vec(R_AR)[lane], z = vec(R_AI)[lane];
+        float pp = slab(2, k)[lane], qq = slab(3, k)[lane];
+        a0 = pp * x + qq * z;
+        a1 = pp * z - qq * x;
+        pp = slab(0, k)[lane];
+        qq = slab(1, k)[lane];
+        a2 = pp * x + qq * z;
+        a3 = pp * z - qq * x;
+      }
+      a0 = warp_sum(a0);
+      a1 = warp_sum(a1);
+      a2 = warp_sum(a2);
+      a3 = warp_sum(a3);
+      if (lane == 0) {
+        field(F_Z + 4 * k)[blk] = a0;
+        field(F_Z + 4 * k + 1)[blk] = a1;
+        field(F_Z + 4 * k + 2)[blk] = a2;
+        field(F_Z + 4 * k + 3)[blk] = a3;
+      }
+    }
+    grid.sync();
+
+    // ---- 3. W^H v, V^H v; y and w = tau y on the slab; the slab's w^H v
+    float ewr = 0.f, ewi = 0.f, evr = 0.f, evi = 0.f;  // row cj - 1 of W and V
+    if (t < s && has_r) {
+      ewr = __ldcg(slot(WR, t) + cj - 1);
+      ewi = __ldcg(slot(WI, t) + cj - 1);
+      evr = __ldcg(slot(VR, t) + cj - 1);
+      evi = __ldcg(slot(VI, t) + cj - 1);
+    }
+    {  // warp w reduces fields w, w + 32, ..: every load asked for first
+      float v[4 * kNbMax / kWarps][kGMax / 32];
+#pragma unroll
+      for (int k = 0; k < 4 * kNbMax / kWarps; ++k)
+#pragma unroll
+        for (int i = 0; i < kGMax / 32; ++i) {
+          const int f = warp + kWarps * k, j = lane + 32 * i;
+          v[k][i] = f < 4 * s && j < G ? __ldcg(field(F_Z + f) + j) : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < 4 * kNbMax / kWarps; ++k) {
+        float q = v[k][0];
+#pragma unroll
+        for (int i = 1; i < kGMax / 32; ++i) q += v[k][i];
+        q = warp_sum(q);
+        if (lane == 0 && warp + kWarps * k < 4 * s) zr[warp + kWarps * k] = q;
+      }
+    }
+    __syncthreads();
+    if (t < s) {  // W^H v = scale (W^H x) + conj(W[cj - 1, :]); V^H v likewise
+      const float zwr = zr[4 * t], zwi = zr[4 * t + 1], zvr = zr[4 * t + 2], zvi = zr[4 * t + 3];
+      zc[t] = sc_r * zwr - sc_i * zwi + ewr;
+      zc[kNbMax + t] = sc_r * zwi + sc_i * zwr - ewi;
+      zc[2 * kNbMax + t] = sc_r * zvr - sc_i * zvi + evr;
+      zc[3 * kNbMax + t] = sc_r * zvi + sc_i * zvr - evi;
+    }
+    __syncthreads();
+    if (warp < nrow) {
+      const int i = warp, r = r_lo + i;
+      float cr = 0.f, ci = 0.f;
+      if (lane < s) {
+        const float vr = slab(0, lane)[i], vi = slab(1, lane)[i];
+        const float wr = slab(2, lane)[i], wi = slab(3, lane)[i];
+        const float z0 = zc[lane], z1 = zc[kNbMax + lane];
+        const float z2 = zc[2 * kNbMax + lane], z3 = zc[3 * kNbMax + lane];
+        cr = vr * z0 - vi * z1 + wr * z2 - wi * z3;
+        ci = vr * z1 + vi * z0 + wr * z3 + wi * z2;
+      }
+      cr = warp_sum(cr);
+      ci = warp_sum(ci);
+      if (lane == 0) {
+        float wr = 0.f, wi = 0.f;
+        if (r < cj) {
+          const float ur = vec(R_UR)[i], ui = vec(R_UI)[i];
+          float yr = sc_r * ur - sc_i * ui, yi = sc_r * ui + sc_i * ur;
+          if (has_r) {
+            yr += vec(R_CR)[i];
+            yi += vec(R_CI)[i];
+          }
+          yr -= cr;
+          yi -= ci;
+          wr = tk_r * yr - tk_i * yi;
+          wi = tk_r * yi + tk_i * yr;
+          if (r == cj - 1) {
+            pub[P_WR] = wr;
+            pub[P_WI] = wi;
+          }
+        }
+        vec(R_WR)[i] = wr;
+        vec(R_WI)[i] = wi;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float hr = 0.f, hi = 0.f;
+      if (lane < nrow) {
+        const float wr = vec(R_WR)[lane], wi = vec(R_WI)[lane];
+        const float vr = vec(R_VR)[lane], vi = vec(R_VI)[lane];
+        hr = wr * vr + wi * vi;
+        hi = wr * vi - wi * vr;
+      }
+      hr = warp_sum(hr);
+      hi = warp_sum(hi);
+      if (lane == 0) {
+        field(F_HR)[blk] = hr;
+        field(F_HI)[blk] = hi;
+      }
+    }
+    grid.sync();
+
+    // ---- alpha, W[:, s] = w + alpha v on the slab; W[cj - 1, s] on every block
+    if (warp == 0) {
+      const float pwr = __ldcg(pub + P_WR), pwi = __ldcg(pub + P_WI);
+      const float hr = parts_sum(field(F_HR), G, lane);
+      const float hi = parts_sum(field(F_HI), G, lane);
+      if (lane == 0) {
+        sc[S_HR] = hr;
+        sc[S_HI] = hi;
+        sc[S_PWR] = pwr;
+        sc[S_PWI] = pwi;
+      }
+    }
+    __syncthreads();
+    const float hr = sc[S_HR], hi = sc[S_HI];
+    const float al_r = -0.5f * (tk_r * hr - tk_i * hi);
+    const float al_i = -0.5f * (tk_r * hi + tk_i * hr);
+    if (t < nrow) {
+      const int r = r_lo + t;
+      float2 w = make_float2(0.f, 0.f);
+      if (r < cj)
+        w = w_final(vec(R_WR)[t], vec(R_WI)[t], al_r, al_i, vec(R_VR)[t], vec(R_VI)[t]);
+      slot(WR, s)[r] = w.x;
+      slot(WI, s)[r] = w.y;
+      slab(2, s)[t] = w.x;
+      slab(3, s)[t] = w.y;
+    }
+    if (t == kThreads - 1 && s + 1 < p.nb) {  // v[cj - 1] = 1 (s + 1 < nb implies cj > 0)
+      const float2 w = w_final(sc[S_PWR], sc[S_PWI], al_r, al_i, 1.f, 0.f);
+      sc[S_WLR] = w.x;
+      sc[S_WLI] = w.y;
     }
   }
 }
 
+size_t smem_bytes(int mb) {
+  const int mbp = (mb + 3) & ~3;
+  return sizeof(float) *
+         (2 * mbp + 4 * kNbMax * kSlabLd + kRowVecs * kRows + 8 * kNbMax + kSc);
+}
+
 }  // namespace
 
-// Run one panel on `stream`: 1 + 2 * nb launches. pan [6][nb][mb] and scal
-// [4][nb] must be zeroed by the caller; y is [2][mb] scratch. Returns the
-// first cudaError_t met while launching (0 = all launched).
-extern "C" int latrd_panel_planar_launch(const float* ar, const float* ai,
-                                         int lda, int mb, int pe, int nb,
-                                         float* pan, float* scal, float* y,
-                                         void* stream) {
-  if (nb < 1 || nb > kNbMax || pe < nb || pe > mb || mb > kMbMax)
+// Floats of the scratch a panel of mb rows needs (latrd_panel_planar_launch).
+extern "C" int latrd_panel_scratch_floats(int mb) {
+  return 2 * mb + kPub + kFields * kGMax;
+}
+
+// Run one panel on `stream` in one cooperative launch. pan [6][nb][mb] and
+// scal [4][nb] are written in full; scratch holds
+// latrd_panel_scratch_floats(mb) floats. Returns the first cudaError_t met
+// while launching (0 = launched); cudaErrorCooperativeLaunchTooLarge when
+// the ceil(mb / 32) blocks cannot all be resident.
+extern "C" int latrd_panel_planar_launch(const float* ar, const float* ai, int lda, int mb,
+                                         int pe, int nb, float* pan, float* scal,
+                                         float* scratch, void* stream) {
+  if (nb < 1 || nb > kNbMax || pe < nb || pe > mb || mb > kMbMax || lda < mb)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  latrd_step<<<1, kThreads, 0, st>>>(ar, ai, lda, mb, pe, nb, -1, 0, pan, scal,
-                                     y);
-  cudaError_t err = cudaGetLastError();
+  Panel p{ar, ai, lda, mb, pe, nb, pan, scal, scratch};
+  const bool vec = lda % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(ar) | reinterpret_cast<uintptr_t>(ai)) % 16 == 0;
+  const void* kernel = vec ? reinterpret_cast<const void*>(latrd_panel_kernel<true>)
+                           : reinterpret_cast<const void*>(latrd_panel_kernel<false>);
+  const int blocks = (mb + kRows - 1) / kRows;
+  const size_t smem = smem_bytes(mb);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  for (int s = 0; s < nb; ++s) {
-    const int cj = pe - 1 - s;
-    if (cj > 0) {
-      latrd_matvec<<<(cj + kMvWarps - 1) / kMvWarps, kMvWarps * 32, 0, st>>>(
-          ar, ai, lda, cj, pan + ((size_t)VR * nb + s) * mb,
-          pan + ((size_t)VI * nb + s) * mb, y, y + mb);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    latrd_step<<<1, kThreads, 0, st>>>(ar, ai, lda, mb, pe, nb, s,
-                                       s + 1 < nb ? s + 1 : -1, pan, scal, y);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -1,151 +1,459 @@
 // Kernel K9: replay of the bulge-chase reflectors onto eigenvector columns,
-// y <- Q2 y, wave after wave from one call
+// y <- Q2 y, every window in one launch
 // (eigensolver_gpu_torch/ops/replay.py::apply_q2_kernel, called once per
-// two-stage solve by models/syevdx.py).
+// real two-stage solve by models/syevdx.py).
 //
 // Replaces eigensolver_gpu_tpu/ops/replay_pallas.py::apply_q2_pallas
 // (pallas_call at :763, bodies _replay_kernel_resident at :225,
 // _replay_kernel at :414, _wave_body at :96, _wave_body_twophase at :160).
 //
-// What it computes (ops/sb2st.py::apply_q2, tsolve='qform'): for each wave
-// in order, for each slot i of the wave, with
-//     par = wave % 2, c0 = n_groups - 1 - (wave - par) / 2,
-//     u = u_lo + i, u_lo = min(max(0, -c0), max(n_u - n_slots, 0)),
-//     j = c0 + u, k = par + 2u, a0 = j g + k b,
-// the slot is valid when 0 <= j < n_groups, k <= kmax and a0 <= n - 3, and
-// then y[a0 + 1 : a0 + 1 + l_win, :] <- Q y[a0 + 1 : a0 + 1 + l_win, :] with
-// Q the leading l_win x l_win block (l_win = b + g - 1 <= 128) of
-// qw[wave, i], a 128 x 128 row-major matrix precomputed by
-// ops/replay.py::window_qs. Rows at and past n do not exist: they read as
-// zero and are not stored (Q is the identity there).
+// What it computes (ops/sb2st.py::apply_q2, tsolve='qform'): for each valid
+// window v of the wave schedule, in replay order (wave after wave; the
+// windows of one wave are disjoint, so their order inside a wave is free),
+//     y[r0_v : r0_v + l_win, :] <- Q_v y[r0_v : r0_v + l_win, :]
+// with Q_v the leading l_win x l_win block (l_win = b + g - 1 <= 128) of the
+// 128 x 128 row-major matrix qc[v] of the compact window store
+// (ops/replay.py::window_store forms only the valid windows; row0[v] = r0_v
+// from ops/replay.py::window_table). Rows at and past n do not exist: they
+// read as zero and are not stored.
 //
-// What bounds it on the H100: operations. n = 4096, b = 32, g = 96, m = 4096
-// is 2 l_win^2 m flop for each of about 2 800 valid windows, 0.37 Tflop, 5.5 ms
-// at the fp32 FMA rate; y and the windows (read once) are 0.5 GB, 0.15 ms.
+// What bounds it on the H100: operations. n = 4096, b = 32, g = 96,
+// m = 4096 is 2 l_win^2 m flop for each of 2 795 valid windows, 0.37 Tflop,
+// 5.5 ms at the fp32 FMA rate; y (read and written once) and the windows
+// (read once) are 0.25 GB, 0.07 ms. Every block reads every window, so the
+// windows come through L2 once a column tile: 23 GB at 32 columns a block.
+// On an NVIDIA H100 80GB HBM3 at 700 W a call at that shape takes 10.1 ms:
+// consumer thread 0 spends half its SM cycles in the FMAs (2 060 a 32-deep
+// chunk, while the other group's warp on its scheduler runs its own: about
+// one FMA a cycle between them), a fifth waiting for copies, an eighth in
+// write-backs, fences and signals and the rest releasing stages and handing
+// off sums; the producer spends 44 % of its cycles issuing copies (830 a
+// chunk), 39 % waiting for a free stage and 17 % for a window's signal
+// (tools/kernel_phases.py).
 //
-// Design: one launch per wave, all enqueued from this one C call. Windows of
-// one wave start g + 2b rows apart and are l_win = b + g - 1 rows tall, so
-// exactly l_win rows per window never overlap (the Pallas kernel's 128-row
-// windows did, and needed a two-phase wave). A block owns one (window,
-// 64-column tile): it streams Q and the y tile through shared memory in
-// chunks of 16 along the contraction, keeps an 8 x 4 accumulator tile per
-// thread in registers, and writes its rows back only after its last read of
-// them, so the update is in place. Fixed summation order: two calls give
-// the same bits. Plain FMA arithmetic, no tensor cores; float and double.
+// Design: the one of kernel K10 (csrc/replay_planar.cu) with one plane.
+// The columns of y are independent through the whole replay, so one block
+// owns a tile of kBN columns and runs every window in replay order: no
+// launch per wave, no block for an invalid slot. A window is the product of
+// its 128 x 128 Q (rows and columns past l_win zero in the rows kept) with
+// the 128 x kBN y tile, in contraction chunks of kKC = 128 bytes a Q row
+// (32 fp32, 16 fp64). A real product has a quarter of the complex one's
+// FMAs for each element loaded, so the copies are taken off the consumers:
+// one producer warp keeps a ring of kStages chunks filled by the TMA (a Q
+// box, 128-byte swizzled, and a y box a chunk), and the consumer warps wait
+// on each stage's transaction barrier and release it on another, with no
+// block-wide barrier a chunk. Thread (ty, tx) of a consumer group keeps a
+// kTM x kTN accumulator tile in registers (rows ty + kRowStep a, columns
+// 4 tx + kBN / (kTN / 4) j + c) and reads its fragments with 16-byte shared
+// loads: with 128 consumers, 8 x 4 tiles, 128 FMAs for every 12 loads of 16
+// bytes (a 4 x 4 tile on 256 consumers gives 64 for 8, an 8 x 8 tile 16 a
+// load but only 64 column tiles at m = 4096 or 2 consumer warps a block).
+// One such group is one warp a scheduler, which cannot issue an FMA every
+// cycle, so two groups take alternate chunks of each window, and at the
+// window's end the second hands its sums to the first through shared
+// memory, which adds them to its own (a fixed order) and writes the rows
+// back from its registers, so the update is in place (PERF.md has the
+// variants' times). Before the producer asks for the next window's chunks,
+// the consumers signal that the rows it reads are written and fenced for
+// the TMA: at once after the write-back if that window meets this one, else
+// a chunk into the next window, after the write-back's proxy fence,
+// deferred so the stores have drained. Fixed summation order: two calls
+// give the same bits. Plain FMA arithmetic, no tensor cores; float and
+// double instances. The tile, ring and groups are set by the macros below;
+// tools/kernel_ab.py builds this source with other values of them.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#ifndef K9_CONSUMERS
+#define K9_CONSUMERS 128  // threads of a consumer group
+#endif
+#ifndef K9_BN
+#define K9_BN 32  // columns of y a block
+#endif
+#ifndef K9_TN
+#define K9_TN 4  // columns of a thread's tile, a multiple of 4
+#endif
+#ifndef K9_STAGES
+#define K9_STAGES 4  // contraction chunks in the ring
+#endif
+#ifndef K9_KSPLIT
+#define K9_KSPLIT 2  // consumer groups, each taking every K9_KSPLIT-th chunk (1 or 2)
+#endif
 
 namespace {
 
-constexpr int kP = 128;   // row stride of a stored window, largest l_win
-constexpr int kBN = 64;   // columns of y per block
-constexpr int kBK = 16;   // contraction chunk
-constexpr int kThreads = 256;
-constexpr int kTM = 8, kTN = 4;  // accumulator tile of a thread
+constexpr int kP = 128;  // row stride of a stored window, the largest l_win
+constexpr int kConsumers = K9_CONSUMERS;   // threads of a consumer group
+constexpr int kSplit = K9_KSPLIT;          // consumer groups
+constexpr int kThreads = kSplit * kConsumers + 32;  // and one producer warp
+constexpr int kBN = K9_BN;
+constexpr int kTN = K9_TN;
+constexpr int kGroups = kTN / 4;            // 16-byte column groups of a tile
+constexpr int kColThreads = kBN / kTN;      // consumers across the columns
+constexpr int kRowStep = kConsumers / kColThreads;
+constexpr int kTM = kP / kRowStep;          // rows of a thread's tile
+constexpr int kStages = K9_STAGES;
+static_assert(kTN % 4 == 0 && kBN % kTN == 0 && kConsumers % 32 == 0, "tile shape");
+static_assert(kTM * kRowStep == kP, "the consumers' tiles cover 128 x kBN");
+static_assert(kRowStep % 8 == 0, "a thread's rows share their swizzle, row % 8 == ty % 8");
+static_assert(kSplit == 1 || kSplit == 2, "one consumer group, or two that add up at the end");
+static_assert(kStages % kSplit == 0, "a stage is read by one group only (see consume)");
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-replay_wave(const T* __restrict__ qw, T* y, int ldy, int n, int m, int b,
-            int g, int wave, int n_groups, int kmax, int n_u, int n_slots) {
-  const int i = blockIdx.y;
-  const int par = wave % 2;
-  const int c0 = n_groups - 1 - (wave - par) / 2;
-  int u_lo = c0 < 0 ? -c0 : 0;
-  const int u_cap = n_u - n_slots > 0 ? n_u - n_slots : 0;
-  if (u_lo > u_cap) u_lo = u_cap;
-  const int u = u_lo + i;
-  const int j = c0 + u, k = par + 2 * u;
-  const int a0 = j * g + k * b;
-  if (j < 0 || j >= n_groups || k > kmax || a0 > n - 3) return;
-  const int r0 = a0 + 1;
-  const int lwin = b + g - 1;
-  const int col0 = blockIdx.x * kBN;
-  const T* q = qw + ((size_t)wave * n_slots + i) * kP * kP;
+struct Shape {
+  static constexpr int kEV = 16 / sizeof(T);   // elements in 16 bytes
+  static constexpr int kKC = 128 / sizeof(T);  // contraction chunk: 128 bytes of a Q row
+  static constexpr int kQ = kP * kKC;          // a Q chunk, 16 KB
+  static constexpr int kY = kKC * kBN;         // a y chunk
+  static constexpr int kStage = kQ + kY;       // elements of a ring stage
+  // the second group's sums, handed to the first at a window's end (two buffers)
+  static constexpr int kHand = kSplit > 1 ? 2 * kP * kBN : 0;
+  static constexpr size_t kSmem =
+      (kStages * kStage + kHand) * sizeof(T) + 1024 + (2 * kStages + 1) * 8;
+};
 
-  __shared__ T qs[kBK][kP + 1];  // qs[kk][row] = Q[row, k0 + kk]
-  __shared__ T ys[kBK][kBN];     // ys[kk][col] = y[r0 + k0 + kk, col0 + col]
-  const int tid = threadIdx.x;
-  const int ty = tid / (kBN / kTN), tx = tid % (kBN / kTN);
-  T acc[kTM][kTN];
-#pragma unroll
-  for (int a = 0; a < kTM; ++a)
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) acc[a][c] = T(0);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  for (int k0 = 0; k0 < lwin; k0 += kBK) {
-    for (int e = tid; e < kP * kBK; e += kThreads) {
-      const int kk = e % kBK, row = e / kBK;
-      qs[kk][row] =
-          (row < lwin && k0 + kk < lwin) ? q[(size_t)row * kP + k0 + kk] : T(0);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];"
+               : "=l"(state) : "r"(smem_u32(bar)) : "memory");
+  (void)state;
+}
+
+// the producer's arrival, with the bytes the TMA will deliver
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// box (x, y) of a 2-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
+                                         uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+               ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(x), "r"(y), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// The consumers of group grp alone. A named barrier counts whole warps, so
+// the warp is reconverged first (lane 0 alone releases a stage).
+__device__ __forceinline__ void group_sync(int grp) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + grp), "n"(kConsumers) : "memory");
+}
+
+// every consumer (the producer warp is not in it), as group_sync
+__device__ __forceinline__ void consumers_sync() {
+  __syncwarp();
+  asm volatile("bar.sync 3, %0;" :: "n"(kSplit * kConsumers) : "memory");
+}
+
+// four consecutive elements, 16-byte aligned, from or to shared or global memory
+__device__ __forceinline__ void load4(const float* p, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* x) {
+  const double2 u = reinterpret_cast<const double2*>(p)[0];
+  const double2 v = reinterpret_cast<const double2*>(p)[1];
+  x[0] = u.x, x[1] = u.y, x[2] = v.x, x[3] = v.y;
+}
+__device__ __forceinline__ void store4(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double* x) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(x[0], x[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(x[2], x[3]);
+}
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) { load4(p, x); }
+__device__ __forceinline__ void load16(const double* p, double (&x)[2]) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  x[0] = v.x, x[1] = v.y;
+}
+
+// acc += Q[rows, chunk] y[chunk, cols] for the thread's tile, k ascending
+template <typename T>
+__device__ __forceinline__ void fma_chunk(const T* stage, int ty, int tx,
+                                          T (&acc)[kTM][kTN]) {
+  using S = Shape<T>;
+  const T* sq = stage;
+  const T* sy = stage + S::kQ;
+#pragma unroll
+  for (int k0 = 0; k0 < S::kKC; k0 += S::kEV) {
+    T yv[S::kEV][kTN];
+#pragma unroll
+    for (int j = 0; j < S::kEV; ++j)
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q)
+        load4(sy + (k0 + j) * kBN + 4 * tx + q * (kBN / kGroups), &yv[j][4 * q]);
+#pragma unroll
+    for (int a = 0; a < kTM; ++a) {
+      // row ty + kRowStep a; its piece k0 / kEV lies at (k0 / kEV) ^ (row % 8)
+      const int at = (ty + kRowStep * a) * S::kKC + ((k0 / S::kEV) ^ (ty & 7)) * S::kEV;
+      T q[S::kEV];
+      load16(sq + at, q);
+#pragma unroll
+      for (int j = 0; j < S::kEV; ++j)
+#pragma unroll
+        for (int c = 0; c < kTN; ++c) acc[a][c] += q[j] * yv[j][c];
     }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int col = e % kBN, kk = e / kBN;
-      const int gr = r0 + k0 + kk, gc = col0 + col;
-      ys[kk][col] = (k0 + kk < lwin && gr < n && gc < m)
-                        ? y[(size_t)gr * ldy + gc] : T(0);
+  }
+}
+
+struct Maps {
+  CUtensorMap q, y;
+};
+
+// The producer: chunk after chunk of every window into the ring, each
+// window's first chunk only after the consumers' signal for it.
+template <typename T>
+__device__ void produce(const Maps& maps, const int* row0, int n_win, int nc, int col0, T* ring,
+                        uint64_t* full, uint64_t* empty, uint64_t* sig) {
+  using S = Shape<T>;
+  int r_cur = 0, r_next = row0[0];
+  for (int w = 0, f = 0; w < n_win; ++w) {
+    r_cur = r_next;
+    r_next = w + 1 < n_win ? row0[w + 1] : 0;
+    if (w > 0) mbar_wait(sig, (w - 1) & 1);
+    for (int c = 0; c < nc; ++c, ++f) {
+      const int st = f % kStages, use = f / kStages;
+      if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+      T* stage = ring + st * S::kStage;
+      mbar_expect(full + st, S::kStage * sizeof(T));
+      tma_load(stage, &maps.q, c * S::kKC, w * kP, full + st);
+      tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, full + st);
     }
-    __syncthreads();
+  }
+}
+
+// The consumers: windows 0 .. n_win - 1 in order on the column tile at col0.
+// Group g takes chunks g, g + kSplit, ..; at a window's end the other group
+// hands its sums to group 0, which adds them to its own and alone writes
+// back, fences and signals. A group must wait for the fills of a stage one
+// after another (a wait two fills ahead would pass on the parity of the
+// fill before), so the groups split a window only when its chunk count is a
+// multiple of kSplit, which with kStages a multiple too gives every stage
+// one group; else group 0 takes every chunk.
+template <typename T>
+__device__ void consume(const int* row0, int n_win, int nc, T* y, int ldy, int n, int lwin,
+                        int col0, const T* ring, T* hand, uint64_t* full, uint64_t* empty,
+                        uint64_t* sig) {
+  using S = Shape<T>;
+  const int split = nc % kSplit == 0 ? kSplit : 1;
+  const int grp = threadIdx.x / kConsumers, ct = threadIdx.x % kConsumers;
+  if (grp >= split) return;
+  const int ty = ct / kColThreads, tx = ct % kColThreads;
+  const int lane = threadIdx.x & 31;
+  // group 0's second chunk: where a deferred fence and its signal go
+  const int c_fence = nc > split ? split : 0;
+  // the first rows of windows v, v + 1 and v + 2, each read a window early
+  int r_cur = 0, r_next = row0[0], r_after = n_win > 1 ? row0[1] : 0;
+  bool pending = false;  // the last window's stores wait for their proxy fence
+  for (int v = 0; v < n_win; ++v) {
+    r_cur = r_next;
+    r_next = r_after;
+    r_after = v + 2 < n_win ? row0[v + 2] : 0;
+    // window v + 1 reads rows of this one: signal after the write-back
+    const bool meets = v + 1 < n_win && r_next - r_cur < lwin && r_cur - r_next < lwin;
+    T acc[kTM][kTN];
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      T qa[kTM], yb[kTN];
+    for (int a = 0; a < kTM; ++a)
 #pragma unroll
-      for (int a = 0; a < kTM; ++a) qa[a] = qs[kk][ty * kTM + a];
+      for (int c = 0; c < kTN; ++c) acc[a][c] = T(0);
+    for (int c = grp; c < nc; c += split) {
+      const int f = v * nc + c, st = f % kStages;
+      const T* stage = ring + st * S::kStage;
+      // chunk f has landed: the (f / kStages)-th fill of its stage
+      mbar_wait(full + st, (f / kStages) & 1);
+      if (c == c_fence) {
+        // the last window's stores have drained behind a chunk of FMAs
+        if (pending) {
+          asm volatile("fence.proxy.async.global;" ::: "memory");
+          pending = false;
+        }
+        if (!meets && v + 1 < n_win) mbar_arrive(sig);
+      }
+      const int tail = (c + 1) * S::kKC - lwin;  // rows of the chunk past the window
+      if (tail > 0) {  // read as zero (those y rows belong to no window of v)
+        T* sy = const_cast<T*>(stage) + S::kQ;
+        for (int e = ct; e < tail * kBN; e += kConsumers) sy[(S::kKC - tail) * kBN + e] = T(0);
+        // before the TMA's later writes to the stage, and the group's reads
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        group_sync(grp);
+      }
+      fma_chunk<T>(stage, ty, tx, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    if (split > 1) {
+      // piece p of every thread's tile side by side, so a warp's 16-byte
+      // stores and loads are contiguous; a buffer a window parity, so the
+      // one barrier a window also orders a buffer's reuse after its last read
+      T* h = hand + (v & 1) * kP * kBN + 4 * ct;
+      if (grp == 1) {
 #pragma unroll
-      for (int c = 0; c < kTN; ++c) yb[c] = ys[kk][tx * kTN + c];
+        for (int a = 0; a < kTM; ++a)
+#pragma unroll
+          for (int q = 0; q < kGroups; ++q)
+            store4(h + (a * kGroups + q) * 4 * kConsumers, &acc[a][4 * q]);
+      }
+      consumers_sync();
+      if (grp == 1) continue;
 #pragma unroll
       for (int a = 0; a < kTM; ++a)
 #pragma unroll
-        for (int c = 0; c < kTN; ++c) acc[a][c] += qa[a] * yb[c];
+        for (int q = 0; q < kGroups; ++q) {
+          T other[4];
+          load4(h + (a * kGroups + q) * 4 * kConsumers, other);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][4 * q + c] += other[c];
+        }
     }
-    __syncthreads();
-  }
-  // every read of this block's rows and columns of y is behind the last
-  // barrier; no other block of the wave touches them
+    // no chunk in flight reads this window's rows: they go straight back
 #pragma unroll
-  for (int a = 0; a < kTM; ++a) {
-    const int row = ty * kTM + a;
-    if (row >= lwin || r0 + row >= n) continue;
+    for (int a = 0; a < kTM; ++a) {
+      const int row = ty + kRowStep * a;
+      if (row < lwin && r_cur + row < n) {
 #pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int gc = col0 + tx * kTN + c;
-      if (gc < m) y[(size_t)(r0 + row) * ldy + gc] = acc[a][c];
+        for (int q = 0; q < kGroups; ++q) {
+          const int gc = col0 + 4 * tx + q * (kBN / kGroups);
+          if (gc < ldy) store4(y + (size_t)(r_cur + row) * ldy + gc, &acc[a][4 * q]);
+        }
+      }
+    }
+    if (meets) {
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      mbar_arrive(sig);
+    } else {
+      pending = true;
     }
   }
 }
 
 template <typename T>
-int replay_launch(const T* qw, T* y, int ldy, int n, int m, int b, int g,
-                  int n_waves, int n_slots, void* stream) {
-  if (n < 3 || m < 1 || ldy < m || b < 2 || g < 1 || b + g - 1 > kP ||
-      n_waves < 1 || n_slots < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int kmax = (n - 3) / b;
-  const int n_groups = (n - 2 + g - 1) / g;
-  const int n_u = kmax / 2 + 1;
-  const dim3 grid((m + kBN - 1) / kBN, n_slots);
-  for (int wave = 0; wave < n_waves; ++wave) {
-    replay_wave<T><<<grid, kThreads, 0, st>>>(qw, y, ldy, n, m, b, g, wave,
-                                              n_groups, kmax, n_u, n_slots);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+__global__ void __launch_bounds__(kThreads, 1)
+replay_kernel(const __grid_constant__ Maps maps, const int* row0, int n_win, T* y, int ldy,
+              int n, int lwin) {
+  using S = Shape<T>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the ring on a 1024-byte boundary (the TMA's 128-byte swizzle), then the
+  // stages' fill and release barriers and the window signal
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* ring = reinterpret_cast<T*>(base);
+  T* hand = ring + kStages * S::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (kStages * S::kStage + S::kHand) * sizeof(T));
+  uint64_t* empty = full + kStages;
+  uint64_t* sig = empty + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init(sig, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  return (int)cudaSuccess;
+  __syncthreads();
+  const int nc = (lwin + S::kKC - 1) / S::kKC;  // chunks a window
+  const int col0 = blockIdx.x * kBN;
+  if (threadIdx.x >= kSplit * kConsumers) {
+    if (threadIdx.x == kSplit * kConsumers)
+      produce<T>(maps, row0, n_win, nc, col0, ring, full, empty, sig);
+    return;
+  }
+  consume<T>(row0, n_win, nc, y, ldy, n, lwin, col0, ring, hand, full, empty, sig);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the 2-D map of `rows` rows of `cols` elements at row stride ld, in boxes
+// of box_rows by box_cols; what lies past the rows or columns reads as zero
+template <typename T>
+cudaError_t map_2d(CUtensorMap* map, const T* base, int cols, long long rows, int ld,
+                   int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult res = encode(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
+      const_cast<T*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+int replay_launch(const T* qc, const int* row0, int n_win, T* y, int ldy, int n, int m, int lwin,
+                  void* stream) {
+  using S = Shape<T>;
+  if (n < 1 || m < 1 || ldy < m || ldy % 4 != 0 || lwin < 1 || lwin > kP || n_win < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(qc) | reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  if (n_win == 0) return (int)cudaSuccess;
+  // the store: n_win * 128 rows of 128, in 128-byte-wide boxes swizzled by
+  // 128 bytes; y: n rows of m, in boxes of kKC rows by kBN columns
+  Maps maps;
+  cudaError_t err = map_2d(&maps.q, qc, kP, (long long)n_win * kP, kP, S::kKC, kP,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = map_2d(&maps.y, y, m, n, ldy, kBN, S::kKC, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = replay_kernel<T>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(m + kBN - 1) / kBN, kThreads, S::kSmem, (cudaStream_t)stream>>>(
+      maps, row0, n_win, y, ldy, n, lwin);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// qw: n_waves * n_slots windows of 128 x 128 elements; y: n rows of m
-// elements at row stride ldy, updated in place.
-extern "C" int apply_q2_f32_launch(const float* qw, float* y, int ldy, int n,
-                                   int m, int b, int g, int n_waves,
-                                   int n_slots, void* stream) {
-  return replay_launch<float>(qw, y, ldy, n, m, b, g, n_waves, n_slots, stream);
+// qc: n_win windows of 128 x 128 elements (16-byte aligned); row0: n_win
+// ints on the device, each window's first row of y, in replay order; y: n
+// rows of m elements at row stride ldy (a multiple of 4, 16-byte aligned),
+// updated in place.
+extern "C" int apply_q2_f32_launch(const float* qc, const int* row0, int n_win, float* y,
+                                   int ldy, int n, int m, int lwin, void* stream) {
+  return replay_launch<float>(qc, row0, n_win, y, ldy, n, m, lwin, stream);
 }
 
-extern "C" int apply_q2_f64_launch(const double* qw, double* y, int ldy, int n,
-                                   int m, int b, int g, int n_waves,
-                                   int n_slots, void* stream) {
-  return replay_launch<double>(qw, y, ldy, n, m, b, g, n_waves, n_slots,
-                               stream);
+extern "C" int apply_q2_f64_launch(const double* qc, const int* row0, int n_win, double* y,
+                                   int ldy, int n, int m, int lwin, void* stream) {
+  return replay_launch<double>(qc, row0, n_win, y, ldy, n, m, lwin, stream);
 }

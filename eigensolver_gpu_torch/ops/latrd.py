@@ -20,6 +20,8 @@ mb (a bucket is a view of the full planes).
 kernel (and raises if it cannot), a CPU tensor takes
 ``latrd_panel_plain``, which runs the same panel through the eager
 column loop of ops/sytrd_planar.py on a copy and reads the slots out.
+The kernel is one cooperative launch a panel; it raises when its
+ceil(mb / 32) blocks cannot all be resident on the card.
 """
 
 from __future__ import annotations
@@ -83,17 +85,21 @@ def latrd_panel_planar(ar_mb, ai_mb, panel_end, nb=32):
     fn = lib.latrd_panel_planar_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
+    lib.latrd_panel_scratch_floats.argtypes = [ctypes.c_int]
+    lib.latrd_panel_scratch_floats.restype = ctypes.c_int
     mb = ar_mb.shape[0]
     dev = ar_mb.device
-    # slot-major work planes [vr vi wr wi colr coli], so a slot is contiguous
-    pan = torch.zeros((6, nb, mb), dtype=torch.float32, device=dev)
-    scal = torch.zeros((4, nb), dtype=torch.float32, device=dev)
-    y = torch.empty((2, mb), dtype=torch.float32, device=dev)
-    status = fn(
-        ar_mb.data_ptr(), ai_mb.data_ptr(), ar_mb.stride(0), mb, panel_end, nb,
-        pan.data_ptr(), scal.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # slot-major work planes [vr vi wr wi colr coli], so a slot is contiguous;
+    # the kernel writes every entry of them and of scal
+    pan = torch.empty((6, nb, mb), dtype=torch.float32, device=dev)
+    scal = torch.empty((4, nb), dtype=torch.float32, device=dev)
+    scratch = torch.empty((lib.latrd_panel_scratch_floats(mb),), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = fn(
+            ar_mb.data_ptr(), ai_mb.data_ptr(), ar_mb.stride(0), mb, panel_end, nb,
+            pan.data_ptr(), scal.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     kernel_guard.check(status, "latrd_panel_planar launch")
     latrd_panel_planar.launches += 1
     vr, vi, wr, wi, colr, coli = (pan[j].T for j in range(6))

@@ -8,17 +8,22 @@ Replaces the Pallas kernel ``apply_q2_pallas``
 its header states what bounds the kernel on the H100 and what the design
 does about it.
 
-As in the JAX module the work splits in two. ``window_qs`` precomputes, in
+As in the JAX module the work splits in two. A window pass precomputes, in
 batched library products outside the kernel, the explicit orthogonal of
-every (wave, slot) window of the schedule of ops/sb2st.apply_q2; the
-kernel then applies them wave after wave, each window one
-``Q (l_win x l_win) @ y[rows, :]`` product computed in the kernel's own
-body. ``window_qs`` keeps the JAX layout, ``(n_waves, n_slots, 128, 128)``
-with the window in the leading ``l_win x l_win`` block, identity on the
-rest of the diagonal and in invalid slots, and ``n_slots`` the active slot
-count rounded up to a multiple of 4 (the clamp of the first slot read
-depends on it, so it is part of the layout). The kernel reads and writes
-exactly ``l_win`` rows per window.
+each window of the schedule of ops/sb2st.apply_q2; the kernel then applies
+them in replay order, each window one ``Q (l_win x l_win) @ y[rows, :]``
+product computed in the kernel's own body. The window pass forms the valid
+windows only: ``window_table`` lists them in replay order (wave after wave,
+slots ascending) from the static geometry, and ``window_store`` forms their
+orthogonals into a compact store ``(n_valid, 128, 128)`` (2 795 of the
+5 936 slots at n = 4096, b = 32, g = 96); the kernel runs through the store
+in one launch. ``window_qs`` keeps the JAX layout, ``(n_waves, n_slots,
+128, 128)`` with the window in the leading ``l_win x l_win`` block,
+identity on the rest of the diagonal and in invalid slots, and ``n_slots``
+the active slot count rounded up to a multiple of 4 (the clamp of the
+first slot read depends on it, so it is part of the layout): the compact
+store scattered into identity slots. The kernel reads and writes exactly
+``l_win`` rows per window.
 
 ``apply_q2_kernel`` is the wrapper: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched), a CPU tensor takes
@@ -34,8 +39,8 @@ Its window pass forms the valid windows only: ``window_table`` lists them
 in replay order (wave after wave, slots ascending) from the static
 geometry, and ``window_store_planar`` forms their unitaries, in the same
 batched library products as before, into a compact store
-``(2, n_valid, 128, 128)`` (2 795 of the 5 936 slots at n = 4096, b = 32,
-g = 96); the kernel runs through the store in order. ``window_qs_planar``
+``(2, n_valid, 128, 128)``, as ``window_store`` does for K9; the kernel
+runs through the store in order. ``window_qs_planar``
 keeps the JAX layout, ONE tensor ``(2, n_waves, n_slots, 128, 128)``, plane
 0 the real parts and plane 1 the imaginary parts of the window unitaries
 (the JAX function concatenates the two planes of a window into a (128, 256)
@@ -72,8 +77,7 @@ from eigensolver_gpu_torch.utils.tracing import trace_range
 
 P = 128  # stored window size (kP of csrc/replay.cu), the largest l_win
 SLOT_ROUND = 4  # the JAX layout rounds the slot count to a multiple of 4
-_CHUNK = 8  # waves of windows formed per batched pass (window_qs)
-_WINDOWS = 256  # valid windows formed per batched pass (window_store_planar)
+_WINDOWS = 256  # valid windows formed per batched pass (window_store, window_store_planar)
 
 
 def _geometry(n, b, g):
@@ -83,28 +87,63 @@ def _geometry(n, b, g):
     return _wave_plan(n, b, g, slot_round=SLOT_ROUND)
 
 
-@highest_precision
-def window_qs(vt, taut, n, b, g):
-    """Every wave-slot's window orthogonal, batched: qw
-    (n_waves, n_slots, 128, 128) with qw[tau, i] = [[Q, 0], [0, I]], Q the
-    (l_win, l_win) compact-WY orthogonal of window
-    (j = c0+u_lo+i, k = par+2(u_lo+i)), or the identity for an invalid slot.
-    ``_CHUNK`` waves are formed at a time to bound the temporaries."""
+def window_table(n, b, g):
+    """The valid windows of the replay's wave schedule (at the window
+    store's slot count, see ``_geometry``), in replay order: wave after
+    wave, slots ascending. A dict with the geometry ``geo``, the
+    (n_waves, n_slots) ``valid`` mask of ``_wave_gather``, and numpy arrays
+    over the valid windows: ``wave`` and ``slot`` (the window's place in
+    the layout of ``window_qs_planar``), ``row0`` (its first row of y),
+    ``ridx`` (n_valid, g), the rows of the padded reflector pack that hold
+    its reflectors; and ``wave_ptr`` (n_waves + 1,): the windows of wave w
+    are entries wave_ptr[w] : wave_ptr[w + 1]."""
     geo = _geometry(n, b, g)
-    l_win, n_waves, n_slots = geo["l_win"], geo["n_waves"], geo["n_slots"]
+    valid, ridx = _wave_gather(geo, n, b, g, geo["n_groups"] * g + g, geo["kmax"] + 2)
+    wave, slot = np.nonzero(valid)
+    return dict(geo=geo, valid=valid, wave=wave, slot=slot,
+                row0=geo["base"][wave] + slot * geo["spacing"], ridx=ridx[wave, slot],
+                wave_ptr=np.concatenate([[0], np.cumsum(valid.sum(axis=1))]))
+
+
+@highest_precision
+def window_store(vt, taut, n, b, g):
+    """The window orthogonals of the valid windows only, in replay order:
+    ``(store, table)`` with ``table = window_table(n, b, g)`` and store
+    (n_valid, 128, 128), store[v] = [[Q, 0], [0, I]] for window v of the
+    table, Q its (l_win, l_win) compact-WY orthogonal. ``_WINDOWS`` windows
+    are formed at a time to bound the temporaries."""
+    table = window_table(n, b, g)
+    geo = table["geo"]
+    l_win = geo["l_win"]
     if l_win > P:
         raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
     dev = vt.device
-    v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
-    _, flat_idx = _wave_gather(geo, n, b, g, nvp, kp)
-    flat_idx = torch.from_numpy(flat_idx).to(dev)
-    qw = torch.zeros((n_waves, n_slots, P, P), dtype=vt.dtype, device=dev)
+    v2f, t2f, _, _ = _padded_pack(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
+    ridx = torch.from_numpy(table["ridx"]).to(dev)
+    store = torch.zeros((ridx.shape[0], P, P), dtype=vt.dtype, device=dev)
     tail = torch.arange(l_win, P, device=dev)
-    qw[:, :, tail, tail] = 1.0
-    for w0 in range(0, n_waves, _CHUNK):
-        idx = flat_idx[w0 : w0 + _CHUNK]
+    store[:, tail, tail] = 1.0
+    for v0 in range(0, ridx.shape[0], _WINDOWS):
+        idx = ridx[v0 : v0 + _WINDOWS]
         taus = t2f[idx]
-        qw[w0 : w0 + _CHUNK, :, :l_win, :l_win] = window_q(_staircase(v2f[idx], taus, g, b), taus)
+        store[v0 : v0 + _WINDOWS, :l_win, :l_win] = window_q(_staircase(v2f[idx], taus, g, b), taus)
+    return store, table
+
+
+def window_qs(vt, taut, n, b, g):
+    """Every wave-slot's window orthogonal in the JAX layout: qw
+    (n_waves, n_slots, 128, 128) with qw[tau, i] = [[Q, 0], [0, I]], Q the
+    (l_win, l_win) compact-WY orthogonal of window
+    (j = c0+u_lo+i, k = par+2(u_lo+i)), or the identity for an invalid slot:
+    the compact store of ``window_store`` scattered into an identity-filled
+    layout."""
+    store, table = window_store(vt, taut, n, b, g)
+    geo = table["geo"]
+    dev = store.device
+    qw = torch.zeros((geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype, device=dev)
+    diag = torch.arange(P, device=dev)
+    qw[:, :, diag, diag] = 1.0
+    qw[torch.from_numpy(table["wave"]).to(dev), torch.from_numpy(table["slot"]).to(dev)] = store
     return qw
 
 
@@ -131,42 +170,28 @@ def apply_q2_kernel(vt, taut, y, n, b, g=None):
     else:
         raise TypeError(f"the replay kernel takes float32 or float64, got {y.dtype}")
     fn = getattr(kernel_guard.load("replay"), name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    dev = y.device
     with trace_range("apply_q2_qs"):
-        qw = window_qs(vt, taut, n, b, g)
-    out = y.clone(memory_format=torch.contiguous_format)  # updated in place
-    m = out.shape[1]
-    with trace_range("apply_q2"), torch.cuda.device(y.device):
+        store, table = window_store(vt, taut, n, b, g)
+        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
+    m = y.shape[1]
+    ldy = -(-m // 4) * 4  # 16-byte rows for the kernel's copies
+    out = (torch.empty if ldy == m else torch.zeros)((n, ldy), dtype=y.dtype, device=dev)
+    out[:, :m] = y  # updated in place
+    with trace_range("apply_q2"), torch.cuda.device(dev):
         status = fn(
-            qw.data_ptr(), out.data_ptr(), out.stride(0), n, m, b, g,
-            qw.shape[0], qw.shape[1],
-            torch.cuda.current_stream(y.device).cuda_stream,
+            store.data_ptr(), row0.data_ptr(), row0.numel(), out.data_ptr(), ldy, n, m,
+            table["geo"]["l_win"], torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "apply_q2 launch")
         apply_q2_kernel.launches += 1
-    return out
+    return out if ldy == m else out[:, :m].contiguous()
 
 
 apply_q2_kernel.launches = 0
-
-
-def window_table(n, b, g):
-    """The valid windows of the replay's wave schedule (at the window
-    store's slot count, see ``_geometry``), in replay order: wave after
-    wave, slots ascending. A dict with the geometry ``geo``, the
-    (n_waves, n_slots) ``valid`` mask of ``_wave_gather``, and numpy arrays
-    over the valid windows: ``wave`` and ``slot`` (the window's place in
-    the layout of ``window_qs_planar``), ``row0`` (its first row of y),
-    ``ridx`` (n_valid, g), the rows of the padded reflector pack that hold
-    its reflectors; and ``wave_ptr`` (n_waves + 1,): the windows of wave w
-    are entries wave_ptr[w] : wave_ptr[w + 1]."""
-    geo = _geometry(n, b, g)
-    valid, ridx = _wave_gather(geo, n, b, g, geo["n_groups"] * g + g, geo["kmax"] + 2)
-    wave, slot = np.nonzero(valid)
-    return dict(geo=geo, valid=valid, wave=wave, slot=slot,
-                row0=geo["base"][wave] + slot * geo["spacing"], ridx=ridx[wave, slot],
-                wave_ptr=np.concatenate([[0], np.cumsum(valid.sum(axis=1))]))
 
 
 @highest_precision

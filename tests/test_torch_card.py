@@ -103,6 +103,51 @@ def test_latrd_panel_kernel_matches_plain(cuda_device, pe_off):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-3)
 
 
+def _device_launches(fn, key):
+    """The result of ``fn()``, the number of kernels whose name holds
+    ``key`` that it launched, from the profiler's device records, and the
+    number of calls of ``fn`` made: a profile that caught no record of such
+    a kernel (the profiler drops records now and then on the card) is taken
+    again, up to three calls; the callers check the wrappers' launch
+    counters against the calls made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for calls in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        launched = sum(key in e.name() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+        if launched:
+            break
+    return out, launched, calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb,view", [(256, False), (256, True), (2048, False), (2048, True)])
+def test_latrd_panel_kernel_launches_once_and_is_bit_reproducible(cuda_device, mb, view):
+    """K2 is one kernel launch a panel (profiler), two calls give the same
+    bits (its grid-wide sums run in block order), and it stays within rtol
+    1e-4 / atol 1e-3 of its plain version; contiguous planes and a bucket
+    view whose row stride exceeds mb, at full and cut panel ends."""
+    n = mb + 64 if view else mb
+    rng = np.random.default_rng(mb + view)
+    t = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    ar, ai = _planes((t + t.conj().T) / 2, cuda_device)
+    ar, ai = ar[:mb, :mb], ai[:mb, :mb]
+    latrd_panel_planar(ar, ai, mb)  # builds the kernel
+    for pe in (mb, mb - 32):
+        before = latrd_panel_planar.launches
+        got, launched, calls = _device_launches(lambda: latrd_panel_planar(ar, ai, pe), "latrd_")
+        assert launched == 1 and latrd_panel_planar.launches == before + calls
+        again = latrd_panel_planar(ar, ai, pe)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        want = latrd_panel_plain(ar, ai, pe)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype", [(512, torch.float32), (1000, torch.float32),
                                      (512, torch.float64)])
@@ -244,8 +289,6 @@ def test_chase_kernel_with_more_slots_than_sms(cuda_device, dtype):
 def test_chase_kernel_launches_once_per_real_two_stage_solve(cuda_device):
     """A real two-stage solve launches K7's persistent kernel once, counted
     by the profiler's device records and by the wrapper."""
-    from torch.profiler import ProfilerActivity, profile
-
     from eigensolver_gpu_torch import SolverConfig, dsygvdx
     from eigensolver_gpu_torch.utils.testing import random_spd_pair
 
@@ -253,13 +296,10 @@ def test_chase_kernel_launches_once_per_real_two_stage_solve(cuda_device):
     cfg = SolverConfig(tridiag_mode="two")
     dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg)  # builds the kernels
     before = bulge_chase_kernel.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res = dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg)
-        torch.cuda.synchronize()
-    assert int(res.info) == 0 and bulge_chase_kernel.launches == before + 1
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
-    assert sum("chase_kernel" in x for x in names) == 1
+    res, launched, calls = _device_launches(
+        lambda: dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg), "chase_kernel")
+    assert int(res.info) == 0 and bulge_chase_kernel.launches == before + calls
+    assert launched == 1
 
 
 @pytest.mark.cuda
@@ -282,6 +322,49 @@ def test_replay_kernel_matches_plain(cuda_device, n, b, g, m, dtype):
     assert got.shape == want.shape
     assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-11)
     assert _rel(want, y) > 0.1  # the replay moves y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 100, 4096])
+def test_replay_kernel_across_widths(cuda_device, m, dtype):
+    """K9 at the main path's n = 4096, b = 32 (g = 96 in fp32, the
+    pure-fp64 path's g = b in fp64) at m = 1, 100 and 4096 columns: within
+    1e-4 (fp32) and 1e-11 (fp64) relative of sb2st.apply_q2, one kernel
+    launch a call (profiler), two calls bit-identical."""
+    n, b = 4096, 32
+    g = 96 if dtype == torch.float32 else b
+    _, band = _band(n, b, dtype, cuda_device, 11)
+    _, _, vt, taut = bulge_chase_kernel(band, b)
+    rng = np.random.default_rng(m)
+    y = torch.tensor(rng.standard_normal((n, m)), dtype=dtype, device=cuda_device)
+    apply_q2_kernel(vt, taut, y, n, b, g=g)  # builds the kernel
+    before = apply_q2_kernel.launches
+    got, launched, calls = _device_launches(lambda: apply_q2_kernel(vt, taut, y, n, b, g=g),
+                                            "replay_kernel")
+    assert launched == 1 and apply_q2_kernel.launches == before + calls
+    assert torch.equal(got, apply_q2_kernel(vt, taut, y, n, b, g=g))
+    want = apply_q2(vt, taut, y, n, b, g=g)
+    assert got.shape == want.shape == (n, m)
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-11)
+    assert _rel(want, y) > 0.1
+
+
+@pytest.mark.cuda
+def test_replay_kernel_launches_once_per_real_two_stage_solve(cuda_device):
+    """A real two-stage solve launches K9's kernel once, counted by the
+    profiler's device records and by the wrapper."""
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
+
+    a, b = random_spd_pair(512, seed=6)
+    cfg = SolverConfig(tridiag_mode="two")
+    dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg)  # builds the kernels
+    before = apply_q2_kernel.launches
+    res, launched, calls = _device_launches(
+        lambda: dsygvdx(a, b, il=1, iu=16, device="cuda", cfg=cfg), "replay_kernel")
+    assert int(res.info) == 0 and launched == 1
+    assert apply_q2_kernel.launches == before + calls
 
 
 @pytest.mark.cuda

@@ -115,7 +115,7 @@ def _imports(path):
 
 _PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "eigensolver_gpu_torch").rglob("*.py")
-) + ["chip_smoke.py", "tools/kernel_phases.py"]
+) + ["chip_smoke.py", "tools/kernel_ab.py", "tools/kernel_phases.py"]
 
 
 def test_port_file_list_covers_the_package():

@@ -1,14 +1,16 @@
-"""The compact window store of the planar replay (kernel K10,
-eigensolver_gpu_torch/ops/replay.py: ``window_table``,
-``window_store_planar`` and the JAX-layout ``window_qs_planar`` made from
-it), on the CPU.
+"""The compact window stores of the replays (kernels K9 and K10,
+eigensolver_gpu_torch/ops/replay.py: ``window_table``, ``window_store``,
+``window_store_planar`` and the JAX-layout ``window_qs`` and
+``window_qs_planar`` made from them), on the CPU.
 
 The table must list exactly the valid slots of the wave schedule
 (``_wave_gather``), wave after wave and slots ascending, with each window's
 first row; the store must hold, window for window, the unitaries that the
 JAX ``window_qs_planar`` puts in those slots; and the scattered JAX layout
 must hold the identity in every other slot. The same numpy inputs go
-through both packages, in fp32, the kernel's working type.
+through both packages, in fp32, the kernel's working type. The real
+layout, scattered from its store, is held bit for bit against the
+all-slots form it replaced, in fp32 and fp64.
 """
 
 import importlib
@@ -18,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from eigensolver_gpu_tpu.ops.replay_pallas import window_qs as jax_window_qs
 from eigensolver_gpu_tpu.ops.replay_pallas import window_qs_planar as jax_window_qs_planar
 from eigensolver_gpu_torch.ops import replay as t_replay
-from eigensolver_gpu_torch.utils.convert import planar_chase_from_numpy
+from eigensolver_gpu_torch.ops import sb2st as t_sb2st
+from eigensolver_gpu_torch.utils.convert import chase_from_numpy, planar_chase_from_numpy
 
 j_sb2st = importlib.import_module("eigensolver_gpu_tpu.ops.sb2st")
 j_sb2st_planar = importlib.import_module("eigensolver_gpu_tpu.ops.sb2st_planar")
@@ -107,3 +111,63 @@ def test_window_qs_planar_scatters_the_store_into_identity_slots(n, b, g):
     assert int(idle.sum()) > 0
     assert torch.equal(qw[0][idle], torch.eye(128).expand(int(idle.sum()), 128, 128))
     assert not qw[1][idle].any()
+
+
+def _jax_real_windows(n, b, g, dtype=np.float32):
+    """Reflectors of a random symmetric band matrix from the JAX chase, the
+    JAX window layout, and the port's carriers of the reflectors."""
+    rng = np.random.default_rng(n + b + g + 1)
+    t = rng.standard_normal((n, n))
+    a = (t + t.T) / 2
+    a[np.abs(np.subtract.outer(np.arange(n), np.arange(n))) > b] = 0
+    band = j_sb2st.dense_to_band(jnp.asarray(a.astype(dtype)), b)
+    d, e, vt, taut = (np.asarray(x) for x in j_sb2st.bulge_chase(band, b))
+    want = np.asarray(jax_window_qs(jnp.asarray(vt), jnp.asarray(taut), n, b, g))
+    _, _, tvt, ttaut = chase_from_numpy(d, e, vt, taut, n, b, device="cpu")
+    return want, tvt, ttaut
+
+
+def _all_slots_window_qs(vt, taut, n, b, g):
+    """The JAX layout formed slot for slot, 8 waves at a time, as the real
+    window pass did before it formed the valid windows only."""
+    geo = t_replay._geometry(n, b, g)
+    l_win, n_waves, n_slots = geo["l_win"], geo["n_waves"], geo["n_slots"]
+    v2f, t2f, nvp, kp = t_sb2st._padded_pack(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
+    _, flat_idx = t_replay._wave_gather(geo, n, b, g, nvp, kp)
+    flat_idx = torch.from_numpy(flat_idx)
+    qw = torch.zeros((n_waves, n_slots, 128, 128), dtype=vt.dtype)
+    tail = torch.arange(l_win, 128)
+    qw[:, :, tail, tail] = 1.0
+    for w0 in range(0, n_waves, 8):
+        idx = flat_idx[w0 : w0 + 8]
+        taus = t2f[idx]
+        qw[w0 : w0 + 8, :, :l_win, :l_win] = t_sb2st.window_q(
+            t_sb2st._staircase(v2f[idx], taus, g, b), taus)
+    return qw
+
+
+@pytest.mark.parametrize("n,b,g", STORE_CASES)
+def test_window_store_matches_jax_at_the_valid_slots(n, b, g):
+    """Window v of the real compact store is the JAX window of slot
+    (wave[v], slot[v]), in ``window_table`` order, to fp32 round-off (1e-5,
+    the tolerance of the JAX layout's own test), identity tail included; the
+    store holds the valid windows only."""
+    want, tvt, ttaut = _jax_real_windows(n, b, g)
+    store, table = t_replay.window_store(tvt, ttaut, n, b, g)
+    n_valid = int(table["valid"].sum())
+    assert store.dtype == torch.float32 and store.is_contiguous()
+    assert store.shape == (n_valid, 128, 128) and n_valid < table["valid"].size
+    assert np.abs(store.numpy() - want[table["wave"], table["slot"]]).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,b,g", [(128, 8, 24), (120, 8, 16)])
+def test_window_qs_is_the_all_slots_form_bit_for_bit(n, b, g, dtype):
+    """The real JAX layout scattered from the compact store holds the same
+    bits as the all-slots form, in every slot, valid or not."""
+    _, tvt, ttaut = _jax_real_windows(n, b, g, np.float64)
+    tvt, ttaut = tvt.to(dtype), ttaut.to(dtype)
+    got = t_replay.window_qs(tvt, ttaut, n, b, g)
+    want = _all_slots_window_qs(tvt, ttaut, n, b, g)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)

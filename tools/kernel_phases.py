@@ -1,28 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time goes inside kernels K1 (csrc/pchol_block.cu), K5
-(csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu), K7 (csrc/chase.cu), K8
-(csrc/chase_planar.cu) and K10 (csrc/replay_planar.cu) on the card, by
-phase.
+"""Where the time goes inside kernels K1 (csrc/pchol_block.cu), K2
+(csrc/latrd_panel.cu), K5 (csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu),
+K7 (csrc/chase.cu), K8 (csrc/chase_planar.cu), K9 (csrc/replay.cu) and K10
+(csrc/replay_planar.cu) on the card, by phase.
 
     python3 tools/kernel_phases.py
 
 Builds a copy of each source into eigensolver_gpu_torch/build/phases/ in
-which thread 0 of block 0 reads clock64() after every block or cluster
-barrier, runs K1 at nb = 128, K5 and K6 at the main paths' largest panel
-((4096, 32), rb = 4032, fp32), K7 and K8 at n = 4096, b = 32, fp32, and K10
-at n = m = 4096, b = 32, g = 96, fp32, and prints, for each barrier of the
-source, the SM cycles spent before it summed over the run and how often it
-was reached. The committed kernels carry no instrumentation; the marks
-cost thread 0 a few dozen cycles each. Needs a CUDA device and nvcc.
+which one thread of block 0 (thread 0; for K9 also its producer thread)
+reads clock64() after every block, cluster or grid barrier, runs K1 at
+nb = 128, K2 at mb = pe = 4096, K5 and K6 at the main paths' largest panel
+((4096, 32), rb = 4032, fp32), K7 and K8 at n = 4096, b = 32, fp32, and K9
+and K10 at n = m = 4096, b = 32, g = 96, fp32, and prints, for each mark of
+the source, the SM cycles spent before it summed over the run and how often
+it was reached. The committed kernels carry no instrumentation; the marks
+cost the marking thread a few dozen cycles each. Needs a CUDA device and
+nvcc.
 
-A mark goes after each ``__syncthreads();`` or ``cluster.sync();`` that
-begins a line of its own, and after each line that equals one of the
-statements given to ``build`` (the kernel's first statement; for K7 and K8
-also the line that publishes a slot's flag, so that the time before the
-barrier after the flag wait is the wait; for K10 the wait for a chunk's
-copies, the refill and the FMA loop of a chunk, so that a window's time
-splits into staging waits, barriers, copy issue, FMAs and write-back); a
-barrier written behind an ``if`` on the same line is not marked, and its
+A mark goes after each ``__syncthreads();``, ``cluster.sync();`` or
+``grid.sync();`` that begins a line of its own, and after each line that
+equals one of the statements given to ``build`` (the kernel's first
+statement; for K2 the end of a row's matvec, so that a column's time splits
+into the matvec, the three grid barriers and the step work between them;
+for K7 and K8 also the line that publishes a slot's flag, so that the time
+before the barrier after the flag wait is the wait; for K9 and K10 the wait
+for a chunk's copies, the refill and the FMA loop of a chunk, so that a
+window's time splits into staging waits, barriers, copy issue, FMAs and
+write-back, and for K9 the hand-off between its two consumer groups; K9's
+copies are asked for by its producer warp, split apart: the wait for a
+window's signal, the wait for a free stage, the copy issue);
+a barrier written behind an ``if`` on the same line is not marked, and its
 time falls to the next mark. Each reported line is printed with its text,
 so the output names what it timed whatever the source's line numbers are.
 """
@@ -42,11 +49,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 from eigensolver_gpu_torch.utils import kernel_guard  # noqa: E402
 
 _MARKS = 1 << 17  # K7 and K8 mark about 7 a timestep, 12 280 timesteps
-_HEADER = f"""__device__ long long g_mark_t[{_MARKS}];
-__device__ int g_mark_line[{_MARKS}];
+_HEADER = """__device__ long long g_mark_t[{marks}];
+__device__ int g_mark_line[{marks}];
 __device__ int g_marks;
-#define MARK() do {{ if (threadIdx.x == 0 && blockIdx.x == 0) {{ const int n_ = g_marks++; \\
-  if (n_ < {_MARKS}) {{ g_mark_t[n_] = clock64(); g_mark_line[n_] = __LINE__; }} }} }} while (0)
+#define MARK() do {{ if (threadIdx.x == {thread} && blockIdx.x == 0) {{ const int n_ = g_marks++; \\
+  if (n_ < {marks}) {{ g_mark_t[n_] = clock64(); g_mark_line[n_] = __LINE__; }} }} }} while (0)
 extern "C" int marks_read(long long* t, int* line, int* n) {{
   cudaMemcpyFromSymbol(t, g_mark_t, sizeof(g_mark_t));
   cudaMemcpyFromSymbol(line, g_mark_line, sizeof(g_mark_line));
@@ -59,26 +66,28 @@ extern "C" int marks_reset() {{
 """
 
 
-def build(name: str, *after: str):
-    """The instrumented library of csrc/<name>.cu, marked after its barriers
-    and after the lines equal to ``after``, and a map from its line numbers
-    to the source's."""
+def build(name: str, *after: str, thread: str = "0"):
+    """The instrumented library of csrc/<name>.cu, marked by ``thread`` of
+    block 0 after its barriers and after the lines equal to ``after``, and a
+    map from its line numbers to the source's."""
     src = (kernel_guard.CSRC / f"{name}.cu").read_text()
     lines = src.splitlines()
+    header = _HEADER.format(marks=_MARKS, thread=thread)
     out = []
     for line in lines:
-        for sync in ("__syncthreads();", "cluster.sync();"):
+        for sync in ("__syncthreads();", "cluster.sync();", "grid.sync();"):
             if line.strip().startswith(sync) or line.strip() == sync:
                 line = line.replace(sync, sync + " MARK();", 1)
         if line.strip() in after:
             line += " MARK();"
         out.append(line)
-    head = _HEADER.count("\n")
+    head = header.count("\n")
     at = next(i for i, line in enumerate(out) if line.startswith("#include <cuda_runtime.h>"))
-    text = "\n".join(out[: at + 1]) + "\n" + _HEADER + "\n".join(out[at + 1 :]) + "\n"
+    text = "\n".join(out[: at + 1]) + "\n" + header + "\n".join(out[at + 1 :]) + "\n"
     where = kernel_guard.BUILD / "phases"
     where.mkdir(parents=True, exist_ok=True)
-    cu, so = where / f"{name}.cu", where / f"lib{name}.so"
+    tag = "" if thread == "0" else "_t" + "".join(ch for ch in thread if ch.isalnum())
+    cu, so = where / f"{name}{tag}.cu", where / f"lib{name}{tag}.so"
     cu.write_text(text)
     cmd = [kernel_guard._nvcc(), *kernel_guard.NVCC_FLAGS, "-o", str(so), str(cu)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -130,6 +139,30 @@ def main():
         kernel_guard.check(status, "instrumented pchol_block launch")
         torch.cuda.synchronize()
     report(lib, lines, to_source, f"K1 nb={nb}")
+
+    lib, lines, to_source = build("latrd_panel", "cg::grid_group grid = cg::this_grid();",
+                                  "vec(R_UI)[i] = u.y;")
+    fn = lib.latrd_panel_planar_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    lib.latrd_panel_scratch_floats.restype = ctypes.c_int
+    mb = 4096
+    h = rng.standard_normal((mb, mb)) + 1j * rng.standard_normal((mb, mb))
+    h = (h + h.conj().T) / 2
+    hr = torch.tensor(h.real, dtype=torch.float32, device=dev)
+    hi = torch.tensor(h.imag, dtype=torch.float32, device=dev)
+    del h
+    pan = torch.empty((6, 32, mb), device=dev)
+    scal = torch.empty((4, 32), device=dev)
+    scratch = torch.empty((lib.latrd_panel_scratch_floats(mb),), device=dev)
+    for _ in range(2):
+        lib.marks_reset()
+        status = fn(hr.data_ptr(), hi.data_ptr(), mb, mb, mb, 32, pan.data_ptr(),
+                    scal.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        kernel_guard.check(status, "instrumented latrd_panel launch")
+        torch.cuda.synchronize()
+    report(lib, lines, to_source, f"K2 mb=pe={mb} nb=32 fp32 (block 0: rows 0-31)")
+    del hr, hi
 
     lib, lines, to_source = build("ql_panel_planar", "const int tid = threadIdx.x;")
     fn = lib.ql_panel_planar_f32_launch
@@ -239,6 +272,40 @@ def main():
         torch.cuda.synchronize()
     report(lib, lines, to_source,
            f"K10 n={n} m={m} b={b} g={g} fp32 (block 0: columns 0-31, {row0.numel()} windows)")
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+    from eigensolver_gpu_torch.ops.replay import window_store
+
+    _, _, vt, taut = bulge_chase_kernel(hb[0].clone(), b)
+    store, table = window_store(vt, taut, n, b, g)
+    row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
+    y = y[0].clone()
+    consumer = ("if (!meets && v + 1 < n_win) mbar_arrive(sig);", "group_sync(grp);",
+                "consumers_sync();",
+                "mbar_wait(full + st, (f / kStages) & 1);", "fma_chunk<T>(stage, ty, tx, acc);",
+                "if (lane == 0) mbar_arrive(empty + st);",
+                "r_after = v + 2 < n_win ? row0[v + 2] : 0;")
+    producer = ("if (w > 0) mbar_wait(sig, (w - 1) & 1);",
+                "if (use > 0) mbar_wait(empty + st, (use - 1) & 1);",
+                "tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, full + st);")
+    for thread, after, who in (("0", consumer, "consumer thread 0"),
+                               ("kSplit * kConsumers", producer, "the producer thread")):
+        lib, lines, to_source = build(
+            "replay", "extern __shared__ __align__(1024) unsigned char smem_raw[];", *after,
+            thread=thread)
+        fn = lib.apply_q2_f32_launch
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        for _ in range(2):
+            lib.marks_reset()
+            status = fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(), m, n, m,
+                        table["geo"]["l_win"], torch.cuda.current_stream().cuda_stream)
+            kernel_guard.check(status, "instrumented replay launch")
+            torch.cuda.synchronize()
+        report(lib, lines, to_source,
+               f"K9 n={n} m={m} b={b} g={g} fp32 (block 0: columns 0-31, {who}, "
+               f"{row0.numel()} windows)")
     return 0
 
 
