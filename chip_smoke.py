@@ -58,6 +58,7 @@ import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50 * 2**20  # H100 SXM L2
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 N_MAIN, IU_MAIN = 4096, 1024
@@ -237,15 +238,19 @@ def check_k1(torch):
 
 def _k2_work(mb, pe, nb):
     """Bytes and flops one panel needs. Each column's y = A v needs the v of
-    the column before it, so the leading cj x cj block of both planes is
-    read once a column (8 cj^2 bytes; at mb = 4096 it is 134 MB, more than
-    the 50 MB L2); the raw columns are read once and the outputs written
-    once. Flops: the matvecs and the compact-WY corrections."""
+    the column before it, so every column reads the leading cj x cj block of
+    both planes (8 cj^2 bytes). The first column reads it from device memory;
+    a later one at least the part that the L2 cannot have kept since, past
+    its L2_BYTES: none where the block fits (mb <= 2048), and at mb = 4096,
+    whose block is 134 MB, 8 cj^2 - L2_BYTES. The raw columns are read once
+    and the outputs written once. Flops: the matvecs and the compact-WY
+    corrections."""
     nbytes = 8 * mb * nb + 4 * (6 * mb * nb + 4 * nb)
     flops = 0
     for s in range(nb):
         cj = pe - 1 - s
-        nbytes += 8 * cj * cj  # the leading block, streamed for this column's y
+        # the leading block: all of it once, then what the L2 cannot hold
+        nbytes += 8 * cj * cj if s == 0 else max(0, 8 * cj * cj - L2_BYTES)
         flops += 8 * cj * cj  # y = A v on the leading cj x cj block
         flops += 16 * s * cj * 2  # W^H v, V^H v and their application
         flops += 16 * s * mb  # a_col corrections
@@ -311,7 +316,8 @@ def check_k2(torch):
         small_ms = device_ms(lambda: latrd_panel_planar(xr, xi, mbs, nb=nb), iters=5)
         b_ms, b_by = bound(*_k2_work(mbs, mbs, nb))
         log(f"K2 times at mb={mbs} pe={mbs} (contiguous): kernel {small_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}, device memory; the block fits in L2)")
+            f"bound {b_ms:.4f} ms ({b_by}; the block fits in L2, read from device memory "
+            "once a panel)")
     return {
         "name": "latrd_panel_planar", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/latrd_panel.cu",

@@ -11,8 +11,10 @@
 // What bounds it on the H100: memory. Each column's y = A v needs the v of
 // the column before it, so the leading cj x cj block of both planes is
 // streamed once a column: 8 cj^2 bytes, 134 MB at cj = 4096, about 40 us a
-// column at 3.35 TB/s, 1.27 ms for a panel at mb = 4096 (the block does not
-// fit in the 50 MB L2; at mb <= 2048 its two planes can stay there). The
+// column at 3.35 TB/s. The block does not fit in the 50 MB L2, so at
+// mb = 4096 a column after the first reads at least 82 MB of it from device
+// memory, 0.79 ms a panel (1.27 ms if the L2 kept none of it); at
+// mb <= 2048 its two planes can stay in L2 through the panel. The
 // rest is latency: a column's scalars (zlarfg, the compact-WY coefficients,
 // w^H v) are grid-wide sums that each wait for the one before. On an NVIDIA
 // H100 80GB HBM3 at 700 W a panel at mb = pe = 4096 takes 1.74 ms; block 0

@@ -22,13 +22,13 @@
 // 5.5 ms at the fp32 FMA rate; y (read and written once) and the windows
 // (read once) are 0.25 GB, 0.07 ms. Every block reads every window, so the
 // windows come through L2 once a column tile: 23 GB at 32 columns a block.
-// On an NVIDIA H100 80GB HBM3 at 700 W a call at that shape takes 10.1 ms:
-// consumer thread 0 spends half its SM cycles in the FMAs (2 060 a 32-deep
-// chunk, while the other group's warp on its scheduler runs its own: about
-// one FMA a cycle between them), a fifth waiting for copies, an eighth in
-// write-backs, fences and signals and the rest releasing stages and handing
-// off sums; the producer spends 44 % of its cycles issuing copies (830 a
-// chunk), 39 % waiting for a free stage and 17 % for a window's signal
+// On an NVIDIA H100 80GB HBM3 at 700 W a call at that shape takes 11.2 ms:
+// consumer thread 0 spends 68 % of its SM cycles in the FMAs (1 740 a
+// 32-deep chunk for 1 024 FMA instructions: one warp a scheduler, 59 % of
+// its issue rate), 12 % waiting for copies, 8 % releasing stages and 12 %
+// at a window's end (write-back, fences, signals, the zero-fill barrier);
+// the producer spends 32 % of its cycles issuing copies (640 a chunk), 42 %
+// waiting for a free stage and 25 % for a window's signal
 // (tools/kernel_phases.py).
 //
 // Design: the one of kernel K10 (csrc/replay_planar.cu) with one plane.
@@ -40,67 +40,39 @@
 // (32 fp32, 16 fp64). A real product has a quarter of the complex one's
 // FMAs for each element loaded, so the copies are taken off the consumers:
 // one producer warp keeps a ring of kStages chunks filled by the TMA (a Q
-// box, 128-byte swizzled, and a y box a chunk), and the consumer warps wait
-// on each stage's transaction barrier and release it on another, with no
-// block-wide barrier a chunk. Thread (ty, tx) of a consumer group keeps a
-// kTM x kTN accumulator tile in registers (rows ty + kRowStep a, columns
-// 4 tx + kBN / (kTN / 4) j + c) and reads its fragments with 16-byte shared
-// loads: with 128 consumers, 8 x 4 tiles, 128 FMAs for every 12 loads of 16
-// bytes (a 4 x 4 tile on 256 consumers gives 64 for 8, an 8 x 8 tile 16 a
-// load but only 64 column tiles at m = 4096 or 2 consumer warps a block).
-// One such group is one warp a scheduler, which cannot issue an FMA every
-// cycle, so two groups take alternate chunks of each window, and at the
-// window's end the second hands its sums to the first through shared
-// memory, which adds them to its own (a fixed order) and writes the rows
-// back from its registers, so the update is in place (PERF.md has the
-// variants' times). Before the producer asks for the next window's chunks,
-// the consumers signal that the rows it reads are written and fenced for
-// the TMA: at once after the write-back if that window meets this one, else
-// a chunk into the next window, after the write-back's proxy fence,
-// deferred so the stores have drained. Fixed summation order: two calls
-// give the same bits. Plain FMA arithmetic, no tensor cores; float and
-// double instances. The tile, ring and groups are set by the macros below;
-// tools/kernel_ab.py builds this source with other values of them.
+// box, 128-byte swizzled, and a y box a chunk), and the kConsumers consumer
+// threads wait on each stage's transaction barrier and release it on
+// another, with no block-wide barrier a chunk. Consumer (ty, tx) keeps a
+// kTM x 4 accumulator tile in registers (rows ty + kRowStep a, columns
+// 4 tx .. 4 tx + 3) and reads its fragments with 16-byte shared loads:
+// 8 x 4 tiles, 128 FMAs for every 12 loads of 16 bytes (a 4 x 4 tile on 256
+// consumers gives 64 for 8, an 8 x 8 tile 16 a load but only 64 column tiles
+// at m = 4096 or 2 consumer warps a block; PERF.md has the variants' times).
+// The consumers write the rows back from their registers, so the update is
+// in place. Before the producer asks for the next window's chunks, the
+// consumers signal that the rows it reads are written and fenced for the
+// TMA: at once after the write-back if that window meets this one, else a
+// chunk into the next window, after the write-back's proxy fence, deferred
+// so the stores have drained. Fixed summation order: two calls give the
+// same bits. Plain FMA arithmetic, no tensor cores; float and double
+// instances.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#ifndef K9_CONSUMERS
-#define K9_CONSUMERS 128  // threads of a consumer group
-#endif
-#ifndef K9_BN
-#define K9_BN 32  // columns of y a block
-#endif
-#ifndef K9_TN
-#define K9_TN 4  // columns of a thread's tile, a multiple of 4
-#endif
-#ifndef K9_STAGES
-#define K9_STAGES 4  // contraction chunks in the ring
-#endif
-#ifndef K9_KSPLIT
-#define K9_KSPLIT 2  // consumer groups, each taking every K9_KSPLIT-th chunk (1 or 2)
-#endif
-
 namespace {
 
 constexpr int kP = 128;  // row stride of a stored window, the largest l_win
-constexpr int kConsumers = K9_CONSUMERS;   // threads of a consumer group
-constexpr int kSplit = K9_KSPLIT;          // consumer groups
-constexpr int kThreads = kSplit * kConsumers + 32;  // and one producer warp
-constexpr int kBN = K9_BN;
-constexpr int kTN = K9_TN;
-constexpr int kGroups = kTN / 4;            // 16-byte column groups of a tile
-constexpr int kColThreads = kBN / kTN;      // consumers across the columns
+constexpr int kConsumers = 128;  // consumer threads
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kBN = 32;  // columns of y a block
+constexpr int kColThreads = kBN / 4;  // consumers across the columns, 4 each
 constexpr int kRowStep = kConsumers / kColThreads;
-constexpr int kTM = kP / kRowStep;          // rows of a thread's tile
-constexpr int kStages = K9_STAGES;
-static_assert(kTN % 4 == 0 && kBN % kTN == 0 && kConsumers % 32 == 0, "tile shape");
-static_assert(kTM * kRowStep == kP, "the consumers' tiles cover 128 x kBN");
+constexpr int kTM = kP / kRowStep;  // rows of a consumer's tile
+constexpr int kStages = 4;  // contraction chunks in the ring
 static_assert(kRowStep % 8 == 0, "a thread's rows share their swizzle, row % 8 == ty % 8");
-static_assert(kSplit == 1 || kSplit == 2, "one consumer group, or two that add up at the end");
-static_assert(kStages % kSplit == 0, "a stage is read by one group only (see consume)");
 
 template <typename T>
 struct Shape {
@@ -109,10 +81,7 @@ struct Shape {
   static constexpr int kQ = kP * kKC;          // a Q chunk, 16 KB
   static constexpr int kY = kKC * kBN;         // a y chunk
   static constexpr int kStage = kQ + kY;       // elements of a ring stage
-  // the second group's sums, handed to the first at a window's end (two buffers)
-  static constexpr int kHand = kSplit > 1 ? 2 * kP * kBN : 0;
-  static constexpr size_t kSmem =
-      (kStages * kStage + kHand) * sizeof(T) + 1024 + (2 * kStages + 1) * 8;
+  static constexpr size_t kSmem = kStages * kStage * sizeof(T) + 1024 + (2 * kStages + 1) * 8;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -156,17 +125,12 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
                : "memory");
 }
 
-// The consumers of group grp alone. A named barrier counts whole warps, so
-// the warp is reconverged first (lane 0 alone releases a stage).
-__device__ __forceinline__ void group_sync(int grp) {
-  __syncwarp();
-  asm volatile("bar.sync %0, %1;" :: "r"(1 + grp), "n"(kConsumers) : "memory");
-}
-
-// every consumer (the producer warp is not in it), as group_sync
+// the consumers alone (the producer warp is not in it). A named barrier
+// counts whole warps, so the warp is reconverged first (lane 0 alone
+// releases a stage).
 __device__ __forceinline__ void consumers_sync() {
   __syncwarp();
-  asm volatile("bar.sync 3, %0;" :: "n"(kSplit * kConsumers) : "memory");
+  asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
 }
 
 // four consecutive elements, 16-byte aligned, from or to shared or global memory
@@ -194,19 +158,15 @@ __device__ __forceinline__ void load16(const double* p, double (&x)[2]) {
 
 // acc += Q[rows, chunk] y[chunk, cols] for the thread's tile, k ascending
 template <typename T>
-__device__ __forceinline__ void fma_chunk(const T* stage, int ty, int tx,
-                                          T (&acc)[kTM][kTN]) {
+__device__ __forceinline__ void fma_chunk(const T* stage, int ty, int tx, T (&acc)[kTM][4]) {
   using S = Shape<T>;
   const T* sq = stage;
   const T* sy = stage + S::kQ;
 #pragma unroll
   for (int k0 = 0; k0 < S::kKC; k0 += S::kEV) {
-    T yv[S::kEV][kTN];
+    T yv[S::kEV][4];
 #pragma unroll
-    for (int j = 0; j < S::kEV; ++j)
-#pragma unroll
-      for (int q = 0; q < kGroups; ++q)
-        load4(sy + (k0 + j) * kBN + 4 * tx + q * (kBN / kGroups), &yv[j][4 * q]);
+    for (int j = 0; j < S::kEV; ++j) load4(sy + (k0 + j) * kBN + 4 * tx, yv[j]);
 #pragma unroll
     for (int a = 0; a < kTM; ++a) {
       // row ty + kRowStep a; its piece k0 / kEV lies at (k0 / kEV) ^ (row % 8)
@@ -216,7 +176,7 @@ __device__ __forceinline__ void fma_chunk(const T* stage, int ty, int tx,
 #pragma unroll
       for (int j = 0; j < S::kEV; ++j)
 #pragma unroll
-        for (int c = 0; c < kTN; ++c) acc[a][c] += q[j] * yv[j][c];
+        for (int c = 0; c < 4; ++c) acc[a][c] += q[j] * yv[j][c];
     }
   }
 }
@@ -248,25 +208,16 @@ __device__ void produce(const Maps& maps, const int* row0, int n_win, int nc, in
 }
 
 // The consumers: windows 0 .. n_win - 1 in order on the column tile at col0.
-// Group g takes chunks g, g + kSplit, ..; at a window's end the other group
-// hands its sums to group 0, which adds them to its own and alone writes
-// back, fences and signals. A group must wait for the fills of a stage one
-// after another (a wait two fills ahead would pass on the parity of the
-// fill before), so the groups split a window only when its chunk count is a
-// multiple of kSplit, which with kStages a multiple too gives every stage
-// one group; else group 0 takes every chunk.
 template <typename T>
 __device__ void consume(const int* row0, int n_win, int nc, T* y, int ldy, int n, int lwin,
-                        int col0, const T* ring, T* hand, uint64_t* full, uint64_t* empty,
+                        int col0, const T* ring, uint64_t* full, uint64_t* empty,
                         uint64_t* sig) {
   using S = Shape<T>;
-  const int split = nc % kSplit == 0 ? kSplit : 1;
-  const int grp = threadIdx.x / kConsumers, ct = threadIdx.x % kConsumers;
-  if (grp >= split) return;
+  const int ct = threadIdx.x;
   const int ty = ct / kColThreads, tx = ct % kColThreads;
   const int lane = threadIdx.x & 31;
-  // group 0's second chunk: where a deferred fence and its signal go
-  const int c_fence = nc > split ? split : 0;
+  // the second chunk of a window: where a deferred fence and its signal go
+  const int c_fence = nc > 1 ? 1 : 0;
   // the first rows of windows v, v + 1 and v + 2, each read a window early
   int r_cur = 0, r_next = row0[0], r_after = n_win > 1 ? row0[1] : 0;
   bool pending = false;  // the last window's stores wait for their proxy fence
@@ -276,12 +227,12 @@ __device__ void consume(const int* row0, int n_win, int nc, T* y, int ldy, int n
     r_after = v + 2 < n_win ? row0[v + 2] : 0;
     // window v + 1 reads rows of this one: signal after the write-back
     const bool meets = v + 1 < n_win && r_next - r_cur < lwin && r_cur - r_next < lwin;
-    T acc[kTM][kTN];
+    T acc[kTM][4];
 #pragma unroll
     for (int a = 0; a < kTM; ++a)
 #pragma unroll
-      for (int c = 0; c < kTN; ++c) acc[a][c] = T(0);
-    for (int c = grp; c < nc; c += split) {
+      for (int c = 0; c < 4; ++c) acc[a][c] = T(0);
+    for (int c = 0; c < nc; ++c) {
       const int f = v * nc + c, st = f % kStages;
       const T* stage = ring + st * S::kStage;
       // chunk f has landed: the (f / kStages)-th fill of its stage
@@ -298,49 +249,21 @@ __device__ void consume(const int* row0, int n_win, int nc, T* y, int ldy, int n
       if (tail > 0) {  // read as zero (those y rows belong to no window of v)
         T* sy = const_cast<T*>(stage) + S::kQ;
         for (int e = ct; e < tail * kBN; e += kConsumers) sy[(S::kKC - tail) * kBN + e] = T(0);
-        // before the TMA's later writes to the stage, and the group's reads
+        // before the TMA's later writes to the stage, and the consumers' reads
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        group_sync(grp);
+        consumers_sync();
       }
       fma_chunk<T>(stage, ty, tx, acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + st);
     }
-    if (split > 1) {
-      // piece p of every thread's tile side by side, so a warp's 16-byte
-      // stores and loads are contiguous; a buffer a window parity, so the
-      // one barrier a window also orders a buffer's reuse after its last read
-      T* h = hand + (v & 1) * kP * kBN + 4 * ct;
-      if (grp == 1) {
-#pragma unroll
-        for (int a = 0; a < kTM; ++a)
-#pragma unroll
-          for (int q = 0; q < kGroups; ++q)
-            store4(h + (a * kGroups + q) * 4 * kConsumers, &acc[a][4 * q]);
-      }
-      consumers_sync();
-      if (grp == 1) continue;
-#pragma unroll
-      for (int a = 0; a < kTM; ++a)
-#pragma unroll
-        for (int q = 0; q < kGroups; ++q) {
-          T other[4];
-          load4(h + (a * kGroups + q) * 4 * kConsumers, other);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][4 * q + c] += other[c];
-        }
-    }
     // no chunk in flight reads this window's rows: they go straight back
+    const int gc = col0 + 4 * tx;
 #pragma unroll
     for (int a = 0; a < kTM; ++a) {
       const int row = ty + kRowStep * a;
-      if (row < lwin && r_cur + row < n) {
-#pragma unroll
-        for (int q = 0; q < kGroups; ++q) {
-          const int gc = col0 + 4 * tx + q * (kBN / kGroups);
-          if (gc < ldy) store4(y + (size_t)(r_cur + row) * ldy + gc, &acc[a][4 * q]);
-        }
-      }
+      if (row < lwin && r_cur + row < n && gc < ldy)
+        store4(y + (size_t)(r_cur + row) * ldy + gc, acc[a]);
     }
     if (meets) {
       asm volatile("fence.proxy.async.global;" ::: "memory");
@@ -361,8 +284,7 @@ replay_kernel(const __grid_constant__ Maps maps, const int* row0, int n_win, T* 
   // stages' fill and release barriers and the window signal
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   T* ring = reinterpret_cast<T*>(base);
-  T* hand = ring + kStages * S::kStage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + (kStages * S::kStage + S::kHand) * sizeof(T));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * S::kStage * sizeof(T));
   uint64_t* empty = full + kStages;
   uint64_t* sig = empty + kStages;
   if (threadIdx.x == 0) {
@@ -376,12 +298,11 @@ replay_kernel(const __grid_constant__ Maps maps, const int* row0, int n_win, T* 
   __syncthreads();
   const int nc = (lwin + S::kKC - 1) / S::kKC;  // chunks a window
   const int col0 = blockIdx.x * kBN;
-  if (threadIdx.x >= kSplit * kConsumers) {
-    if (threadIdx.x == kSplit * kConsumers)
-      produce<T>(maps, row0, n_win, nc, col0, ring, full, empty, sig);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce<T>(maps, row0, n_win, nc, col0, ring, full, empty, sig);
     return;
   }
-  consume<T>(row0, n_win, nc, y, ldy, n, lwin, col0, ring, hand, full, empty, sig);
+  consume<T>(row0, n_win, nc, y, ldy, n, lwin, col0, ring, full, empty, sig);
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)

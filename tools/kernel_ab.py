@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Kernels K2 (csrc/latrd_panel.cu) and K9 (csrc/replay.cu) of this tree
-against the parent commit's, and K9's tile and ring variants, timed in
-turns in one process on one card.
+against their first designs, timed in turns in one process on one card.
 
-    git archive <parent> | tar -x -C <dir>       # any directory
+    git archive <commit> | tar -x -C <dir>       # any directory
     python3 tools/kernel_ab.py <dir>
 
-Builds <dir>/eigensolver_gpu_torch/csrc/{latrd_panel,replay}.cu (the
-parent's: K2 as 65 launches a panel, K9 as one launch a wave over every
-slot of the JAX window layout) and this tree's sources, each into its own
-library under eigensolver_gpu_torch/build/ab/, plus this tree's replay.cu
-with other values of its K9_* macros. Then, on the same inputs:
+<dir> holds a checkout whose K2 is 65 launches a panel and whose K9 is one
+launch a wave over every slot of the JAX window layout, with the C entries
+in PARENT_ENTRIES (commit b9bcfb8 has them); the tool reads those entries
+from <dir>'s sources and refuses a checkout whose entries differ. Builds
+<dir>/eigensolver_gpu_torch/csrc/{latrd_panel,replay}.cu and this tree's
+sources, each into its own library under eigensolver_gpu_torch/build/ab/.
+Then, on the same inputs:
 
   K2 -- one panel at mb = pe = 4096, 2048 and 1024 (contiguous planes):
         the parent's and this tree's kernel in turns (parent, new, new,
@@ -21,8 +22,7 @@ with other values of its K9_* macros. Then, on the same inputs:
         parent's all-slots ``window_qs``, imported from <dir>, and this
         tree's ``window_store``) and the bare kernels on their prepared
         windows, in turns, with kernel launches a call by the profiler and
-        whether the two kernels give the same bits; then every variant of
-        this tree's kernel, in turns with the default; then 20 calls of
+        whether the two kernels give the same bits; then 20 calls of
         this tree's kernel on the same inputs, fp32 (g = 96) and fp64
         (g = b), and how many give other bits than the first.
 
@@ -48,32 +48,34 @@ sys.path.insert(0, str(ROOT))
 from eigensolver_gpu_torch.utils import kernel_guard  # noqa: E402
 from eigensolver_gpu_torch.utils.timer import device_ms  # noqa: E402
 
-# K9 variants of this tree's replay.cu: (label, nvcc -D flags); the first is
-# the source's own defaults
-K9_VARIANTS = [
-    ("two groups of 128 consumers taking alternate chunks, 8x4 tiles, 32 columns a block, "
-     "4 stages", []),
-    ("one group of 128 consumers, 8x4 tiles, 32 columns a block, 4 stages", ["-DK9_KSPLIT=1"]),
-    ("one group of 256 consumers, 4x4 tiles, 32 columns a block, 4 stages",
-     ["-DK9_KSPLIT=1", "-DK9_CONSUMERS=256"]),
-    ("one group of 64 consumers, 8x8 tiles, 32 columns a block, 4 stages",
-     ["-DK9_KSPLIT=1", "-DK9_CONSUMERS=64", "-DK9_TN=8"]),
-    ("one group of 128 consumers, 8x8 tiles, 64 columns a block, 4 stages",
-     ["-DK9_KSPLIT=1", "-DK9_BN=64", "-DK9_TN=8"]),
-    ("two groups of 256 consumers, 4x4 tiles, 32 columns a block, 4 stages",
-     ["-DK9_CONSUMERS=256"]),
-    ("two groups of 128 consumers, 8x4 tiles, 32 columns a block, 2 stages", ["-DK9_STAGES=2"]),
-    ("two groups of 128 consumers, 8x4 tiles, 32 columns a block, 6 stages", ["-DK9_STAGES=6"]),
-]
+# the C entries of the first designs that this tool calls, as declared
+PARENT_ENTRIES = {
+    "latrd_panel.cu": "latrd_panel_planar_launch(const float* ar, const float* ai, int lda, "
+                      "int mb, int pe, int nb, float* pan, float* scal, float* y, void* stream)",
+    "replay.cu": "apply_q2_f32_launch(const float* qw, float* y, int ldy, int n, int m, int b, "
+                 "int g, int n_waves, int n_slots, void* stream)",
+}
 
 
-def _build(src: pathlib.Path, tag: str, defines=()) -> ctypes.CDLL:
+def _check_parent(csrc: pathlib.Path):
+    """Raise unless <dir>'s sources declare PARENT_ENTRIES as they are."""
+    for name, want in PARENT_ENTRIES.items():
+        text = " ".join((csrc / name).read_text().split())
+        fn = want[: want.index("(")]
+        at = text.find(f'extern "C" int {fn}(')
+        got = text[at + len('extern "C" int '): text.index(")", at) + 1] if at >= 0 else None
+        if got != want:
+            raise SystemExit(f"kernel_ab: {csrc / name} declares {got!r}, not {want!r}: "
+                             "this tool calls only the first designs' C entries")
+
+
+def _build(src: pathlib.Path, tag: str) -> ctypes.CDLL:
     out = kernel_guard.BUILD / "ab" / f"lib{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [kernel_guard._nvcc(), *kernel_guard.NVCC_FLAGS, *defines, "-o", str(out), str(src)]
+    cmd = [kernel_guard._nvcc(), *kernel_guard.NVCC_FLAGS, "-o", str(out), str(src)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} {list(defines)}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
     return ctypes.CDLL(str(out))
 
 
@@ -149,7 +151,7 @@ def k2(parent_lib, new_lib, dev):
         del ar, ai
 
 
-def k9(parent_dir, parent_lib, new_libs, dev):
+def k9(parent_dir, parent_lib, new_lib, dev):
     from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
     from eigensolver_gpu_torch.ops.replay import window_store
     from eigensolver_gpu_torch.ops.sb2st import dense_to_band
@@ -189,20 +191,17 @@ def k9(parent_dir, parent_lib, new_libs, dev):
                               qw.shape[1], stream), "parent K9")
         return y
 
-    def variant(lib):
-        fn = lib.apply_q2_f32_launch
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = new_lib.apply_q2_f32_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
-        def call():
-            y.copy_(y0)
-            kernel_guard.check(fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(),
-                                  m, n, m, l_win, stream), "K9")
-            return y
-        return call
+    def new():
+        y.copy_(y0)
+        kernel_guard.check(fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(),
+                              m, n, m, l_win, stream), "K9")
+        return y
 
-    new = variant(new_libs[0])
     want = parent().clone()
     got = new().clone()
     print(f"K9 kernels: launches a call parent {_launches(parent, 'replay_wave')}, new "
@@ -213,14 +212,8 @@ def k9(parent_dir, parent_lib, new_libs, dev):
     copy_ms = device_ms(lambda: y.copy_(y0), iters=10)
     print(f"  (each timed call below includes a copy of y: {copy_ms:.4f} ms)")
     _turns("kernel, parent (212 launches)", parent, "kernel, new (one launch)", new, iters=3)
-    for (label, _), lib in zip(K9_VARIANTS[1:], new_libs[1:]):
-        other = variant(lib)
-        same = torch.equal(other().clone(), got)
-        print(f"K9 variant {label}: same bits as the default {same} (max abs difference "
-              f"{float((other() - got).abs().max()):.2e})", flush=True)
-        _turns(f"default ({K9_VARIANTS[0][0]})", new, label, other, iters=3)
     del qw, store, y, y0
-    k9_repeat(new_libs[0], dev)
+    k9_repeat(new_lib, dev)
 
 
 def k9_repeat(lib, dev, calls=20):
@@ -272,17 +265,17 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    parent_csrc = parent_dir / "eigensolver_gpu_torch" / "csrc"
+    _check_parent(parent_csrc)
     csrc = kernel_guard.CSRC
-    jobs = [(parent_dir / "eigensolver_gpu_torch" / "csrc" / "latrd_panel.cu", "parent_latrd", []),
-            (parent_dir / "eigensolver_gpu_torch" / "csrc" / "replay.cu", "parent_replay", []),
-            (csrc / "latrd_panel.cu", "new_latrd", [])]
-    jobs += [(csrc / "replay.cu", f"new_replay_{i}", flags)
-             for i, (_, flags) in enumerate(K9_VARIANTS)]
+    jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd"),
+            (parent_csrc / "replay.cu", "parent_replay"),
+            (csrc / "latrd_panel.cu", "new_latrd"), (csrc / "replay.cu", "new_replay")]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: _build(*j), jobs))
     dev = torch.device("cuda")
     k2(libs[0], libs[2], dev)
-    k9(parent_dir, libs[1], libs[3:], dev)
+    k9(parent_dir, libs[1], libs[3], dev)
     return 0
 
 

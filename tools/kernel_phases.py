@@ -26,9 +26,8 @@ for K7 and K8 also the line that publishes a slot's flag, so that the time
 before the barrier after the flag wait is the wait; for K9 and K10 the wait
 for a chunk's copies, the refill and the FMA loop of a chunk, so that a
 window's time splits into staging waits, barriers, copy issue, FMAs and
-write-back, and for K9 the hand-off between its two consumer groups; K9's
-copies are asked for by its producer warp, split apart: the wait for a
-window's signal, the wait for a free stage, the copy issue);
+write-back; K9's copies are asked for by its producer warp, split apart:
+the wait for a window's signal, the wait for a free stage, the copy issue);
 a barrier written behind an ``if`` on the same line is not marked, and its
 time falls to the next mark. Each reported line is printed with its text,
 so the output names what it timed whatever the source's line numbers are.
@@ -280,8 +279,7 @@ def main():
     store, table = window_store(vt, taut, n, b, g)
     row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
     y = y[0].clone()
-    consumer = ("if (!meets && v + 1 < n_win) mbar_arrive(sig);", "group_sync(grp);",
-                "consumers_sync();",
+    consumer = ("if (!meets && v + 1 < n_win) mbar_arrive(sig);", "consumers_sync();",
                 "mbar_wait(full + st, (f / kStages) & 1);", "fma_chunk<T>(stage, ty, tx, acc);",
                 "if (lane == 0) mbar_arrive(empty + st);",
                 "r_after = v + 2 < n_win ? row0[v + 2] : 0;")
@@ -289,7 +287,7 @@ def main():
                 "if (use > 0) mbar_wait(empty + st, (use - 1) & 1);",
                 "tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, full + st);")
     for thread, after, who in (("0", consumer, "consumer thread 0"),
-                               ("kSplit * kConsumers", producer, "the producer thread")):
+                               ("kConsumers", producer, "the producer thread")):
         lib, lines, to_source = build(
             "replay", "extern __shared__ __align__(1024) unsigned char smem_raw[];", *after,
             thread=thread)
