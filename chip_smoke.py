@@ -17,7 +17,10 @@ non-zero without printing a result:
                 replay) against its plain PyTorch version on the same
                 inputs on the card, with times of kernel, plain version
                 and a library yardstick; K3 also through the planar column
-                loop that launches it;
+                loop that launches it; K3 and K4 also at the real solve's
+                extents on lda=4096 views, n=999 and n=1, with one launch a
+                call (profiler), 20 calls with the first call's bits, and
+                times with a warm and a cold L2;
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
                 (K1 and K2): launch counts from one solve, then a timed
@@ -28,7 +31,8 @@ non-zero without printing a result:
                 fp64 instances of K6, K8, K10);
   6. main (real) -- dsygvdx n=4096, il=1..iu=512, fp32 pipeline + fp64
                 refinement, with use_pallas False and True (kernel K4 on
-                every panel column of the 512-aligned buckets);
+                every panel column of the 512-aligned buckets; its device
+                total over one solve by the profiler);
   7. reference (real) -- dsygvdx n=1024, iu=64 in pure fp64 (Jacobi
                 leaves, exact substitution) against scipy.linalg.eigh,
                 one-stage and two-stage (fp64 instances of K5, K7, K9);
@@ -69,7 +73,11 @@ K1_TOL = 1e-4  # relative max error, fp32, different summation order
 K2_TOL = 1e-3  # relative max error, fp32 sums of length <= 4096 in another order
 MV_TOL = 1e-4  # K3, K4 in fp32: sums of length <= 4096 in another order
 MV_TOL64 = 1e-12  # K4 in fp64
-MV_TILE = 64  # tile edge of csrc/symv.cu
+# the extents of K4's calls in the real one-stage solve run 256..511, 768..1023, ..,
+# 3840..4095 on the [:mb, :mb] views of the padded 4096^2 matrix (row stride 4096)
+MV_EXTENTS = (256, 511, 1023, 2047, 3071, 4095)
+MV_REPEATS = 20  # calls held to the first call's bits
+FLUSH_BYTES = 256 * 2**20  # written and read between cold calls: 5x the L2
 BAND, REPLAY_G = 32, 96  # SolverConfig defaults of the fp32 two-stage path
 K5_TOL = 1e-4  # relative max error, fp32: sums of length <= 4096 in another order
 K5_TOL64 = 1e-11
@@ -327,11 +335,61 @@ def check_k2(torch):
     }
 
 
-def _mv_bound(n, planes):
-    """Upper tiles read once per plane, vectors read and written once."""
-    nbytes = 4 * planes * (n * n // 2 + n * MV_TILE // 2 + 2 * n)
+def _mv_bound(n, planes, itemsize=4):
+    """The upper triangle with its diagonal, n (n + 1) / 2 elements a plane,
+    read once, v read and y written once: the work, whatever tile the
+    kernel uses."""
+    nbytes = itemsize * planes * (n * (n + 1) // 2 + 2 * n)
     flops = 2 * n * n * (1 if planes == 1 else 4)
     return bound(nbytes, flops)
+
+
+_FLUSH = {}
+
+
+def _cold_ms(torch, fn, iters=20):
+    """Mean device ms of the kernels of one call of ``fn`` with a cold L2:
+    before each call a FLUSH_BYTES buffer is written and then read (so the
+    50 MB L2 holds none of the operands and no dirty line of the buffer),
+    and only the call's own kernels are summed, each by its duration in the
+    profiler's device records."""
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def flush():
+        _FLUSH["buf"].fill_(1.0)
+        return _FLUSH["buf"].sum()
+
+    if "names" not in _FLUSH:
+        _FLUSH["names"] = {name for name, _ in _device_records(torch, flush)}
+
+    def run():
+        for _ in range(iters):
+            flush()
+            fn()
+
+    ns = [ns for name, ns in _device_records(torch, run) if name not in _FLUSH["names"]]
+    return sum(ns) / 1e6 / iters
+
+
+def _one_launch(torch, fn, key, what):
+    """Fail unless one call of ``fn`` ran exactly one device operation, a
+    kernel whose name holds ``key`` (profiler records; a profile that
+    caught none of it is taken again, up to three calls)."""
+    records = _device_records(torch, fn, (key,))
+    if len(records) != 1 or key not in records[0][0]:
+        raise RuntimeError(f"one {what} call ran {[r[0][:40] for r in records]} on the device "
+                           f"(kineto), want one {key} launch")
+
+
+def _same_bits(torch, fn, what):
+    """Fail unless MV_REPEATS further calls of ``fn`` give the first call's bits."""
+    first = fn()
+    differ = sum(not all(torch.equal(x, y) for x, y in zip(fn(), first))
+                 for _ in range(MV_REPEATS))
+    log(f"{what}: {differ} of {MV_REPEATS} repeated calls give other bits than the first")
+    if differ:
+        raise RuntimeError(f"{what} is not reproducible from call to call")
 
 
 def check_k4(torch):
@@ -354,7 +412,14 @@ def check_k4(torch):
         ("n=1000 odd", a32[:1000, :1000].contiguous(), v32[:1000], None, MV_TOL),
         ("n=4096 extent=2999", a32, v32, 2999, MV_TOL),
         ("n=512 fp64", a64[:512, :512].contiguous(), v64[:512], None, MV_TOL64),
+        ("n=4096 fp64", a64, v64, None, MV_TOL64),
     ]
+    # the solve's extents on the lda = 4096 view; rows that are not 16-byte
+    # aligned (n = 999 contiguous) and n = 1
+    cases += [(f"n=4096 extent={c}", a32, v32, c, MV_TOL) for c in MV_EXTENTS]
+    cases += [(f"n={c} contiguous {name}", x[:c, :c].contiguous(), y[:c], None, tol)
+              for c in (999, 1) for name, x, y, tol in (("fp32", a32, v32, MV_TOL),
+                                                        ("fp64", a64, v64, MV_TOL64))]
     max_abs = 0.0
     for label, a, v, extent, tol in cases:
         got = symv(a, v, extent=extent)
@@ -369,17 +434,34 @@ def check_k4(torch):
         log(f"K4 {label}: rel_err vs plain {rel:.2e}, vs dense a @ v {rel_dense:.2e}")
         if got.shape != want.shape or not rel <= tol or not rel_dense <= tol:
             raise RuntimeError(f"K4 disagrees with its plain version at {label}")
-    again = symv(a32, v32)
-    if not torch.equal(again, symv(a32, v32)):
-        raise RuntimeError("K4 is not reproducible from run to run")
+    for name, a, v in (("fp32", a32, v32), ("fp64", a64, v64)):
+        _same_bits(torch, lambda: (symv(a, v),), f"K4 n=4096 {name}")
+        _one_launch(torch, lambda: symv(a, v), "symv_kernel", f"K4 n=4096 {name}")
     ms = device_ms(lambda: symv(a32, v32), iters=100)
+    cold = _cold_ms(torch, lambda: symv(a32, v32))
     plain_ms = device_ms(lambda: symv_plain(a32, v32), iters=2)
     with true_fp32():
         library_ms = device_ms(lambda: torch.mv(a32, v32), iters=100)
+        library_cold = _cold_ms(torch, lambda: torch.mv(a32, v32))
     bound_ms, bound_by = _mv_bound(4096, 1)
-    log(f"K4 times at n=4096 fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"library (torch.mv, full matrix) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"K4 times at n=4096 fp32: kernel {ms:.4f} ms warm, {cold:.4f} cold ({bound_ms / cold:.0%} "
+        f"of the bound), plain {plain_ms:.3f} ms, library (torch.mv, full matrix) "
+        f"{library_ms:.4f} warm, {library_cold:.4f} cold, bound {bound_ms:.4f} ms ({bound_by})")
+    b64, _ = _mv_bound(4096, 1, itemsize=8)
+    warm64 = device_ms(lambda: symv(a64, v64), iters=100)
+    cold64 = _cold_ms(torch, lambda: symv(a64, v64))
+    log(f"K4 times at n=4096 fp64: kernel {warm64:.4f} ms warm, {cold64:.4f} cold "
+        f"({b64 / cold64:.0%} of the bound), bound {b64:.4f} ms (bytes)")
+    for c in MV_EXTENTS:  # the solve's extents, torch.mv on the same c x c view
+        warm_c = device_ms(lambda: symv(a32, v32, extent=c), iters=100)
+        cold_c = _cold_ms(torch, lambda: symv(a32, v32, extent=c))
+        with true_fp32():
+            mv_warm = device_ms(lambda: torch.mv(a32[:c, :c], v32[:c]), iters=100)
+            mv_cold = _cold_ms(torch, lambda: torch.mv(a32[:c, :c], v32[:c]))
+        b_c, _ = _mv_bound(c, 1)
+        log(f"K4 times at extent={c} of the lda=4096 view fp32: kernel {warm_c:.4f} ms warm, "
+            f"{cold_c:.4f} cold ({b_c / cold_c:.0%} of the bound), torch.mv on the view "
+            f"{mv_warm:.4f} warm, {mv_cold:.4f} cold, bound {b_c:.5f} ms")
     return {
         "name": "symv", "route": "cuda",
         "source": "eigensolver_gpu_torch/csrc/symv.cu",
@@ -416,6 +498,9 @@ def check_k3(torch):
          1000, None),
         ("n=4096 extent=2999", ar, ai, 4096, 2999),
     ]
+    cases += [(f"n=4096 extent={c}", ar, ai, 4096, c) for c in (2047, 4095)]
+    cases += [(f"n={c} contiguous", ar[:c, :c].contiguous(), ai[:c, :c].contiguous(), c, None)
+              for c in (999, 1)]
     max_abs = 0.0
     for label, xr, xi, n, extent in cases:
         got = hemv_planar(xr, xi, vr[:n], vi[:n], extent=extent)
@@ -431,15 +516,27 @@ def check_k3(torch):
             f"vs dense complex64 a @ v {max(errs_d) / scale:.2e}")
         if not max(errs) <= MV_TOL * scale or not max(errs_d) <= MV_TOL * scale:
             raise RuntimeError(f"K3 disagrees with its plain version at {label}")
+    _same_bits(torch, lambda: hemv_planar(ar, ai, vr, vi), "K3 n=4096")
+    _one_launch(torch, lambda: hemv_planar(ar, ai, vr, vi), "hemv_planar_kernel", "K3 n=4096")
     ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=1000)
     plain_ms = device_ms(lambda: hemv_planar_plain(ar, ai, vr, vi), iters=2)
     ac, vc = torch.complex(ar, ai), torch.complex(vr, vi)
     with true_fp32():
         library_ms = device_ms(lambda: torch.mv(ac, vc), iters=1000)
     bound_ms, bound_by = _mv_bound(4096, 2)
-    log(f"K3 times at n=4096 fp32: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"library (torch.mv, complex64, full matrix) {library_ms:.4f} ms, "
+    log(f"K3 times at n=4096 fp32: kernel {ms:.4f} ms warm, plain {plain_ms:.3f} ms, "
+        f"library (torch.mv, complex64, full matrix) {library_ms:.4f} ms warm, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
+    for c in (2047, 4095, 4096):  # cold and warm, torch.mv on the same c x c view
+        warm_c = device_ms(lambda: hemv_planar(ar, ai, vr, vi, extent=c), iters=100)
+        cold_c = _cold_ms(torch, lambda: hemv_planar(ar, ai, vr, vi, extent=c))
+        with true_fp32():
+            mv_warm = device_ms(lambda: torch.mv(ac[:c, :c], vc[:c]), iters=100)
+            mv_cold = _cold_ms(torch, lambda: torch.mv(ac[:c, :c], vc[:c]))
+        b_c, _ = _mv_bound(c, 2)
+        log(f"K3 times at extent={c} of the lda=4096 view: kernel {warm_c:.4f} ms warm, "
+            f"{cold_c:.4f} cold ({b_c / cold_c:.0%} of the bound), torch.mv complex64 on the "
+            f"view {mv_warm:.4f} warm, {mv_cold:.4f} cold, bound {b_c:.5f} ms")
 
     # the path that launches K3: one full panel of the planar column loop
     mb, nb = 4096, 32
@@ -1380,7 +1477,12 @@ def phase_main_real(torch):
             raise RuntimeError(f"real path shapes {shapes} dtype {res.w.dtype}")
         if k4 != want_k4:
             raise RuntimeError(f"launch count K4={k4}, want {want_k4}")
-        stages, _ = _breakdown(torch, solve, min(times))
+        stages, totals = _breakdown(torch, solve, min(times),
+                                    kernels=("symv_kernel",) if use_pallas else ())
+        if use_pallas:
+            k4_ms, k4_n = totals["symv_kernel"]
+            log(f"  K4 over one solve (kineto): {k4_ms:.3f} ms in {k4_n} launches, "
+                f"{k4_ms / max(k4_n, 1) * 1e3:.2f} us a launch")
         # the fp32 pipeline's sygvdx range holds Cholesky, sygst, syevdx
         # and the phase-4 solve; syevdx holds sytrd, stedc and unmtr
         log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")

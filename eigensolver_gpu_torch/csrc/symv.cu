@@ -13,211 +13,473 @@
 // What they compute: y = A v for symmetric A (K4), and
 // (yr, yi) = (Ar + i Ai)(vr + i vi) for Ar symmetric, Ai antisymmetric
 // (K3). Every off-diagonal upper tile T = A[bi, bj] (bi < bj) is read once
-// and used twice: T v[bj] goes to y[bi], and T^H v[bi] to y[bj]; a
-// diagonal tile is used once. For the planar pair, with Tr, Ti the tiles of
+// and used twice: T v[bj] goes to y[bi] (its row product), and T^H v[bi]
+// to y[bj] (its column product); a diagonal tile gives its column product
+// T^H v[bj] = T v[bj] only. For the planar pair, with Tr, Ti the tiles of
 // Ar, Ai:
 //     y[bi] += (Tr vr_j - Ti vi_j,   Tr vi_j + Ti vr_j)
 //     y[bj] += (Tr^T vr_i + Ti^T vi_i,   Tr^T vi_i - Ti^T vr_i)
 //
-// What bounds them on the H100: bytes. n = 4096 in fp32 is 33.6 MB of
-// upper tiles (2 flop per byte read), far below the fp32 rate.
+// What bounds them on the H100: bytes. The upper tiles of n = 4096 are
+// 33.6 MB in fp32 (K3's two planes and K4 in fp64: 67.1 MB) at 2 flop per
+// byte read, far below the fp32 rate. K4's fp32 triangle fits in the 50 MB
+// L2 up to n of about 5000, so a caller that repeats the product on one
+// block (the 32 columns of a sytrd panel) finds it warm and can run faster
+// than bytes / 3.35 TB/s; K3's two planes at n = 4096 never fit. Past the
+// bytes, a call pays its launch, the ramp of the first copies and the
+// latency of the final sums: at the solve's small extents those are most
+// of it.
 //
-// Ordering. The Pallas kernels accumulate into y across a sequential TPU
-// grid; a CUDA grid has no order. Here no two blocks ever add to the same
-// address: the tile (bi, bj) writes its two 64-vectors into a partial
-// buffer P of shape (nt, n) -- the row product into P[bj, rows of bi], the
-// transposed product into P[bi, rows of bj] -- so every slot of P is
-// written exactly once, by one block, and needs no zeroing. A second
-// launch sums P over its first axis in the fixed order k = 0 .. nt-1. The
-// result is therefore bit-reproducible from run to run (no atomics), at
-// the price of nt * n extra floats written and read (1 MB at n = 4096,
-// 3 % of the matrix bytes).
+// Design: one cooperative launch a call, no float atomics.
+//   * The upper tiles (64 x 64) are numbered column strip by column strip:
+//     tile (i, j), i <= j, is t = j (j + 1) / 2 + i. The grid is one wave:
+//     min(tiles, resident blocks) blocks, block b taking the consecutive
+//     tiles from b * tiles / blocks (integer division), so every SM gets
+//     the same number of blocks and they differ by at most one tile: 7 or 8
+//     tiles a block at n = 4096 (264 blocks, 2 a SM), one at the small
+//     extents (10 blocks at n = 256).
+//   * A block walks its tiles down each column strip and keeps the column
+//     products of that strip (all into y[bj]) in registers over the run; a
+//     run ends at the strip's diagonal tile or at the block's last tile and
+//     writes one 64-vector of column partials. Each off-diagonal tile writes
+//     its row product, one 64-vector, at once. Every partial slot (row: the
+//     tile; column: the run's last tile) is written by exactly one block.
+//   * Tiles are staged through a ring of 96 KB of shared memory a block (6
+//     stages of 16 KB for K4 fp32; 3 of 32 KB for K4 fp64 and for K3, which
+//     carries both planes in one stage), filled by cp.async: 16-byte copies
+//     when the rows are 16-byte aligned (the matrix pointer and lda *
+//     element size), element copies otherwise (a contiguous n = 999
+//     matrix), zero-filled past n. All other stages are in flight while one
+//     is multiplied: 160 KB a SM for K4 fp32, 128 KB for fp64 and K3.
+//   * Each of the 256 threads holds a 4 x 4 patch of the tile: its row sums
+//     are added over the 16 threads of a tile row by warp shuffles in a
+//     fixed pattern; its column sums stay in registers for the run and are
+//     added over the 16 row groups in shared memory in row-group order.
+//   * Ordering: a grid barrier (cooperative groups) follows the streaming;
+//     then every output row is summed from its strip's partials in a fixed
+//     order -- the runs of its column strip by tile, then the row partials
+//     of tiles (k, j) by j -- by 8 threads over consecutive slices, the
+//     slices added in order; the rows are spread over all blocks. So the
+//     bits are the same from call to call on a given card (the split
+//     follows its SM count). Partial traffic: about tiles + blocks
+//     64-vectors written and read (2 350 at n = 4096, 0.6 MB in fp32: 1.8 %
+//     of the triangle).
+//   A per-strip int32 arrival counter, with the block that completes a
+//   strip summing it, was built and timed first: the last blocks to stream
+//   completed up to 9 strips each and summed them one after another, which
+//   cost more than the barrier (PERF.md, Findings).
+//   The launch fails (cudaErrorCooperativeLaunchTooLarge) when the blocks
+//   cannot all be resident; the grid never asks for more than the occupancy
+//   calculator allows.
 //
-// Design: one 256-thread block per 64 x 64 upper tile (a 2-D grid whose
-// lower-triangle blocks exit at once). The tile is staged in padded shared
-// memory with coalesced row reads; 128 threads then form the row product
-// and 128 the transposed product, each a conflict-free walk of 32 tile
-// entries, and a last step adds the two halves. Any n >= 1 is taken: edge
-// tiles are guarded, and the matrix may be a view (row stride lda >= n).
+// C entries (a: row-major view, unit column stride, row stride lda >= n;
+// `part`: a scratch of symv_part_elems(n, planes) elements of the matrix's
+// type; all on the card, launched on `stream`; a launch returns a
+// cudaError_t code):
+//   symv_f32_launch(a, lda, n, v, part, y, stream)          K4 fp32
+//   symv_f64_launch(a, lda, n, v, part, y, stream)          K4 fp64
+//   hemv_planar_launch(ar, ai, lda, n, vr, vi, part, y, stream)
+//                      K3 fp32, y = (yr, yi) as 2 x n
+//   symv_part_elems(n, planes)
 // Plain FMA arithmetic, no tensor cores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
-constexpr int kHalf = kTile / 2;
+constexpr int kTx = 16;              // threads across a tile row, 4 columns each
+constexpr int kTy = kThreads / kTx;  // row groups of 4 rows
+constexpr int kTileElems = kTile * kTile;
+constexpr int kMaxDevices = 64;
 
-// Stage the tile A[r0 : r0+64, c0 : c0+64] (zero past n) in shared memory.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ a, size_t lda,
-                                          int n, int r0, int c0,
-                                          T (*s)[kTile + 1]) {
-  const int col = threadIdx.x % kTile;
-  const int gc = c0 + col;
-  for (int row = threadIdx.x / kTile; row < kTile; row += kThreads / kTile) {
-    const int gr = r0 + row;
-    s[row][col] = (gr < n && gc < n) ? a[(size_t)gr * lda + gc] : T(0);
-  }
+// P planes of the matrix and of v (1: real, 2: planar complex)
+template <typename T, int P>
+struct Cfg {
+  static constexpr int kStages = 24 / (P * sizeof(T));  // 96 KB of tiles
+  // one stage: P tile planes, then P planes of v over the tile's rows (vi)
+  // and P over its columns (vj)
+  static constexpr int kStageElems = P * kTileElems + 2 * P * kTile;
+  static constexpr int kRedElems = P * kTy * kTile;  // >= kThreads
+  static constexpr int kSmemBytes = (kStages * kStageElems + kRedElems) * sizeof(T);
+};
+
+template <typename T, int P>
+struct Args {
+  const T* a[P];
+  const T* v[P];
+  T* part;     // row partials [P][tiles][64], then column partials [P][tiles][64]
+  T* y;        // P planes of n
+  unsigned tiles, blocks;  // upper tiles; blocks of the grid
+  int lda, n, nt;
+  bool wide;   // 16-byte aligned rows: 16-byte copies
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-symv_tiles(const T* __restrict__ a, int lda, int n, const T* __restrict__ v,
-           T* __restrict__ part) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bi > bj) return;
-  __shared__ T s[kTile][kTile + 1];
-  __shared__ T vi[kTile], vj[kTile];
-  __shared__ T red[4][kTile];
-  const int t = threadIdx.x;
+// 16 bytes, of which the first `bytes` are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// one element of N bytes, read when `bytes` is N and zero-filled when 0
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "n"(N), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ long long strip_start(int j) { return (long long)j * (j + 1) / 2; }
+
+// the tile (i, j) numbered t
+__device__ __forceinline__ void tile_of(long long t, int& i, int& j) {
+  int jj = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+  while (strip_start(jj) > t) --jj;
+  while (strip_start(jj + 1) <= t) ++jj;
+  j = jj;
+  i = (int)(t - strip_start(jj));
+}
+
+// Block b takes tiles [block_first(b), block_first(b + 1)): the tiles are
+// shared out as evenly as integers allow (tiles * blocks < 2^32).
+__device__ __forceinline__ unsigned block_first(unsigned b, unsigned tiles, unsigned blocks) {
+  return b * tiles / blocks;
+}
+
+__device__ __forceinline__ unsigned block_of(unsigned t, unsigned tiles, unsigned blocks) {
+  return ((t + 1) * blocks - 1) / tiles;
+}
+
+// Stage tile (bi, bj) and the vector slices it needs; zero past n.
+template <typename T, int P>
+__device__ __forceinline__ void issue_tile(const Args<T, P>& g, T* stage, int bi, int bj) {
   const int r0 = bi * kTile, c0 = bj * kTile;
-  load_tile(a, (size_t)lda, n, r0, c0, s);
-  if (t < kTile) {
-    vi[t] = r0 + t < n ? v[r0 + t] : T(0);
-  } else if (t < 2 * kTile) {
-    const int j = t - kTile;
-    vj[j] = c0 + j < n ? v[c0 + j] : T(0);
+  const size_t lda = (size_t)g.lda;
+  if (g.wide) {
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kChunks = kTile / kVec;  // a tile row
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        const int row = c / kChunks, col = (c % kChunks) * kVec;
+        const int gr = r0 + row, gc = c0 + col;
+        const int valid = gr < g.n ? min(max(g.n - gc, 0), kVec) : 0;
+        const T* src = valid ? g.a[p] + gr * lda + gc : g.a[p];
+        cp_async16(stage + p * kTileElems + row * kTile + col, src, valid * (int)sizeof(T));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll 4
+      for (int u = 0; u < kTileElems / kThreads; ++u) {
+        const int e = threadIdx.x + u * kThreads;
+        const int row = e / kTile, col = e % kTile;
+        const int gr = r0 + row, gc = c0 + col;
+        const bool in = gr < g.n && gc < g.n;
+        cp_async_elem<sizeof(T)>(stage + p * kTileElems + e, in ? g.a[p] + gr * lda + gc : g.a[p],
+                                 in ? (int)sizeof(T) : 0);
+      }
+    }
   }
-  __syncthreads();
-  const int idx = t % kTile;
-  const int half = (t / kTile) & 1;
-  T acc = T(0);
-  if (t < 2 * kTile) {  // row product: sum_j s[idx][j] vj[j]
-    for (int j = half * kHalf; j < (half + 1) * kHalf; ++j)
-      acc += s[idx][j] * vj[j];
-  } else {  // transposed product: sum_i s[i][idx] vi[i]
-    for (int i = half * kHalf; i < (half + 1) * kHalf; ++i)
-      acc += s[i][idx] * vi[i];
-  }
-  red[t / kTile][idx] = acc;
-  __syncthreads();
-  if (t < kTile) {
-    if (r0 + t < n) part[(size_t)bj * n + r0 + t] = red[0][t] + red[1][t];
-  } else if (t < 2 * kTile && bi != bj) {
-    const int j = t - kTile;
-    if (c0 + j < n) part[(size_t)bi * n + c0 + j] = red[2][j] + red[3][j];
+  if (threadIdx.x < 2 * P * kTile) {  // vi planes, then vj planes
+    const int w = threadIdx.x / kTile, k = threadIdx.x % kTile;
+    const int gi = (w < P ? r0 : c0) + k;
+    const T* base = g.v[w % P];
+    cp_async_elem<sizeof(T)>(stage + P * kTileElems + threadIdx.x, gi < g.n ? base + gi : base,
+                             gi < g.n ? (int)sizeof(T) : 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-hemv_planar_tiles(const float* __restrict__ ar, const float* __restrict__ ai,
-                  int lda, int n, const float* __restrict__ vr,
-                  const float* __restrict__ vi, float* __restrict__ part_r,
-                  float* __restrict__ part_i) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bi > bj) return;
-  __shared__ float sr[kTile][kTile + 1];
-  __shared__ float si[kTile][kTile + 1];
-  __shared__ float vir[kTile], vii[kTile], vjr[kTile], vji[kTile];
-  __shared__ float red_r[4][kTile], red_i[4][kTile];
-  const int t = threadIdx.x;
-  const int r0 = bi * kTile, c0 = bj * kTile;
-  load_tile(ar, (size_t)lda, n, r0, c0, sr);
-  load_tile(ai, (size_t)lda, n, r0, c0, si);
-  if (t < kTile) {
-    const bool in = r0 + t < n;
-    vir[t] = in ? vr[r0 + t] : 0.f;
-    vii[t] = in ? vi[r0 + t] : 0.f;
-  } else if (t < 2 * kTile) {
-    const int j = t - kTile;
-    const bool in = c0 + j < n;
-    vjr[j] = in ? vr[c0 + j] : 0.f;
-    vji[j] = in ? vi[c0 + j] : 0.f;
-  }
-  __syncthreads();
-  const int idx = t % kTile;
-  const int half = (t / kTile) & 1;
-  float acc_r = 0.f, acc_i = 0.f;
-  if (t < 2 * kTile) {  // (Tr + i Ti) v_j
-    for (int j = half * kHalf; j < (half + 1) * kHalf; ++j) {
-      const float tr = sr[idx][j], ti = si[idx][j];
-      acc_r += tr * vjr[j] - ti * vji[j];
-      acc_i += tr * vji[j] + ti * vjr[j];
-    }
-  } else {  // (Tr^T - i Ti^T) v_i
-    for (int i = half * kHalf; i < (half + 1) * kHalf; ++i) {
-      const float tr = sr[i][idx], ti = si[i][idx];
-      acc_r += tr * vir[i] + ti * vii[i];
-      acc_i += tr * vii[i] - ti * vir[i];
-    }
-  }
-  red_r[t / kTile][idx] = acc_r;
-  red_i[t / kTile][idx] = acc_i;
-  __syncthreads();
-  if (t < kTile) {
-    if (r0 + t < n) {
-      const size_t o = (size_t)bj * n + r0 + t;
-      part_r[o] = red_r[0][t] + red_r[1][t];
-      part_i[o] = red_i[0][t] + red_i[1][t];
-    }
-  } else if (t < 2 * kTile && bi != bj) {
-    const int j = t - kTile;
-    if (c0 + j < n) {
-      const size_t o = (size_t)bi * n + c0 + j;
-      part_r[o] = red_r[2][j] + red_r[3][j];
-      part_i[o] = red_i[2][j] + red_i[3][j];
-    }
-  }
-}
-
-// y[p, i] = sum_k part[p, k, i], k ascending: the fixed summation order.
+// column q (0..3) of thread tx's patch: one 16-byte chunk of 4 floats, or
+// two of 2 doubles half a row apart (conflict-free 16-byte shared loads)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const T* __restrict__ part, int nt, int n, int planes,
-             T* __restrict__ y) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  for (int p = 0; p < planes; ++p) {
-    const T* src = part + (size_t)p * nt * n;
-    T acc = T(0);
-    for (int k = 0; k < nt; ++k) acc += src[(size_t)k * n + i];
-    y[(size_t)p * n + i] = acc;
-  }
+__device__ __forceinline__ int patch_col(int tx, int q) {
+  constexpr int kV = sizeof(T) == 4 ? 4 : 2;
+  return (q / kV) * (kTx * kV) + tx * kV + q % kV;
 }
 
 template <typename T>
-int symv_launch(const T* a, int lda, int n, const T* v, T* part, T* y,
-                void* stream) {
-  if (n < 1 || lda < n) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nt = (n + kTile - 1) / kTile;
-  symv_tiles<T><<<dim3(nt, nt), kThreads, 0, st>>>(a, lda, n, v, part);
-  cudaError_t err = cudaGetLastError();
+__device__ __forceinline__ void load_patch_row(const T* row, int tx, T x[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(row + 4 * tx);
+    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+  } else {
+    const double2 lo = *reinterpret_cast<const double2*>(row + 2 * tx);
+    const double2 hi = *reinterpret_cast<const double2*>(row + kTx * 2 + 2 * tx);
+    x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+  }
+}
+
+// s[r]: this thread's sums of rows 4 ty + r over its 4 columns. Returns the
+// sum over the 16 threads of the tile row group (lanes differing in bits
+// 0-3) of row 4 ty + 2 * bit3(tx) + bit2(tx), in a fixed pattern.
+template <typename T>
+__device__ __forceinline__ T reduce_rows(const T s[4], int tx) {
+  const bool hi = tx & 8;
+  T k0 = hi ? s[2] : s[0], k1 = hi ? s[3] : s[1];
+  k0 += __shfl_xor_sync(0xffffffffu, hi ? s[0] : s[2], 8);
+  k1 += __shfl_xor_sync(0xffffffffu, hi ? s[1] : s[3], 8);
+  const bool b2 = tx & 4;
+  T k = b2 ? k1 : k0;
+  k += __shfl_xor_sync(0xffffffffu, b2 ? k0 : k1, 4);
+  k += __shfl_xor_sync(0xffffffffu, k, 2);
+  k += __shfl_xor_sync(0xffffffffu, k, 1);
+  return k;
+}
+
+// The products of one staged tile: row sums s (rows 4 ty + r) over this
+// thread's columns, and column sums over its rows added into acc.
+template <typename T, int P>
+__device__ __forceinline__ void tile_products(const T* stage, int tx, int ty, T s[P][4],
+                                              T acc[P][4]) {
+  const T* vi = stage + P * kTileElems;
+  const T* vj = vi + P * kTile;
+  T xi[P][4], xj[P][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xi[p][q] = vi[p * kTile + 4 * ty + q];
+      xj[p][q] = vj[p * kTile + patch_col<T>(tx, q)];
+      s[p][q] = T(0);
+    }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    T x[P][4];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      load_patch_row(stage + p * kTileElems + (4 * ty + r) * kTile, tx, x[p]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (P == 1) {
+        s[0][r] += x[0][q] * xj[0][q];
+        acc[0][q] += x[0][q] * xi[0][r];
+      } else {  // (Tr + i Ti) v_j and (Tr^T - i Ti^T) v_i
+        const T tr = x[0][q], ti = x[1][q];
+        s[0][r] += tr * xj[0][q] - ti * xj[1][q];
+        s[1][r] += tr * xj[1][q] + ti * xj[0][q];
+        acc[0][q] += tr * xi[0][r] + ti * xi[1][r];
+        acc[1][q] += tr * xi[1][r] - ti * xi[0][r];
+      }
+    }
+  }
+}
+
+// y from the partials, after the grid barrier. Output strip k has
+// runs + nt - 1 - k partials in a fixed order: the column partials of the runs
+// of column strip k (at each run's last tile), then the row partials of
+// tiles (k, j), j = k + 1 .. nt - 1. A block takes items of 32 rows of one
+// plane of one strip (items grid-strided over the blocks); each row is
+// summed by 8 threads over consecutive slices of the partials (loads asked
+// for kBatch at a time, added in slot order), the slices then added in
+// order.
+template <typename T, int P>
+__device__ void finish(const Args<T, P>& g, T* red) {
+  constexpr int kRows = 32, kGroups = kThreads / kRows, kBatch = 16;
+  const int t = threadIdx.x, grp = t / kRows;
+  const int items = g.nt * P * (kTile / kRows);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int k = item / (P * 2), p = item / 2 % P, r = item % 2 * kRows + t % kRows;
+    const unsigned s = (unsigned)strip_start(k), b0 = block_of(s, g.tiles, g.blocks);
+    const int runs = (int)(block_of(s + k, g.tiles, g.blocks) - b0) + 1, m = runs + g.nt - 1 - k;
+    const int q1 = (grp + 1) * m / kGroups;
+    T sum = T(0);
+    for (int q0 = grp * m / kGroups; q0 < q1; q0 += kBatch) {
+      T x[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u;
+        const size_t slot =
+            q < runs ? (size_t)(P + p) * g.tiles +
+                           min(block_first(b0 + q + 1, g.tiles, g.blocks) - 1, s + k)
+                     : (size_t)p * g.tiles + strip_start(k + 1 + q - runs) + k;
+        x[u] = q < q1 ? __ldcg(g.part + slot * kTile + r) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) sum += x[u];
+    }
+    red[t] = sum;
+    __syncthreads();
+    if (t < kRows) {
+      T total = red[t];
+#pragma unroll
+      for (int h = 1; h < kGroups; ++h) total += red[h * kRows + t];
+      const int row = k * kTile + r;
+      if (row < g.n) g.y[(size_t)p * g.n + row] = total;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
+  using C = Cfg<T, P>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* red = smem + C::kStages * C::kStageElems;
+
+  const int t = threadIdx.x, tx = t % kTx, ty = t / kTx;
+  const unsigned first = block_first(blockIdx.x, g.tiles, g.blocks);
+  const int cnt = (int)(block_first(blockIdx.x + 1, g.tiles, g.blocks) - first);
+  int ci, cj;  // the tile being multiplied
+  tile_of(first, ci, cj);
+  int li = ci, lj = cj;  // the next tile to stage
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < cnt) {
+      issue_tile(g, smem + s * C::kStageElems, li, lj);
+      if (++li > lj) ++lj, li = 0;
+    }
+    cp_async_commit();
+  }
+
+  T acc[P][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
+
+  for (int k = 0; k < cnt; ++k) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();
+    if (k + C::kStages - 1 < cnt) {
+      issue_tile(g, smem + ((k + C::kStages - 1) % C::kStages) * C::kStageElems, li, lj);
+      if (++li > lj) ++lj, li = 0;
+    }
+    cp_async_commit();
+    T s[P][4];
+    tile_products<T, P>(smem + (k % C::kStages) * C::kStageElems, tx, ty, s, acc);
+    const unsigned tile = first + k;
+    if (ci != cj) {  // the row product into strip ci
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const T row_sum = reduce_rows(s[p], tx);
+        if ((tx & 3) == 0)
+          g.part[((size_t)p * g.tiles + tile) * kTile + 4 * ty + 2 * ((tx >> 3) & 1) +
+                 ((tx >> 2) & 1)] = row_sum;
+      }
+    }
+    if (ci == cj || k == cnt - 1) {  // the run ends: its column partial into strip cj
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          red[(p * kTy + ty) * kTile + patch_col<T>(tx, q)] = acc[p][q];
+          acc[p][q] = T(0);
+        }
+      __syncthreads();
+      if (t < P * kTile) {
+        const int p = t / kTile, c = t % kTile;
+        T sum = red[p * kTy * kTile + c];
+#pragma unroll
+        for (int h = 1; h < kTy; ++h) sum += red[(p * kTy + h) * kTile + c];
+        g.part[(((size_t)P + p) * g.tiles + tile) * kTile + c] = sum;
+      }
+    }
+    if (++ci > cj) ++cj, ci = 0;
+  }
+  cp_async_wait<0>();
+
+  // every partial is written before any is summed
+  cg::this_grid().sync();
+  finish(g, red);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) symv_kernel(const __grid_constant__ Args<T, 1> g) {
+  upper_tiles(g);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hemv_planar_kernel(const __grid_constant__ Args<float, 2> g) {
+  upper_tiles(g);
+}
+
+template <typename T, int P>
+int launch(void (*kern)(const Args<T, P>), Args<T, P> g, void* stream) {
+  using C = Cfg<T, P>;
+  if (g.n < 1 || g.lda < g.n) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  sum_partials<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      part, nt, n, 1, y);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static int slots[kMaxDevices] = {0};  // resident blocks on the card
+  if (slots[dev] == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, C::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms < 1) return (int)cudaErrorLaunchOutOfResources;
+    slots[dev] = per_sm * sms;
+  }
+  g.nt = (g.n + kTile - 1) / kTile;
+  const unsigned long long tiles = (unsigned long long)g.nt * (g.nt + 1) / 2;
+  const unsigned long long blocks = tiles < (unsigned)slots[dev] ? tiles : slots[dev];
+  if (tiles * blocks >= (1ULL << 32)) return (int)cudaErrorInvalidValue;  // n past 300 000
+  g.tiles = (unsigned)tiles, g.blocks = (unsigned)blocks;
+  g.wide = (size_t)g.lda * sizeof(T) % 16 == 0;
+  for (int p = 0; p < P; ++p) g.wide = g.wide && reinterpret_cast<uintptr_t>(g.a[p]) % 16 == 0;
+  void* args[] = {&g};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(g.blocks), dim3(kThreads), args,
+                                    C::kSmemBytes, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// part: nt * n scratch elements, nt = ceil(n / 64); y: n elements.
-extern "C" int symv_f32_launch(const float* a, int lda, int n, const float* v,
-                               float* part, float* y, void* stream) {
-  return symv_launch<float>(a, lda, n, v, part, y, stream);
+// elements of the scratch `part` for order n with `planes` planes (1 or 2)
+extern "C" long long symv_part_elems(int n, int planes) {
+  const long long nt = (n + kTile - 1) / kTile;
+  return 2LL * planes * (nt * (nt + 1) / 2) * kTile;
 }
 
-extern "C" int symv_f64_launch(const double* a, int lda, int n,
-                               const double* v, double* part, double* y,
-                               void* stream) {
-  return symv_launch<double>(a, lda, n, v, part, y, stream);
+extern "C" int symv_f32_launch(const float* a, int lda, int n, const float* v, float* part,
+                               float* y, void* stream) {
+  Args<float, 1> g{};
+  g.a[0] = a, g.v[0] = v, g.part = part, g.y = y, g.lda = lda, g.n = n;
+  return launch(symv_kernel<float>, g, stream);
 }
 
-// part: 2 * nt * n scratch floats (real plane, then imaginary);
-// y: 2 * n floats (yr, then yi).
-extern "C" int hemv_planar_launch(const float* ar, const float* ai, int lda,
-                                  int n, const float* vr, const float* vi,
-                                  float* part, float* y, void* stream) {
-  if (n < 1 || lda < n) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nt = (n + kTile - 1) / kTile;
-  hemv_planar_tiles<<<dim3(nt, nt), kThreads, 0, st>>>(
-      ar, ai, lda, n, vr, vi, part, part + (size_t)nt * n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<float><<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      part, nt, n, 2, y);
-  return (int)cudaGetLastError();
+extern "C" int symv_f64_launch(const double* a, int lda, int n, const double* v, double* part,
+                               double* y, void* stream) {
+  Args<double, 1> g{};
+  g.a[0] = a, g.v[0] = v, g.part = part, g.y = y, g.lda = lda, g.n = n;
+  return launch(symv_kernel<double>, g, stream);
+}
+
+extern "C" int hemv_planar_launch(const float* ar, const float* ai, int lda, int n,
+                                  const float* vr, const float* vi, float* part, float* y,
+                                  void* stream) {
+  Args<float, 2> g{};
+  g.a[0] = ar, g.a[1] = ai, g.v[0] = vr, g.v[1] = vi;
+  g.part = part, g.y = y, g.lda = lda, g.n = n;
+  return launch(hemv_planar_kernel, g, stream);
 }

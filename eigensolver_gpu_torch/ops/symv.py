@@ -6,9 +6,7 @@ Replace the Pallas kernels ``symv``
 ``_symv_kernel`` :58) and ``hemv_planar``
 (eigensolver_gpu_tpu/ops/hemv_pallas.py:70; ``pallas_call`` :100,
 ``_hemv_kernel`` :39), the counterparts of the reference's ``dsymv_gpu``
-and ``zhemv_gpu``. The CUDA source is ``csrc/symv.cu``; its header states
-what bounds the kernels on the H100, and the ordering scheme that makes
-the result bit-reproducible without atomics.
+and ``zhemv_gpu``. The CUDA source is ``csrc/symv.cu``.
 
 Contracts:
 
@@ -26,6 +24,30 @@ belongs to their reflection grid and is not carried over, nor is their
 ``extent=c`` restricts the product to the leading c x c block and the
 first c entries of the vectors; the result then has length c.
 
+What bounds the kernels on the H100: bytes, the upper tiles read once
+(33.6 MB for K4 at n = 4096 in fp32, 67.1 MB for K3's two planes and for
+K4 in fp64). K4's fp32 triangle fits in the 50 MB L2 up to n of about
+5000, so the 32 calls of a sytrd panel on one block find it warm; K3's
+planes do not fit. At small extents the launch and the latency of the
+final sums dominate.
+
+Design (the header of ``csrc/symv.cu`` has the details): one cooperative
+launch a call. The upper 64 x 64 tiles, numbered column strip by column
+strip, are shared out in runs of consecutive tiles as evenly as integers
+allow over a grid of resident blocks (one wave). A block stages its tiles
+through a cp.async ring of shared-memory stages (16-byte copies
+where the rows are 16-byte aligned, element copies otherwise), writes
+each off-diagonal tile's row product as a partial and keeps its column
+products in registers over each strip's run. Ordering: after a grid
+barrier every output row is summed from its partials in a fixed order,
+the rows spread over all blocks. No float atomics; the same bits from
+call to call.
+
+C entries (``csrc/symv.cu``): ``symv_f32_launch`` / ``symv_f64_launch``
+``(a, lda, n, v, part, y, stream)`` and ``hemv_planar_launch(ar, ai, lda,
+n, vr, vi, part, y, stream)``; ``part`` is a scratch of
+``symv_part_elems(n, planes)`` elements.
+
 ``symv`` and ``hemv_planar`` are the wrappers: CUDA tensors launch the
 kernel (and raise if it cannot be built or launched), CPU tensors take
 ``symv_plain`` / ``hemv_planar_plain``, plain PyTorch walks of the same
@@ -41,6 +63,19 @@ import torch
 from eigensolver_gpu_torch.utils import kernel_guard
 
 TILE = 64  # kTile of csrc/symv.cu
+
+
+def _bind(name, argtypes, restype=ctypes.c_int):
+    fn = getattr(kernel_guard.load("symv"), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def _scratch(n, planes, dtype, device):
+    """The partial-sum scratch of the kernels (``symv_part_elems``)."""
+    elems = _bind("symv_part_elems", [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
+    return torch.empty((elems(n, planes),), dtype=dtype, device=device)
 
 
 def _upper_tiles(n, tile):
@@ -114,17 +149,13 @@ def symv(a, v, extent=None):
         name = "symv_f64_launch"
     else:
         raise TypeError(f"the symv kernel takes float32 or float64, got {a.dtype}")
-    fn = getattr(kernel_guard.load("symv"), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    fn = _bind(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
     n = a.shape[0]
     v = v.contiguous()
-    part = torch.empty((-(-n // TILE), n), dtype=a.dtype, device=a.device)
+    part = _scratch(n, 1, a.dtype, a.device)
     y = torch.empty((n,), dtype=a.dtype, device=a.device)
-    status = fn(
-        a.data_ptr(), a.stride(0), n, v.data_ptr(), part.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    status = fn(a.data_ptr(), a.stride(0), n, v.data_ptr(), part.data_ptr(), y.data_ptr(),
+                torch.cuda.current_stream(a.device).cuda_stream)
     kernel_guard.check(status, "symv launch")
     symv.launches += 1
     return y
@@ -142,18 +173,14 @@ def hemv_planar(ar, ai, vr, vi, extent=None):
         return hemv_planar_plain(ar, ai, vr, vi)
     if ar.dtype != torch.float32:
         raise TypeError(f"the hemv_planar kernel takes float32, got {ar.dtype}")
-    fn = kernel_guard.load("symv").hemv_planar_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
+    fn = _bind("hemv_planar_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 5)
     n = ar.shape[0]
     vr, vi = vr.contiguous(), vi.contiguous()
-    part = torch.empty((2, -(-n // TILE), n), dtype=torch.float32, device=ar.device)
+    part = _scratch(n, 2, torch.float32, ar.device)
     y = torch.empty((2, n), dtype=torch.float32, device=ar.device)
-    status = fn(
-        ar.data_ptr(), ai.data_ptr(), ar.stride(0), n, vr.data_ptr(), vi.data_ptr(),
-        part.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(ar.device).cuda_stream,
-    )
+    status = fn(ar.data_ptr(), ai.data_ptr(), ar.stride(0), n, vr.data_ptr(), vi.data_ptr(),
+                part.data_ptr(), y.data_ptr(), torch.cuda.current_stream(ar.device).cuda_stream)
     kernel_guard.check(status, "hemv_planar launch")
     hemv_planar.launches += 1
     return y[0], y[1]

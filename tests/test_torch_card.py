@@ -181,6 +181,74 @@ def _rel(got, want):
     return float((got.double() - want.double()).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
+def _mv_operands(n, dtype, dev, seed):
+    """A symmetric n x n matrix, an antisymmetric one and two vectors."""
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((n, n))
+    up = np.triu(rng.standard_normal((n, n)), 1)
+    mats = [torch.tensor(x, dtype=dtype, device=dev) for x in ((t + t.T) / 2, up - up.T)]
+    vecs = [torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(2)]
+    return mats, vecs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["symv", "hemv_planar"])
+@pytest.mark.parametrize("c", [256, 511, 1023, 2047, 3071, 4095])
+def test_symv_kernels_at_the_solve_extents(cuda_device, kernel, c):
+    """K4 and K3 at the real one-stage solve's extents on the lda = 4096
+    view of a 4096^2 matrix: within 1e-4 relative of the plain version in
+    fp32 (another summation order)."""
+    (a, ai), (v, vi) = _mv_operands(4096, torch.float32, cuda_device, c)
+    if kernel == "symv":
+        got, want = symv(a, v, extent=c), symv_plain(a[:c, :c], v[:c])
+        assert got.shape == (c,) and _rel(got, want) <= 1e-4
+    else:
+        got = hemv_planar(a, ai, v, vi, extent=c)
+        want = hemv_planar_plain(a[:c, :c], ai[:c, :c], v[:c], vi[:c])
+        scale = max(float(w.abs().max()) for w in want)
+        for g, w in zip(got, want):
+            assert g.shape == (c,) and float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(1, torch.float32), (1, torch.float64),
+                                     (999, torch.float32), (999, torch.float64)])
+def test_symv_kernels_on_unaligned_rows(cuda_device, n, dtype):
+    """Contiguous n = 999 (rows not 16-byte aligned: the element copies)
+    and n = 1: K4 within 1e-4 (fp32) and 1e-12 (fp64) relative of the plain
+    version, K3 (fp32) within 1e-4."""
+    (a, ai), (v, vi) = _mv_operands(n, dtype, cuda_device, n)
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert _rel(symv(a, v), symv_plain(a, v)) <= tol
+    if dtype == torch.float32:
+        got, want = hemv_planar(a, ai, v, vi), hemv_planar_plain(a, ai, v, vi)
+        scale = max(float(w.abs().max()) for w in want)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [("symv", torch.float32), ("symv", torch.float64),
+                                          ("hemv_planar", torch.float32)])
+def test_symv_kernels_launch_once_and_repeat_their_bits(cuda_device, kernel, dtype):
+    """At most one kernel launch a call at n = 4096: five calls in one
+    profile record between one and five launches of the kernel (the
+    profiler loses device records now and then on the card, so not all five
+    are required; it never invents one), and the wrapper counts five; then
+    20 further calls with the first call's bits."""
+    (a, ai), (v, vi) = _mv_operands(4096, dtype, cuda_device, 20)
+    if kernel == "symv":
+        fn, key, counter = (lambda: (symv(a, v),)), "symv_kernel", symv
+    else:
+        fn, key, counter = (lambda: hemv_planar(a, ai, v, vi)), "hemv_planar_kernel", hemv_planar
+    first = fn()  # builds the kernel
+    before = counter.launches
+    _, launched, profiles = _device_launches(lambda: [fn() for _ in range(5)], key)
+    assert 1 <= launched <= 5 and counter.launches == before + 5 * profiles
+    for _ in range(20):
+        assert all(torch.equal(x, y) for x, y in zip(fn(), first))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,b,rb,dtype", [
     (512, 32, 448, torch.float32), (1000, 24, 500, torch.float32),

@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""Kernels K2 (csrc/latrd_panel.cu) and K9 (csrc/replay.cu) of this tree
-against their first designs, timed in turns in one process on one card.
+"""Redesigned kernels of this tree against their parents' sources, timed in
+turns in one process on one card.
 
     git archive <commit> | tar -x -C <dir>       # any directory
-    python3 tools/kernel_ab.py <dir>
+    python3 tools/kernel_ab.py <dir>             # K2 and K9 (<commit>: b9bcfb8)
+    python3 tools/kernel_ab.py --symv <dir>      # K3 and K4 (<commit>: 376279d)
 
-<dir> holds a checkout whose K2 is 65 launches a panel and whose K9 is one
-launch a wave over every slot of the JAX window layout, with the C entries
-in PARENT_ENTRIES (commit b9bcfb8 has them); the tool reads those entries
-from <dir>'s sources and refuses a checkout whose entries differ. Builds
-<dir>/eigensolver_gpu_torch/csrc/{latrd_panel,replay}.cu and this tree's
-sources, each into its own library under eigensolver_gpu_torch/build/ab/.
-Then, on the same inputs:
+<dir> holds a checkout whose C entries are those in PARENT_ENTRIES for the
+mode; the tool reads them from <dir>'s sources and refuses a checkout whose
+entries differ. Each source is built, the parent's and this tree's, into
+its own library under eigensolver_gpu_torch/build/ab/. Then, on the same
+inputs:
 
   K2 -- one panel at mb = pe = 4096, 2048 and 1024 (contiguous planes):
-        the parent's and this tree's kernel in turns (parent, new, new,
-        parent), CUDA-event ms of each turn, kernel launches a call by the
-        profiler, and the largest difference between the two outputs
-        relative to the parent's;
+        the parent's (65 launches a panel) and this tree's kernel in turns
+        (parent, new, new, parent), CUDA-event ms of each turn, kernel
+        launches a call by the profiler, and the largest difference between
+        the two outputs relative to the parent's;
   K9 -- n = m = 4096, b = 32, g = 96, fp32: the window passes (the
         parent's all-slots ``window_qs``, imported from <dir>, and this
         tree's ``window_store``) and the bare kernels on their prepared
         windows, in turns, with kernel launches a call by the profiler and
         whether the two kernels give the same bits; then 20 calls of
         this tree's kernel on the same inputs, fp32 (g = 96) and fp64
-        (g = b), and how many give other bits than the first.
+        (g = b), and how many give other bits than the first;
+  K4 -- (--symv) fp32 at n = 4096 and at the real one-stage solve's
+        extents 256, 511, 1023, 2047, 3071 and 4095 on the lda = 4096 view,
+        and fp64 at n = 4096; K3 at n = 4096 and extents 2047 and 4095: the
+        parent's (two launches a call) and this tree's kernel in turns, warm
+        (CUDA events over back-to-back calls) and cold (the profiler's
+        kernel durations, a 256 MB buffer written and read before each
+        call), torch.mv on the same view, kernel launches a call, and
+        whether the two give the same bits; at c = 4096 and 2047 also the
+        variants of this tree's source in SYMV_VARIANTS beside it, in
+        turns; then K4's device total over one
+        real one-stage dsygvdx solve (n = 4096, iu = 512, fp32 pipeline,
+        use_pallas=True) with the solve's device busy time, the parent's
+        kernel (through a wrapper of this tool in place of ops/symv.symv)
+        and this tree's in turns.
 
 Prints one line a measurement with the card's name and power limit first.
 Needs a CUDA device and nvcc.
@@ -48,25 +61,50 @@ sys.path.insert(0, str(ROOT))
 from eigensolver_gpu_torch.utils import kernel_guard  # noqa: E402
 from eigensolver_gpu_torch.utils.timer import device_ms  # noqa: E402
 
-# the C entries of the first designs that this tool calls, as declared
+# the C entries of the parents that this tool calls, as declared, by mode
 PARENT_ENTRIES = {
-    "latrd_panel.cu": "latrd_panel_planar_launch(const float* ar, const float* ai, int lda, "
-                      "int mb, int pe, int nb, float* pan, float* scal, float* y, void* stream)",
-    "replay.cu": "apply_q2_f32_launch(const float* qw, float* y, int ldy, int n, int m, int b, "
-                 "int g, int n_waves, int n_slots, void* stream)",
+    "k2k9": [
+        ("latrd_panel.cu", "latrd_panel_planar_launch(const float* ar, const float* ai, "
+                           "int lda, int mb, int pe, int nb, float* pan, float* scal, float* y, "
+                           "void* stream)"),
+        ("replay.cu", "apply_q2_f32_launch(const float* qw, float* y, int ldy, int n, int m, "
+                      "int b, int g, int n_waves, int n_slots, void* stream)"),
+    ],
+    # the two-launch design, whose scratch is planes x ceil(n / 64) x n
+    "symv": [
+        ("symv.cu", "symv_f32_launch(const float* a, int lda, int n, const float* v, "
+                    "float* part, float* y, void* stream)"),
+        ("symv.cu", "symv_f64_launch(const double* a, int lda, int n, const double* v, "
+                    "double* part, double* y, void* stream)"),
+        ("symv.cu", "hemv_planar_launch(const float* ar, const float* ai, int lda, int n, "
+                    "const float* vr, const float* vi, float* part, float* y, void* stream)"),
+    ],
 }
 
+# variants of this tree's csrc/symv.cu, timed beside it in the --symv mode:
+# (name, what, [(text, replacement), ...])
+SYMV_VARIANTS = [
+    ("stages4", "a ring of 4 stages for every type (3 blocks a SM for K4 fp32, 1 for fp64 and K3)",
+     [("static constexpr int kStages = 24 / (P * sizeof(T));",
+       "static constexpr int kStages = 4;")]),
+    ("uniform", "runs of ceil(tiles / blocks) tiles (the last blocks shorter or empty) in "
+     "place of the even split",
+     [("return b * tiles / blocks;", "return min(b * ((tiles + blocks - 1) / blocks), tiles);"),
+      ("return ((t + 1) * blocks - 1) / tiles;", "return t / ((tiles + blocks - 1) / blocks);")]),
+]
 
-def _check_parent(csrc: pathlib.Path):
-    """Raise unless <dir>'s sources declare PARENT_ENTRIES as they are."""
-    for name, want in PARENT_ENTRIES.items():
+def _check_parent(csrc: pathlib.Path, mode: str):
+    """Raise unless <dir>'s sources declare the mode's PARENT_ENTRIES as they
+    are (and, for the two-launch symv, no symv_part_elems)."""
+    for name, want in PARENT_ENTRIES[mode]:
         text = " ".join((csrc / name).read_text().split())
         fn = want[: want.index("(")]
         at = text.find(f'extern "C" int {fn}(')
         got = text[at + len('extern "C" int '): text.index(")", at) + 1] if at >= 0 else None
-        if got != want:
-            raise SystemExit(f"kernel_ab: {csrc / name} declares {got!r}, not {want!r}: "
-                             "this tool calls only the first designs' C entries")
+        if got != want or (mode == "symv" and "symv_part_elems" in text):
+            raise SystemExit(f"kernel_ab: {csrc / name} declares {got!r}, not {want!r} "
+                             "(or has symv_part_elems): this tool calls only the parents' C "
+                             "entries")
 
 
 def _build(src: pathlib.Path, tag: str) -> ctypes.CDLL:
@@ -254,28 +292,174 @@ def k9_repeat(lib, dev, calls=20):
         del outs, store
 
 
+def _mv_entries(lib):
+    V, I = ctypes.c_void_p, ctypes.c_int
+    for name in ("symv_f32_launch", "symv_f64_launch"):
+        getattr(lib, name).argtypes = [V, I, I, V, V, V, V]
+    lib.hemv_planar_launch.argtypes = [V, V, I, I, V, V, V, V, V]
+    if hasattr(lib, "symv_part_elems"):
+        lib.symv_part_elems.argtypes = [I, I]
+        lib.symv_part_elems.restype = ctypes.c_longlong
+
+
+def _mv_call(lib, mats, vecs, c):
+    """A caller of one library's K4 (one matrix) or K3 (two planes) on the
+    leading c x c block of ``mats`` and the heads of ``vecs``; the scratch
+    and y are made anew each call, as the wrapper does. The parent's
+    scratch is planes x ceil(c / 64) x c; this tree's symv_part_elems."""
+    a, planes = mats[0], len(mats)
+    stream = torch.cuda.current_stream().cuda_stream
+    if planes == 2:
+        fn = lib.hemv_planar_launch
+    else:
+        fn = lib.symv_f64_launch if a.dtype == torch.float64 else lib.symv_f32_launch
+    new = hasattr(lib, "symv_part_elems")
+
+    def call():
+        elems = lib.symv_part_elems(c, planes) if new else planes * -(-c // 64) * c
+        part = torch.empty(elems, dtype=a.dtype, device=a.device)
+        y = torch.empty(planes * c, dtype=a.dtype, device=a.device)
+        status = fn(*(m.data_ptr() for m in mats), a.stride(0), c,
+                    *(x.data_ptr() for x in vecs), part.data_ptr(), y.data_ptr(), stream)
+        kernel_guard.check(status, "symv A/B launch")
+        return y
+
+    return call
+
+
+def mv_ab(parent_lib, new_lib, dev, variants):
+    """K4 and K3: the parent and this tree in turns, warm and cold, with
+    torch.mv on the same view; at c = 4096 and 2047 also this tree beside
+    each of SYMV_VARIANTS (library by name), in turns."""
+    from chip_smoke import _cold_ms, _mv_bound
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+
+    for lib in (parent_lib, new_lib, *variants.values()):
+        _mv_entries(lib)
+    rng = np.random.default_rng(12)
+    t = rng.standard_normal((4096, 4096))
+    a64 = torch.tensor((t + t.T) / 2, device=dev)
+    v64 = torch.tensor(rng.standard_normal(4096), device=dev)
+    a32, v32 = a64.float(), v64.float()
+    up = torch.triu(torch.tensor(rng.standard_normal((4096, 4096)), device=dev).float(), 1)
+    ai, vi = up - up.T, torch.tensor(rng.standard_normal(4096), device=dev).float()
+    ac, vc = torch.complex(a32, ai), torch.complex(v32, vi)
+    del t, up
+    cases = [("K4 fp32", (a32,), (v32,), c) for c in (4096, 256, 511, 1023, 2047, 3071, 4095)]
+    cases += [("K4 fp64", (a64,), (v64,), 4096), ("K3", (a32, ai), (v32, vi), 4096),
+              ("K3", (a32, ai), (v32, vi), 2047), ("K3", (a32, ai), (v32, vi), 4095)]
+    for label, mats, vecs, c in cases:
+        views = tuple(m[:c, :c] for m in mats)
+        heads = tuple(x[:c] for x in vecs)
+        parent, new = _mv_call(parent_lib, views, heads, c), _mv_call(new_lib, views, heads, c)
+        yp, yn = parent().clone(), new().clone()
+        diff = float((yn - yp).abs().max()) / max(float(yp.abs().max()), 1e-30)
+        bnd, _ = _mv_bound(c, len(mats), itemsize=mats[0].element_size())
+        if len(mats) == 2:
+            lib_fn = lambda: torch.mv(ac[:c, :c], vc[:c])  # noqa: E731
+        else:
+            lib_fn = lambda: torch.mv(views[0], heads[0])  # noqa: E731
+        print(f"{label} c={c} (lda 4096): launches a call parent {_launches(parent, '')}, "
+              f"new {_launches(new, '')}; same bits {torch.equal(yp, yn)} (max relative "
+              f"difference {diff:.2e}); bound {bnd:.5f} ms (bytes)", flush=True)
+        _turns("  warm: parent (two launches)", parent, "new (one launch)", new, iters=100)
+        cold = [_cold_ms(torch, f) for f in (parent, new, new, parent)]
+        with true_fp32():
+            mv_warm = device_ms(lib_fn, iters=100)
+            mv_cold = _cold_ms(torch, lib_fn)
+        print(f"  cold: parent {cold[0]:.4f}, {cold[3]:.4f} ms; new {cold[1]:.4f}, {cold[2]:.4f} "
+              f"ms ({bnd / max(cold[1], cold[2]):.0%} of the bound); torch.mv on the view "
+              f"{mv_warm:.4f} warm, {mv_cold:.4f} cold", flush=True)
+        for name, lib in variants.items() if c in (4096, 2047) else ():
+            var = _mv_call(lib, views, heads, c)
+            warm = [device_ms(f, iters=100) for f in (new, var, var, new)]
+            cold = [_cold_ms(torch, f) for f in (new, var, var, new)]
+            print(f"  variant {name}: {warm[1]:.4f}, {warm[2]:.4f} ms warm, {cold[1]:.4f}, "
+                  f"{cold[2]:.4f} cold; new beside it {warm[0]:.4f}, {warm[3]:.4f} warm, "
+                  f"{cold[0]:.4f}, {cold[3]:.4f} cold", flush=True)
+
+
+def k4_solve(parent_lib, dev):
+    """K4's device total and the device busy time over one real one-stage
+    use_pallas=True solve, with the parent's kernel put in place of
+    ops/symv.symv by a wrapper of this tool, and with this tree's, in turns."""
+    from chip_smoke import _device_records
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.ops import sytrd
+    from eigensolver_gpu_torch.ops.symv import symv
+    from eigensolver_gpu_torch.utils.convert import dense_from_numpy
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
+
+    n, iu = 4096, 512
+    a, b = dense_from_numpy(*random_spd_pair(n, seed=0), device=dev, dtype=torch.float64)
+    cfg = SolverConfig(compute_dtype="float32", use_pallas=True)
+
+    def parent_symv(x, v, extent=None):
+        c = x.shape[0] if extent is None else int(extent)
+        return _mv_call(parent_lib, (x[:c, :c],), (v[:c].contiguous(),), c)()
+
+    def solve(which):
+        sytrd.symv = parent_symv if which == "parent" else symv
+        try:
+            return dsygvdx(a, b, il=1, iu=iu, cfg=cfg)
+        finally:
+            sytrd.symv = symv
+
+    for which in ("parent", "new"):  # warm-up
+        solve(which)
+    for which in ("parent", "new", "new", "parent"):
+        records = _device_records(torch, lambda: solve(which), ("symv",))
+        k4 = [ns for name, ns in records
+              if any(k in name for k in ("symv_tiles", "sum_partials", "symv_kernel"))]
+        print(f"K4 in one real one-stage solve (n={n}, iu={iu}, mp, use_pallas=True), {which}: "
+              f"{sum(k4) / 1e6:.3f} ms in {len(k4)} kernels; device busy "
+              f"{sum(ns for _, ns in records) / 1e6:.1f} ms over {len(records)} device records",
+              flush=True)
+
+
 def main():
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    mode = "symv" if args[:1] == ["--symv"] else "k2k9"
+    args = args[1:] if mode == "symv" else args
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    parent_dir = pathlib.Path(sys.argv[1]).resolve()
+    parent_dir = pathlib.Path(args[0]).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     parent_csrc = parent_dir / "eigensolver_gpu_torch" / "csrc"
-    _check_parent(parent_csrc)
+    _check_parent(parent_csrc, mode)
     csrc = kernel_guard.CSRC
-    jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd"),
-            (parent_csrc / "replay.cu", "parent_replay"),
-            (csrc / "latrd_panel.cu", "new_latrd"), (csrc / "replay.cu", "new_replay")]
+    dev = torch.device("cuda")
+    if mode == "symv":
+        jobs = [(parent_csrc / "symv.cu", "parent_symv"), (csrc / "symv.cu", "new_symv")]
+        text = (csrc / "symv.cu").read_text()
+        for name, _, subs in SYMV_VARIANTS:
+            variant = text
+            for old, new in subs:
+                if old not in variant:
+                    raise SystemExit(f"kernel_ab: variant {name}: {old!r} is not in symv.cu")
+                variant = variant.replace(old, new)
+            out = kernel_guard.BUILD / "ab" / f"symv_{name}.cu"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(variant)
+            jobs.append((out, f"symv_{name}"))
+    else:
+        jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd"),
+                (parent_csrc / "replay.cu", "parent_replay"),
+                (csrc / "latrd_panel.cu", "new_latrd"), (csrc / "replay.cu", "new_replay")]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: _build(*j), jobs))
-    dev = torch.device("cuda")
-    k2(libs[0], libs[2], dev)
-    k9(parent_dir, libs[1], libs[3], dev)
+    if mode == "symv":
+        mv_ab(libs[0], libs[1], dev, dict(zip((v[0] for v in SYMV_VARIANTS), libs[2:])))
+        k4_solve(libs[0], dev)
+    else:
+        k2(libs[0], libs[2], dev)
+        k9(parent_dir, libs[1], libs[3], dev)
     return 0
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes inside kernels K1 (csrc/pchol_block.cu), K2
 (csrc/latrd_panel.cu), K5 (csrc/ql_panel.cu), K6 (csrc/ql_panel_planar.cu),
-K7 (csrc/chase.cu), K8 (csrc/chase_planar.cu), K9 (csrc/replay.cu) and K10
-(csrc/replay_planar.cu) on the card, by phase.
+K7 (csrc/chase.cu), K8 (csrc/chase_planar.cu), K9 (csrc/replay.cu), K10
+(csrc/replay_planar.cu), K4 and K3 (csrc/symv.cu) on the card, by phase.
 
     python3 tools/kernel_phases.py
 
@@ -11,7 +11,8 @@ which one thread of block 0 (thread 0; for K9 also its producer thread)
 reads clock64() after every block, cluster or grid barrier, runs K1 at
 nb = 128, K2 at mb = pe = 4096, K5 and K6 at the main paths' largest panel
 ((4096, 32), rb = 4032, fp32), K7 and K8 at n = 4096, b = 32, fp32, and K9
-and K10 at n = m = 4096, b = 32, g = 96, fp32, and prints, for each mark of
+and K10 at n = m = 4096, b = 32, g = 96, fp32, K4 (fp32) and K3 at n = 4096
+(marked by block 100), and prints, for each mark of
 the source, the SM cycles spent before it summed over the run and how often
 it was reached. The committed kernels carry no instrumentation; the marks
 cost the marking thread a few dozen cycles each. Needs a CUDA device and
@@ -27,7 +28,10 @@ before the barrier after the flag wait is the wait; for K9 and K10 the wait
 for a chunk's copies, the refill and the FMA loop of a chunk, so that a
 window's time splits into staging waits, barriers, copy issue, FMAs and
 write-back; K9's copies are asked for by its producer warp, split apart:
-the wait for a window's signal, the wait for a free stage, the copy issue);
+the wait for a window's signal, the wait for a free stage, the copy issue;
+for K4 and K3 the copy issue, the FMAs and the partial writes of a tile,
+the grid barrier and the finishing sums, so that a tile's time splits into
+staging wait, copy issue, FMAs and partial writes);
 a barrier written behind an ``if`` on the same line is not marked, and its
 time falls to the next mark. Each reported line is printed with its text,
 so the output names what it timed whatever the source's line numbers are.
@@ -51,7 +55,7 @@ _MARKS = 1 << 17  # K7 and K8 mark about 7 a timestep, 12 280 timesteps
 _HEADER = """__device__ long long g_mark_t[{marks}];
 __device__ int g_mark_line[{marks}];
 __device__ int g_marks;
-#define MARK() do {{ if (threadIdx.x == {thread} && blockIdx.x == 0) {{ const int n_ = g_marks++; \\
+#define MARK() do {{ if (threadIdx.x == {thread} && blockIdx.x == {block}) {{ const int n_ = g_marks++; \\
   if (n_ < {marks}) {{ g_mark_t[n_] = clock64(); g_mark_line[n_] = __LINE__; }} }} }} while (0)
 extern "C" int marks_read(long long* t, int* line, int* n) {{
   cudaMemcpyFromSymbol(t, g_mark_t, sizeof(g_mark_t));
@@ -65,13 +69,13 @@ extern "C" int marks_reset() {{
 """
 
 
-def build(name: str, *after: str, thread: str = "0"):
+def build(name: str, *after: str, thread: str = "0", block: int = 0):
     """The instrumented library of csrc/<name>.cu, marked by ``thread`` of
-    block 0 after its barriers and after the lines equal to ``after``, and a
-    map from its line numbers to the source's."""
+    ``block`` after its barriers and after the lines equal to ``after``, and
+    a map from its line numbers to the source's."""
     src = (kernel_guard.CSRC / f"{name}.cu").read_text()
     lines = src.splitlines()
-    header = _HEADER.format(marks=_MARKS, thread=thread)
+    header = _HEADER.format(marks=_MARKS, thread=thread, block=block)
     out = []
     for line in lines:
         for sync in ("__syncthreads();", "cluster.sync();", "grid.sync();"):
@@ -86,6 +90,7 @@ def build(name: str, *after: str, thread: str = "0"):
     where = kernel_guard.BUILD / "phases"
     where.mkdir(parents=True, exist_ok=True)
     tag = "" if thread == "0" else "_t" + "".join(ch for ch in thread if ch.isalnum())
+    tag += "" if block == 0 else f"_b{block}"
     cu, so = where / f"{name}{tag}.cu", where / f"lib{name}{tag}.so"
     cu.write_text(text)
     cmd = [kernel_guard._nvcc(), *kernel_guard.NVCC_FLAGS, "-o", str(so), str(cu)]
@@ -304,6 +309,40 @@ def main():
         report(lib, lines, to_source,
                f"K9 n={n} m={m} b={b} g={g} fp32 (block 0: columns 0-31, {who}, "
                f"{row0.numel()} windows)")
+
+    # K4 and K3: block 100 (of 264 at n = 4096), whose tiles lie
+    # inside column strips; the marks split a tile into the staging wait
+    # (with the barrier), the copy issue, the FMAs and the partial writes,
+    # then the grid barrier's wait and the finishing sums
+    lib, lines, to_source = build(
+        "symv", "T* red = smem + C::kStages * C::kStageElems;", "cp_async_commit();",
+        "tile_products<T, P>(smem + (k % C::kStages) * C::kStageElems, tx, ty, s, acc);",
+        "if (++ci > cj) ++cj, ci = 0;", "cg::this_grid().sync();",
+        "finish(g, red);", block=100)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    lib.symv_part_elems.argtypes = [I, I]
+    lib.symv_part_elems.restype = ctypes.c_longlong
+    lib.symv_f32_launch.argtypes = [V, I, I, V, V, V, V]
+    lib.hemv_planar_launch.argtypes = [V, V, I, I, V, V, V, V, V]
+    n = 4096
+    t = torch.tensor(rng.standard_normal((2, n, n)), dtype=torch.float32, device=dev)
+    vv = torch.tensor(rng.standard_normal((2, n)), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for planes, label in ((1, f"K4 n={n} fp32"), (2, f"K3 n={n}")):
+        part = torch.empty(lib.symv_part_elems(n, planes), device=dev)
+        y = torch.empty(planes * n, device=dev)
+        for _ in range(2):
+            lib.marks_reset()
+            if planes == 1:
+                status = lib.symv_f32_launch(t[0].data_ptr(), n, n, vv[0].data_ptr(),
+                                             part.data_ptr(), y.data_ptr(), stream)
+            else:
+                status = lib.hemv_planar_launch(t[0].data_ptr(), t[1].data_ptr(), n, n,
+                                                vv[0].data_ptr(), vv[1].data_ptr(),
+                                                part.data_ptr(), y.data_ptr(), stream)
+            kernel_guard.check(status, "instrumented symv launch")
+            torch.cuda.synchronize()
+        report(lib, lines, to_source, f"{label} (block 100, thread 0)")
     return 0
 
 
