@@ -344,7 +344,7 @@ def _mv_bound(n, planes, itemsize=4):
     return bound(nbytes, flops)
 
 
-_FLUSH = {}
+_FLUSH_KERNELS = set()  # device record names of the flush
 
 
 def _cold_ms(torch, fn, iters=20):
@@ -352,23 +352,23 @@ def _cold_ms(torch, fn, iters=20):
     before each call a FLUSH_BYTES buffer is written and then read (so the
     50 MB L2 holds none of the operands and no dirty line of the buffer),
     and only the call's own kernels are summed, each by its duration in the
-    profiler's device records."""
-    if "buf" not in _FLUSH:
-        _FLUSH["buf"] = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    profiler's device records. The buffer is freed on return, so it counts
+    in no later peak-memory reading."""
+    buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
 
     def flush():
-        _FLUSH["buf"].fill_(1.0)
-        return _FLUSH["buf"].sum()
+        buf.fill_(1.0)
+        return buf.sum()
 
-    if "names" not in _FLUSH:
-        _FLUSH["names"] = {name for name, _ in _device_records(torch, flush)}
+    if not _FLUSH_KERNELS:
+        _FLUSH_KERNELS.update(name for name, _ in _device_records(torch, flush))
 
     def run():
         for _ in range(iters):
             flush()
             fn()
 
-    ns = [ns for name, ns in _device_records(torch, run) if name not in _FLUSH["names"]]
+    ns = [ns for name, ns in _device_records(torch, run) if name not in _FLUSH_KERNELS]
     return sum(ns) / 1e6 / iters
 
 
@@ -518,11 +518,11 @@ def check_k3(torch):
             raise RuntimeError(f"K3 disagrees with its plain version at {label}")
     _same_bits(torch, lambda: hemv_planar(ar, ai, vr, vi), "K3 n=4096")
     _one_launch(torch, lambda: hemv_planar(ar, ai, vr, vi), "hemv_planar_kernel", "K3 n=4096")
-    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=1000)
+    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=100)
     plain_ms = device_ms(lambda: hemv_planar_plain(ar, ai, vr, vi), iters=2)
     ac, vc = torch.complex(ar, ai), torch.complex(vr, vi)
     with true_fp32():
-        library_ms = device_ms(lambda: torch.mv(ac, vc), iters=1000)
+        library_ms = device_ms(lambda: torch.mv(ac, vc), iters=100)
     bound_ms, bound_by = _mv_bound(4096, 2)
     log(f"K3 times at n=4096 fp32: kernel {ms:.4f} ms warm, plain {plain_ms:.3f} ms, "
         f"library (torch.mv, complex64, full matrix) {library_ms:.4f} ms warm, "
@@ -1481,8 +1481,12 @@ def phase_main_real(torch):
                                     kernels=("symv_kernel",) if use_pallas else ())
         if use_pallas:
             k4_ms, k4_n = totals["symv_kernel"]
+            # the kernel's calls: extents mb-256 .. mb-1 of each 512-aligned bucket
+            k4_bound = sum(_mv_bound(c, 1)[0] for mb in range(512, n + 1, 512)
+                           for c in range(mb - 256, mb))
             log(f"  K4 over one solve (kineto): {k4_ms:.3f} ms in {k4_n} launches, "
-                f"{k4_ms / max(k4_n, 1) * 1e3:.2f} us a launch")
+                f"{k4_ms / max(k4_n, 1) * 1e3:.2f} us a launch; its calls' bound "
+                f"{k4_bound:.2f} ms (bytes)")
         # the fp32 pipeline's sygvdx range holds Cholesky, sygst, syevdx
         # and the phase-4 solve; syevdx holds sytrd, stedc and unmtr
         log(f"  Cholesky + sygst + phase 4: {stages['sygvdx'] - stages['syevdx']:.1f} ms")

@@ -31,9 +31,7 @@ inputs:
         (CUDA events over back-to-back calls) and cold (the profiler's
         kernel durations, a 256 MB buffer written and read before each
         call), torch.mv on the same view, kernel launches a call, and
-        whether the two give the same bits; at c = 4096 and 2047 also the
-        variants of this tree's source in SYMV_VARIANTS beside it, in
-        turns; then K4's device total over one
+        whether the two give the same bits; then K4's device total over one
         real one-stage dsygvdx solve (n = 4096, iu = 512, fp32 pipeline,
         use_pallas=True) with the solve's device busy time, the parent's
         kernel (through a wrapper of this tool in place of ops/symv.symv)
@@ -81,17 +79,6 @@ PARENT_ENTRIES = {
     ],
 }
 
-# variants of this tree's csrc/symv.cu, timed beside it in the --symv mode:
-# (name, what, [(text, replacement), ...])
-SYMV_VARIANTS = [
-    ("stages4", "a ring of 4 stages for every type (3 blocks a SM for K4 fp32, 1 for fp64 and K3)",
-     [("static constexpr int kStages = 24 / (P * sizeof(T));",
-       "static constexpr int kStages = 4;")]),
-    ("uniform", "runs of ceil(tiles / blocks) tiles (the last blocks shorter or empty) in "
-     "place of the even split",
-     [("return b * tiles / blocks;", "return min(b * ((tiles + blocks - 1) / blocks), tiles);"),
-      ("return ((t + 1) * blocks - 1) / tiles;", "return t / ((tiles + blocks - 1) / blocks);")]),
-]
 
 def _check_parent(csrc: pathlib.Path, mode: str):
     """Raise unless <dir>'s sources declare the mode's PARENT_ENTRIES as they
@@ -327,14 +314,13 @@ def _mv_call(lib, mats, vecs, c):
     return call
 
 
-def mv_ab(parent_lib, new_lib, dev, variants):
+def mv_ab(parent_lib, new_lib, dev):
     """K4 and K3: the parent and this tree in turns, warm and cold, with
-    torch.mv on the same view; at c = 4096 and 2047 also this tree beside
-    each of SYMV_VARIANTS (library by name), in turns."""
+    torch.mv on the same view."""
     from chip_smoke import _cold_ms, _mv_bound
     from eigensolver_gpu_torch.utils.precision import true_fp32
 
-    for lib in (parent_lib, new_lib, *variants.values()):
+    for lib in (parent_lib, new_lib):
         _mv_entries(lib)
     rng = np.random.default_rng(12)
     t = rng.standard_normal((4096, 4096))
@@ -370,13 +356,6 @@ def mv_ab(parent_lib, new_lib, dev, variants):
         print(f"  cold: parent {cold[0]:.4f}, {cold[3]:.4f} ms; new {cold[1]:.4f}, {cold[2]:.4f} "
               f"ms ({bnd / max(cold[1], cold[2]):.0%} of the bound); torch.mv on the view "
               f"{mv_warm:.4f} warm, {mv_cold:.4f} cold", flush=True)
-        for name, lib in variants.items() if c in (4096, 2047) else ():
-            var = _mv_call(lib, views, heads, c)
-            warm = [device_ms(f, iters=100) for f in (new, var, var, new)]
-            cold = [_cold_ms(torch, f) for f in (new, var, var, new)]
-            print(f"  variant {name}: {warm[1]:.4f}, {warm[2]:.4f} ms warm, {cold[1]:.4f}, "
-                  f"{cold[2]:.4f} cold; new beside it {warm[0]:.4f}, {warm[3]:.4f} warm, "
-                  f"{cold[0]:.4f}, {cold[3]:.4f} cold", flush=True)
 
 
 def k4_solve(parent_lib, dev):
@@ -437,17 +416,6 @@ def main():
     dev = torch.device("cuda")
     if mode == "symv":
         jobs = [(parent_csrc / "symv.cu", "parent_symv"), (csrc / "symv.cu", "new_symv")]
-        text = (csrc / "symv.cu").read_text()
-        for name, _, subs in SYMV_VARIANTS:
-            variant = text
-            for old, new in subs:
-                if old not in variant:
-                    raise SystemExit(f"kernel_ab: variant {name}: {old!r} is not in symv.cu")
-                variant = variant.replace(old, new)
-            out = kernel_guard.BUILD / "ab" / f"symv_{name}.cu"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            out.write_text(variant)
-            jobs.append((out, f"symv_{name}"))
     else:
         jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd"),
                 (parent_csrc / "replay.cu", "parent_replay"),
@@ -455,7 +423,7 @@ def main():
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: _build(*j), jobs))
     if mode == "symv":
-        mv_ab(libs[0], libs[1], dev, dict(zip((v[0] for v in SYMV_VARIANTS), libs[2:])))
+        mv_ab(libs[0], libs[1], dev)
         k4_solve(libs[0], dev)
     else:
         k2(libs[0], libs[2], dev)
