@@ -16,7 +16,9 @@ non-zero without printing a result:
                 and planar, K7 and K8 bulge chase, K9 and K10 chase
                 replay) against its plain PyTorch version on the same
                 inputs on the card, with times of kernel, plain version
-                and a library yardstick; K3 also through the planar column
+                and a library yardstick; K1 also on a batch of 64 blocks in
+                one launch (each item bit-identical to its unbatched launch);
+                K3 also through the planar column
                 loop that launches it; K3 and K4 also at the real solve's
                 extents on lda=4096 views, n=999 and n=1, with one launch a
                 call (profiler), 20 calls with the first call's bits, and
@@ -46,7 +48,16 @@ non-zero without printing a result:
                 planar bulge chase (K8), phase normalisation, replay (K10,
                 one launch a solve by the profiler; its window-store bytes
                 logged) and apply_q1_planar, then one n=1024 solve with
-                mosaic_kernels=False (no launch of K1, K6, K8, K10).
+                mosaic_kernels=False (no launch of K1, K6, K8, K10);
+ 10. main (batched) -- the k-point batch: zhegvdx_planar_batched on 64
+                distinct pairs random_hpd_pair(1024, seed=k), iu=128, mp,
+                with chunk None and 8: residual over every item, info, K1
+                launches (8 a batched solve, one a block step for all 64
+                problems; the profiler too), wall ms a batch and a problem,
+                busy ms, idle share and peak memory; items 0, 21, 42, 63
+                against the unbatched solve; a batch of 4 with a non-PD B in
+                item 2; then sygvdx_batched on 64 x random_spd_pair(1024),
+                iu=64, mp, two items against the unbatched solve.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -69,7 +80,10 @@ N_MAIN, IU_MAIN = 4096, 1024
 N_REF, IU_REF = 1024, 256
 N_REAL, IU_REAL = 4096, 512  # BASELINE config 2
 N_REF_REAL, IU_REF_REAL = 1024, 64  # BASELINE config 1
+N_BATCHED, IU_BATCHED = 1024, 128  # BASELINE config 4: 64 k-points, iu = n / 8
+IU_BATCHED_REAL = 64
 K1_TOL = 1e-4  # relative max error, fp32, different summation order
+K1_BATCH = 64  # the k-point batch of phase 10
 K2_TOL = 1e-3  # relative max error, fp32 sums of length <= 4096 in another order
 MV_TOL = 1e-4  # K3, K4 in fp32: sums of length <= 4096 in another order
 MV_TOL64 = 1e-12  # K4 in fp64
@@ -225,12 +239,7 @@ def check_k1(torch):
 
     library_ms = device_ms(library, iters=50)
     # work the kernel must do for this block: factor + inverse, complex
-    flops = 0
-    for j in range(nb):
-        m = nb - 1 - j
-        flops += 2 * m + 8 * m * (m + 1) // 2  # scale column, lower downdate
-        flops += 2 * (j + 1) + 8 * m * (j + 1)  # inverse row, downdate
-    nbytes = 4 * (2 + 4) * nb * nb + 4
+    nbytes, flops = _k1_work(nb)
     bound_ms, bound_by = bound(nbytes, flops)
     log(f"K1 times at nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"library (cholesky_ex + solve_triangular, complex64) {library_ms:.4f} ms, "
@@ -242,6 +251,96 @@ def check_k1(torch):
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def _k1_work(nb):
+    """(bytes, flops) one K1 call must move and do for an nb block:
+    factor + inverse, complex; the input planes read once, the four output
+    planes and fail written once."""
+    flops = 0
+    for j in range(nb):
+        m = nb - 1 - j
+        flops += 2 * m + 8 * m * (m + 1) // 2  # scale column, lower downdate
+        flops += 2 * (j + 1) + 8 * m * (j + 1)  # inverse row, downdate
+    return 4 * (2 + 4) * nb * nb + 4, flops
+
+
+def check_k1_batched(torch, entry):
+    """K1 on a batch of K1_BATCH blocks in one launch (the batched Cholesky's
+    block step): each item bit-identical to the unbatched launch on it,
+    within K1_TOL of the plain version, fail exact, one kernel a call
+    (profiler); its time against the bound of the batch's work and the
+    library's batched pair. Adds the readings to K1's entry under
+    "batched"."""
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_plain, pchol_block_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    dev, batch, nb = "cuda", K1_BATCH, 128
+    rng = np.random.default_rng(11)
+    max_abs = 0.0
+    for width, bad in ((nb, 37), (100, 64)):
+        t = rng.standard_normal((batch, width, width)) + 1j * rng.standard_normal(
+            (batch, width, width))
+        a = t @ t.conj().transpose(0, 2, 1) + width * np.eye(width)
+        a[5, bad, bad] = -1e4  # one bad pivot in one item
+        # the leading rows of (batch, 2 width, width) panels: batch and row strides
+        pan = np.concatenate([a, np.zeros_like(a)], 1)
+        f = lambda x: torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+        dr, di = f(pan.real)[:, :width], f(pan.imag)[:, :width]
+        pchol_block_planar.launches = 0
+        got = pchol_block_planar(dr, di)
+        want = pchol_block_plain(dr, di)
+        torch.cuda.synchronize()
+        if pchol_block_planar.launches != 1:
+            raise RuntimeError("batched K1 took more than one launch")
+        fails = got[4].cpu().tolist()
+        if fails != want[4].cpu().tolist() or fails != [0] * 5 + [bad + 1] + [0] * (batch - 6):
+            raise RuntimeError(f"batched K1 fail {fails}")
+        same, worst = True, 0.0
+        for k in range(batch):
+            one = pchol_block_planar(dr[k], di[k])
+            same &= all(bool(((x[k] == y) | (x[k].isnan() & y.isnan())).all())
+                        for x, y in zip(got, one))
+            c = bad if k == 5 else width
+            held = [(x[k][:, :c], y[k][:, :c]) for x, y in zip(got[:2], want[:2])]
+            held += [(x[k][:c, :c], y[k][:c, :c]) for x, y in zip(got[2:4], want[2:4])]
+            for g, w in held:
+                rel, err = rel_err(g, w)
+                worst = max(worst, rel)
+                max_abs = max(max_abs, err)
+        log(f"K1 batched batch={batch} nb={width} (bad pivot in item 5 at row {bad}): "
+            f"fail exact, one launch, every item bit-identical to its unbatched launch: "
+            f"{same}, rel_err vs plain {worst:.2e}")
+        if not same or not worst <= K1_TOL:
+            raise RuntimeError(f"batched K1 disagrees (nb={width})")
+    t = rng.standard_normal((batch, nb, nb)) + 1j * rng.standard_normal((batch, nb, nb))
+    a = t @ t.conj().transpose(0, 2, 1) + nb * np.eye(nb)
+    dr = torch.tensor(a.real, dtype=torch.float32, device=dev)
+    di = torch.tensor(a.imag, dtype=torch.float32, device=dev)
+    _, kernels = _kineto(torch, lambda: pchol_block_planar(dr, di), "pchol")
+    if kernels != 1:
+        raise RuntimeError(f"a batched K1 call ran {kernels} kernels (profiler), want 1")
+    ms = device_ms(lambda: pchol_block_planar(dr, di), iters=20)
+    plain_ms = device_ms(lambda: pchol_block_plain(dr, di), iters=2)
+    zc = torch.complex(dr, di)
+    eye = torch.eye(nb, dtype=zc.dtype, device=dev)
+
+    def library():
+        l, _ = torch.linalg.cholesky_ex(zc)
+        return torch.linalg.solve_triangular(l, eye, upper=False)
+
+    library_ms = device_ms(library, iters=20)
+    nbytes, flops = _k1_work(nb)
+    bound_ms, bound_by = bound(batch * nbytes, batch * flops)
+    log(f"K1 batched times at batch={batch} nb={nb}: kernel {ms:.4f} ms ({ms / batch * 1e3:.2f} us "
+        f"an item; one block {entry['ms']:.4f} ms), plain {plain_ms:.3f} ms, library "
+        f"(batched cholesky_ex + solve_triangular, complex64) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}); one kernel a call (profiler)")
+    entry["batched"] = {"batch": batch, "nb": nb, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                        "max_abs_err": max_abs}
 
 
 def _k2_work(mb, pe, nb):
@@ -1302,15 +1401,17 @@ def _window_store_mb(n, b, g):
 
 def _device_residual(torch, args, res):
     """bench.py's residual of the complex problem, in planar arithmetic on
-    the device: max_k ||A z_k - w_k B z_k|| / (n * max row 1-norm of A)."""
+    the device: max_k ||A z_k - w_k B z_k|| / (n * max row 1-norm of A);
+    for a batch (leading axis) each item against its own A, the largest
+    item's value returned."""
     ar, ai, br, bi = args
     w, zr, zi = res.w, res.zr, res.zi
-    n = ar.shape[0]
-    rr = ar @ zr - ai @ zi - (br @ zr - bi @ zi) * w[None, :]
-    ri = ar @ zi + ai @ zr - (br @ zi + bi @ zr) * w[None, :]
-    r2 = torch.sum(rr * rr + ri * ri, dim=0)
-    anorm = torch.max(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=1))
-    return float(torch.max(torch.sqrt(r2)) / (n * anorm))
+    n = ar.shape[-1]
+    rr = ar @ zr - ai @ zi - (br @ zr - bi @ zi) * w[..., None, :]
+    ri = ar @ zi + ai @ zr - (br @ zi + bi @ zr) * w[..., None, :]
+    r2 = torch.sum(rr * rr + ri * ri, dim=-2)
+    anorm = torch.amax(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=-1), dim=-1)
+    return float(torch.max(torch.amax(torch.sqrt(r2), dim=-1) / (n * anorm)))
 
 
 def _breakdown(torch, solve, wall, kernels=()):
@@ -1667,6 +1768,165 @@ def phase_main_planar_two(torch):
         "ql_panel_planar", "bulge_chase_planar_kernel", "apply_q2_planar_kernel")}
 
 
+def _held_items(torch, got, want, what):
+    """One batched item against its unbatched solve: eigenvalues within
+    1e-12 relative to max |w|, vectors phase-insensitively (compare_vectors)
+    within 1e-8. Returns (eigenvalue error, vector distance)."""
+    from eigensolver_gpu_torch.utils.testing import compare_vectors
+
+    gw, gz = got
+    ww, wz = want
+    werr = float((gw - ww).abs().max() / ww.abs().max())
+    vdist = compare_vectors(gz.cpu().numpy(), wz.cpu().numpy())
+    if not werr <= 1e-12 or not vdist <= 1e-8:
+        raise RuntimeError(f"{what}: eigenvalues {werr:.3e}, vectors {vdist:.3e} from the "
+                           f"unbatched solve")
+    return werr, vdist
+
+
+def phase_main_batched(torch):
+    """The k-point batch (BASELINE config 4): zhegvdx_planar_batched on 64
+    distinct pairs random_hpd_pair(1024, seed=k), il=1..iu=128, mode mp,
+    chunk None then 8; items 0, 21, 42, 63 against the unbatched solve;
+    then sygvdx_batched on 64 x random_spd_pair(1024, seed=k), iu=64, mp;
+    then a batch of 4 whose item 2 has a B that is not positive definite.
+    Returns K1's launches over one batched solve."""
+    import numpy as np
+
+    from eigensolver_gpu_torch import (
+        SolverConfig,
+        sygvdx,
+        sygvdx_batched,
+        zhegvdx_planar,
+        zhegvdx_planar_batched,
+    )
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.utils.testing import random_hpd_pair, random_spd_pair
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    batch, n, iu = K1_BATCH, N_BATCHED, IU_BATCHED
+    cfg = SolverConfig(compute_dtype="float32", refine_iters=2)
+    t0 = time.perf_counter()
+    pairs = [random_hpd_pair(n, seed=k) for k in range(batch)]
+    dev = lambda x: torch.tensor(np.stack(x), dtype=torch.float64, device="cuda")
+    args = (dev([p[0].real for p in pairs]), dev([p[0].imag for p in pairs]),
+            dev([p[1].real for p in pairs]), dev([p[1].imag for p in pairs]))
+    del pairs
+    log(f"main (batched): {batch} x random_hpd_pair({n}, seed=k) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want_k1 = n // 128
+
+    for chunk in (None, 8):
+        solve = lambda: zhegvdx_planar_batched(*args, il=1, iu=iu, cfg=cfg, chunk=chunk)
+        pchol_block_planar.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        k1 = pchol_block_planar.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        info = res.info.cpu().tolist()
+        resid = _device_residual(torch, args, res)
+        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
+                      and torch.isfinite(res.zi).all())
+        shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape),
+                  tuple(res.info.shape))
+        # the chunked solve is timed by its first call only (8 batched solves in turn)
+        times = wall_ms(solve, iters=1) if chunk is None else [first_ms]
+        log(f"main (batched) chunk={chunk}: {batch} x n={n} iu={iu} mp: info all 0: "
+            f"{set(info) == {0}}, residual (max over items) {resid:.3e}, first {first_ms:.1f} ms, "
+            f"timed {[round(x, 1) for x in times]} ms = {min(times) / batch:.2f} ms a problem, "
+            f"K1 launches {k1}, peak memory {peak:.2f} GiB")
+        if set(info) != {0} or not finite or not resid <= 1e-13:
+            raise RuntimeError(f"batched path wrong: info={info} finite={finite} residual={resid}")
+        if shapes != ((batch, iu), (batch, n, iu), (batch, n, iu), (batch,)):
+            raise RuntimeError(f"batched path shapes {shapes}")
+        chunks = 1 if chunk is None or chunk >= batch else batch // chunk
+        if k1 != want_k1 * chunks:
+            raise RuntimeError(f"K1 launched {k1} times, want {want_k1 * chunks}: one a block "
+                               f"step for the whole (chunk of the) batch")
+        if chunk is None:
+            batched_k1, full = k1, res
+            _, totals = _breakdown(torch, solve, min(times), kernels=("pchol",))
+            if totals["pchol"][1] != want_k1:
+                raise RuntimeError(f"one batched solve ran {totals['pchol'][1]} K1 kernels "
+                                   f"(kineto), want {want_k1}")
+        else:
+            for k in range(batch):  # the chunked solve is the same solve, chunk by chunk
+                _held_items(torch, (res.w[k], torch.complex(res.zr[k], res.zi[k])),
+                            (full.w[k], torch.complex(full.zr[k], full.zi[k])),
+                            f"chunk=8 item {k}")
+    del res
+
+    for k in (0, batch // 3, 2 * batch // 3, batch - 1):  # 0, 21, 42, 63
+        item = tuple(x[k] for x in args)
+        one = lambda: zhegvdx_planar(*item, il=1, iu=iu, cfg=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = one()
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        werr, vdist = _held_items(torch, (full.w[k], torch.complex(full.zr[k], full.zi[k])),
+                                  (single.w, torch.complex(single.zr, single.zi)), f"item {k}")
+        extra = ""
+        if k == 0:
+            extra = f"; its unbatched solve {min(wall_ms(one, iters=1)):.1f} ms (first {single_ms:.1f})"
+        log(f"  item {k} against its unbatched solve: eigenvalues {werr:.2e} relative, "
+            f"vectors {vdist:.2e}, info {int(single.info)}{extra}")
+
+    # the first four pairs with B not positive definite in item 2
+    bad = tuple(x[:4].clone() for x in args)
+    bad[2][2, 9, 9] = -50.0
+    res4 = zhegvdx_planar_batched(*bad, il=1, iu=iu, cfg=cfg)
+    one = zhegvdx_planar(*(x[2] for x in bad), il=1, iu=iu, cfg=cfg)
+    info4 = res4.info.cpu().tolist()
+    log(f"  batch of 4 with a non-PD B in item 2: info {info4}, unbatched item 2 info "
+        f"{int(one.info)}")
+    if info4[2] <= 0 or info4[2] != int(one.info) or info4[:2] + info4[3:] != [0, 0, 0]:
+        raise RuntimeError(f"non-PD item: info {info4}, unbatched {int(one.info)}")
+    for k in (0, 1, 3):  # as in the batch of 64
+        _held_items(torch, (res4.w[k], torch.complex(res4.zr[k], res4.zi[k])),
+                    (full.w[k], torch.complex(full.zr[k], full.zi[k])), f"non-PD batch item {k}")
+    del args, bad, res4, full
+
+    # the real k-point batch (BASELINE config 1, batched)
+    t0 = time.perf_counter()
+    pairs = [random_spd_pair(n, seed=k) for k in range(batch)]
+    a = torch.tensor(np.stack([p[0] for p in pairs]), device="cuda")
+    b = torch.tensor(np.stack([p[1] for p in pairs]), device="cuda")
+    del pairs
+    log(f"main (batched, real): {batch} x random_spd_pair({n}, seed=k) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    iu_r = IU_BATCHED_REAL
+    solve = lambda: sygvdx_batched(a, b, il=1, iu=iu_r, cfg=cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = wall_ms(solve, iters=1)
+    r = a @ res.z - (b @ res.z) * res.w[:, None, :]
+    anorm = torch.amax(torch.sum(a.abs(), dim=-1), dim=-1)
+    resid = float(torch.max(torch.amax(torch.linalg.vector_norm(r, dim=-2), dim=-1)
+                            / (n * anorm)))
+    info = res.info.cpu().tolist()
+    log(f"main (batched, real): {batch} x n={n} iu={iu_r} mp: info all 0: {set(info) == {0}}, "
+        f"residual {resid:.3e}, first {first_ms:.1f} ms, timed "
+        f"{[round(x, 1) for x in times]} ms = {min(times) / batch:.2f} ms a problem")
+    if set(info) != {0} or not resid <= 1e-13 or tuple(res.z.shape) != (batch, n, iu_r):
+        raise RuntimeError(f"batched real path wrong: info={info} residual={resid}")
+    for k in (0, batch - 1):
+        one = lambda: sygvdx(a[k], b[k], il=1, iu=iu_r, cfg=cfg)
+        single = one()
+        werr, vdist = _held_items(torch, (res.w[k], res.z[k]), (single.w, single.z),
+                                  f"real item {k}")
+        log(f"  real item {k} against its unbatched solve: eigenvalues {werr:.2e} relative, "
+            f"vectors {vdist:.2e}; unbatched {min(wall_ms(one, iters=1)):.1f} ms")
+    return batched_k1
+
+
 def phase_reference_real(torch):
     import numpy as np
     import scipy.linalg
@@ -1707,12 +1967,14 @@ def main():
         kernels = [check_k1(torch), check_k2(torch), check_k3(torch), check_k4(torch),
                    check_k5(torch), check_k6(torch), check_k7(torch), check_k8(torch),
                    check_k9(torch), check_k10(torch)]
+        check_k1_batched(torch, kernels[0])
         launches = phase_main(torch)
         phase_reference(torch)
         launches["symv"] = phase_main_real(torch)
         phase_reference_real(torch)
         launches.update(phase_main_real_two(torch))
         launches.update(phase_main_planar_two(torch))
+        kernels[0]["batched"]["launches"] = phase_main_batched(torch)
     except Exception:  # noqa: BLE001 -- report and fail the smoke run
         traceback.print_exc()
         return 1

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one (``eigensolver_gpu_tpu``), which
 stays the reference it is held against. It mirrors that package's
-layout (``models/ ops/ utils/``) so each module has one named twin, and
+layout (``models/ ops/ parallel/ utils/``) so each module has one named twin, and
 keeps its public contracts:
 
     >>> from eigensolver_gpu_torch import zhegvdx_planar, SolverConfig
@@ -19,6 +19,10 @@ use and a failure to build or launch raises), CPU tensors through the
 kernels' plain PyTorch versions. ``zhegvdx_planar_host`` takes complex
 numpy arrays and a ``device`` (the card by default), as do ``dsygvdx``
 and ``zhegvdx`` when they are given numpy arrays.
+
+Batches of problems (k-point batches) go to ``zhegvdx_planar_batched``
+and ``sygvdx_batched``: ``(batch, n, n)`` tensors in, results with a
+leading batch axis out.
 """
 
 from eigensolver_gpu_torch.models.syevdx import syevdx
@@ -26,8 +30,10 @@ from eigensolver_gpu_torch.models.sygvdx import SygvdxResult, dsygvdx, sygvdx, z
 from eigensolver_gpu_torch.models.zhegvdx_planar import (
     PlanarResult,
     zhegvdx_planar,
+    zhegvdx_planar_batched,
     zhegvdx_planar_host,
 )
+from eigensolver_gpu_torch.parallel.sharded import sygvdx_batched
 from eigensolver_gpu_torch.utils.config import SolverConfig
 
 __all__ = [
@@ -37,7 +43,9 @@ __all__ = [
     "dsygvdx",
     "syevdx",
     "sygvdx",
+    "sygvdx_batched",
     "zhegvdx",
     "zhegvdx_planar",
+    "zhegvdx_planar_batched",
     "zhegvdx_planar_host",
 ]

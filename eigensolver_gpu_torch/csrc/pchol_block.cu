@@ -1,7 +1,10 @@
 // Kernel K1: planar Cholesky of one HPD diagonal block, its inverse, and
 // the first bad pivot -- one thread block per diagonal block, launched once
 // per block step of the left-looking planar Cholesky
-// (eigensolver_gpu_torch/ops/planar.py::pcholesky_lower).
+// (eigensolver_gpu_torch/ops/planar.py::pcholesky_lower). A batch of
+// problems (one diagonal block each, at the same step) is one launch with a
+// grid of one block per problem: the block body is the same for every
+// item, so each item's outputs are those of a launch on that item alone.
 //
 // Replaces: eigensolver_gpu_tpu/ops/pchol_pallas.py::pchol_block_planar_pallas
 // (pallas_call at :129, body _pchol_block_kernel at :43).
@@ -10,6 +13,10 @@
 // and 4 x 128 x 128 out (384 KB, ~0.1 us of HBM time) and ~11 MFLOP, but
 // an unblocked factor and inverse are 2 x 128 dependent column steps, each
 // ending at a block barrier (about 1.5 us a step with 1024 threads).
+//
+// A batched launch (k-point batches: one problem a block, 220 KB of shared
+// memory, so one block a SM) runs up to 132 problems at once: the batch
+// pays the latency once a wave instead of once a problem.
 //
 // What the design does about it: blocked by 32-column block columns, so
 // only the diagonal blocks' 4 x 32 column steps are dependent block-wide
@@ -311,10 +318,19 @@ __device__ void invert_diag_block(const float* Tr, const float* Ti, const float*
 
 __global__ void __launch_bounds__(kThreads, 1)
 pchol_block_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
-                   int lda, int nb, float* __restrict__ ldr,
+                   int lda, long long sa, int nb, float* __restrict__ ldr,
                    float* __restrict__ ldi, float* __restrict__ invr,
-                   float* __restrict__ invi, int* __restrict__ fail_out) {
+                   float* __restrict__ invi, long long so, int* __restrict__ fail_out) {
   extern __shared__ float smem[];
+  // this block's problem: input planes at item * sa, outputs at item * so
+  const long long item = blockIdx.x;
+  ar += item * sa;
+  ai += item * sa;
+  ldr += item * so;
+  ldi += item * so;
+  invr += item * so;
+  invi += item * so;
+  fail_out += item;
   float* Lr = smem;
   float* Li = Lr + kPlane;
   float* Xr = Li + kPlane;  // lower blocks of inv(L), 32 x 32 each
@@ -439,17 +455,20 @@ pchol_block_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
 
 }  // namespace
 
-// Launch on `stream`. nb <= 128; a, out row-major (lda for the input).
-// Returns the cudaError_t of the launch (0 = launched).
+// Launch on `stream` for `batch` problems (grid = batch, one block each;
+// a batch over the 132 SMs runs in waves). nb <= 128; a, out row-major (lda
+// for the input); item b's input planes start at ar + b * sa, ai + b * sa,
+// its four outputs at ldr + b * so, ..., its fail at fail[b]. Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int pchol_block_planar_launch(const float* ar, const float* ai,
-                                         int lda, int nb, float* ldr,
-                                         float* ldi, float* invr, float* invi,
-                                         int* fail, void* stream) {
-  if (nb < 1 || nb > kNbMax) return (int)cudaErrorInvalidValue;
+                                         int lda, long long sa, int nb, int batch,
+                                         float* ldr, float* ldi, float* invr, float* invi,
+                                         long long so, int* fail, void* stream) {
+  if (nb < 1 || nb > kNbMax || batch < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       pchol_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  pchol_block_kernel<<<1, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      ar, ai, lda, nb, ldr, ldi, invr, invi, fail);
+  pchol_block_kernel<<<batch, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      ar, ai, lda, sa, nb, ldr, ldi, invr, invi, so, fail);
   return (int)cudaGetLastError();
 }

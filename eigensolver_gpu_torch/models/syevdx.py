@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from eigensolver_gpu_torch.ops.refine import refine_eigh
-from eigensolver_gpu_torch.ops.stedc import stedc
+from eigensolver_gpu_torch.ops.stedc import eigh_or_nan, stedc
 from eigensolver_gpu_torch.ops.sytrd import sytrd
 from eigensolver_gpu_torch.ops.unmtr import unmtr
 from eigensolver_gpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
@@ -42,18 +42,18 @@ def _pad_decoupled(a, npad):
     eigenvalues sort after the real ones and index selection is unchanged.
     Tight spacing: the pad values feed stedc's scaling, and a wide ramp
     inflates its fp32 deflation thresholds."""
-    n = a.shape[0]
+    n = a.shape[-1]
     if npad == n:
         return a
-    bound = torch.max(torch.sum(a.abs(), dim=1)) + 1.0
+    bound = torch.amax(torch.sum(a.abs(), dim=-1), dim=-1) + 1.0  # one an item
     k = npad - n
-    padvals = bound * (
+    padvals = bound[..., None] * (
         2.0 + torch.arange(k, dtype=bound.dtype, device=a.device) * (1.0 / 256.0)
     )
-    out = torch.zeros((npad, npad), dtype=a.dtype, device=a.device)
-    out[:n, :n] = a
+    out = torch.zeros(a.shape[:-2] + (npad, npad), dtype=a.dtype, device=a.device)
+    out[..., :n, :n] = a
     idx = torch.arange(n, npad, device=a.device)
-    out[idx, idx] = padvals.to(a.dtype)
+    out[..., idx, idx] = padvals.to(a.dtype)
     return out
 
 
@@ -68,11 +68,36 @@ def _use_two_stage(n, cfg, iscomplex, compute_is_f64):
     return compute_is_f64 and n >= cfg.two_stage_min_n
 
 
+def _reduction(n, cfg, iscomplex, compute_is_f64):
+    """(two_stage, npad): the reduction a solve of size n takes and the
+    size it pads to (two-stage needs npad >= 3 * band, else one-stage)."""
+    two_stage = _use_two_stage(n, cfg, iscomplex, compute_is_f64)
+    nb = cfg.band if two_stage else cfg.nb_tridiag
+    npad = -(-n // nb) * nb
+    if two_stage and npad < 3 * cfg.band:
+        two_stage = False
+        npad = -(-n // cfg.nb_tridiag) * cfg.nb_tridiag
+    return two_stage, npad
+
+
+def takes_two_stage(n, dtype, cfg):
+    """Whether a solve of size n on ``dtype`` operands (mixed mode
+    included) reduces by the two-stage route (the kernels K5, K7, K9,
+    which take one problem at a time)."""
+    rdt = dtype.to_real()
+    mixed = cfg.compute_dtype == "float32" and rdt == torch.float64
+    if cfg.stedc_backend == "xla":
+        return False
+    return _reduction(n, cfg, dtype.is_complex, rdt == torch.float64 and not mixed)[0]
+
+
 def _tridiag_reduce(a_p, cfg, two_stage):
     """Reduce symmetric/Hermitian ``a_p`` (padded) to tridiagonal (d, e);
     returns (d, e, back) with ``back(z)`` applying the accumulated
     orthogonal transform Q to tridiagonal eigenvector columns z."""
     if two_stage:
+        if a_p.dim() > 2:
+            raise ValueError("the two-stage reduction takes one problem at a time")
         from eigensolver_gpu_torch.ops.sb2st import apply_q2, bulge_chase, dense_to_band
         from eigensolver_gpu_torch.ops.sbrd import apply_q1, sbrd
 
@@ -110,12 +135,22 @@ def _tridiag_reduce(a_p, cfg, two_stage):
     return d, e, back
 
 
+def sort_pairs(w, *vecs):
+    """Eigenvalues ascending with their vector columns (leading axes: a
+    batch, each item sorted on its own)."""
+    order = torch.argsort(w, dim=-1, stable=True)
+    return (torch.take_along_dim(w, order, -1),
+            *(torch.take_along_dim(v, order[..., None, :], -1) for v in vecs))
+
+
 @highest_precision
 def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
     """Eigenpairs il..iu (1-based, ascending, LAPACK RANGE='I') of dense
     symmetric/Hermitian ``a``. Returns (w (m,) real, z (n, m)), on the
-    device of ``a``."""
-    n = a.shape[0]
+    device of ``a``. Leading axes of ``a`` are a batch of problems, solved
+    together on the one-stage route (the two-stage route takes one
+    problem at a time: see ``takes_two_stage``)."""
+    n = a.shape[-1]
     if iu is None:
         iu = n
     if not (1 <= il <= iu <= n):
@@ -124,18 +159,12 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
 
     if cfg.stedc_backend == "xla":
         with trace_range("syevdx_xla"):
-            w, z = torch.linalg.eigh(a)
-            return w[il - 1 : iu], z[:, il - 1 : iu]
+            w, z = eigh_or_nan(a)
+            return w[..., il - 1 : iu], z[..., il - 1 : iu]
 
     rdt = a.real.dtype
     mixed = cfg.compute_dtype == "float32" and rdt == torch.float64
-    two_stage = _use_two_stage(n, cfg, iscomplex, rdt == torch.float64 and not mixed)
-    nb = cfg.band if two_stage else cfg.nb_tridiag
-    npad = -(-n // nb) * nb
-    if two_stage and npad < 3 * cfg.band:
-        two_stage = False
-        nb = cfg.nb_tridiag
-        npad = -(-n // nb) * nb
+    two_stage, npad = _reduction(n, cfg, iscomplex, rdt == torch.float64 and not mixed)
 
     if mixed:
         # O(n^3) factorization stages in fp32, then Ogita-Aishima sweeps
@@ -148,20 +177,18 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             d, e, back = _tridiag_reduce(a_p, cfg, two_stage)
             w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
             z_tri = q_tri.to(lo_dt) if iscomplex else q_tri
-            x32 = back(z_tri[:, :n])[:n]
+            x32 = back(z_tri[..., :n])[..., :n, :]
         sel0 = max(0, il - 1 - cfg.refine_margin)
         sel1 = min(n, iu + cfg.refine_margin)
         w, x = refine_eigh(
             a, x32.to(a.dtype), sweeps=cfg.refine_iters,
             chunk=2048 if n >= 8192 else None,
-            sel=(sel0, sel1 - sel0), w0=w_all[:n].to(rdt),
+            sel=(sel0, sel1 - sel0), w0=w_all[..., :n].to(rdt),
             extra_max=cfg.refine_extra_max,
         )
-        order = torch.argsort(w, stable=True)
-        w = w[order]
-        x = x[:, order]
+        w, x = sort_pairs(w, x)
         lo = il - 1 - sel0
-        return w[lo : lo + (iu - il + 1)], x[:, lo : lo + (iu - il + 1)]
+        return w[..., lo : lo + (iu - il + 1)], x[..., lo : lo + (iu - il + 1)]
 
     a_p = _pad_decoupled(a, npad)
     with trace_range("syevdx"):
@@ -169,8 +196,8 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
         w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
         # the decoupled padding sorts above the true spectrum, so indices
         # il..iu of the first n entries are the requested pairs
-        w = w_all[il - 1 : iu]
-        z_tri = q_tri[:, il - 1 : iu]
+        w = w_all[..., il - 1 : iu]
+        z_tri = q_tri[..., il - 1 : iu]
         if iscomplex:
             z_tri = z_tri.to(a.dtype)
-        return w, back(z_tri)[:n]
+        return w, back(z_tri)[..., :n, :]

@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from eigensolver_gpu_torch.models.syevdx import syevdx
+from eigensolver_gpu_torch.models.syevdx import sort_pairs, syevdx
 from eigensolver_gpu_torch.ops.cholesky import cholesky_upper
 from eigensolver_gpu_torch.ops.refine import refine_gevp
 from eigensolver_gpu_torch.ops.sygst import sygst
@@ -49,7 +49,7 @@ def _from_upper(a):
     the reference's UPLO='U' contract (zhegvdx_gpu.F90:58: only A's upper
     triangle is read; the lower may hold anything)."""
     up = torch.triu(a, 1)
-    return up + up.mH + torch.diag(torch.diagonal(a).real.to(a.dtype))
+    return up + up.mH + torch.diag_embed(torch.diagonal(a, dim1=-2, dim2=-1).real.to(a.dtype))
 
 
 def _lowprec(dtype):
@@ -67,6 +67,14 @@ def sygvdx(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
         raise ValueError(
             f"A and B must be square and equal shape, got {tuple(a.shape)}, {tuple(b.shape)}"
         )
+    return _sygvdx(a, b, il, iu, cfg)
+
+
+def _sygvdx(a, b, il, iu, cfg):
+    """The body of ``sygvdx``; leading axes of a and b are a batch of
+    problems, solved together (the one-stage route without ``use_pallas``;
+    ``sygvdx_batched`` sends the others item by item)."""
+    n = a.shape[-1]
     if iu is None:
         iu = n
     if not (1 <= il <= iu <= n):
@@ -86,7 +94,7 @@ def sygvdx(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             two_stage_min_n=cfg.two_stage_min_n, replay_g=cfg.replay_g,
             mosaic_kernels=cfg.mosaic_kernels,
         )
-        w32, z32, info = sygvdx(a.float(), b.float(), il=1, iu=n, cfg=inner)
+        w32, z32, info = _sygvdx(a.float(), b.float(), 1, n, inner)
         # refine only the il..iu block + cluster-guard margin against the
         # full fp32 basis; per-sweep gemms shrink from n^3 to n^2*ms
         sel0 = max(0, il - 1 - cfg.refine_margin)
@@ -97,12 +105,10 @@ def sygvdx(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             sel=(sel0, sel1 - sel0), w0=w32.to(a.dtype),
             extra_max=cfg.refine_extra_max,
         )
-        order = torch.argsort(w, stable=True)
-        w = w[order]
-        z = z[:, order]
+        w, z = sort_pairs(w, z)
         lo = il - 1 - sel0
         return SygvdxResult(
-            w=w[lo : lo + (iu - il + 1)], z=z[:, lo : lo + (iu - il + 1)], info=info
+            w=w[..., lo : lo + (iu - il + 1)], z=z[..., lo : lo + (iu - il + 1)], info=info
         )
 
     sygst_mode = cfg.sygst_mode

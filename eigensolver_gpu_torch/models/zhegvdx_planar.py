@@ -35,8 +35,10 @@ rows (``band + g - 1 > 128``, for example band 64 in fp32 with the default
 g) is a ValueError under ``mosaic_kernels``: set ``replay_g`` to at most
 ``129 - band``, or take the plain route with ``mosaic_kernels=False``.
 
-Not ported yet: ``planar_solve_mode='trinv'`` and
-``zhegvdx_planar_batched``.
+``zhegvdx_planar_batched`` solves a batch of problems (leading axis) with
+the batch axis through every stage of the one-stage pipeline.
+
+Not ported yet: ``planar_solve_mode='trinv'``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from eigensolver_gpu_torch.models.syevdx import sort_pairs
 from eigensolver_gpu_torch.ops.planar import (
     pcholesky_lower,
     pH,
@@ -54,7 +57,7 @@ from eigensolver_gpu_torch.ops.planar import (
     ptrsm_left_upper,
 )
 from eigensolver_gpu_torch.ops.refine_planar import refine_gevp_planar
-from eigensolver_gpu_torch.ops.stedc import stedc
+from eigensolver_gpu_torch.ops.stedc import eigh_or_nan, stedc
 from eigensolver_gpu_torch.ops.sytrd_planar import hetrd_planar
 from eigensolver_gpu_torch.ops.unmtr_planar import unmtr_planar
 from eigensolver_gpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
@@ -75,27 +78,28 @@ def _from_upper_planar(xr, xi):
     the strict lower triangle may hold anything)."""
     upr = torch.triu(xr, 1)
     upi = torch.triu(xi, 1)
-    return upr + upr.T + torch.diag(torch.diagonal(xr)), upi - upi.T
+    return upr + upr.mT + torch.diag_embed(torch.diagonal(xr, dim1=-2, dim2=-1)), upi - upi.mT
 
 
 def _pad_planar(ar, ai, npad):
     """Pad to npad with decoupled diagonal entries above the spectrum
     (tightly spaced: wide ramps inflate stedc's fp32 deflation
     thresholds)."""
-    n = ar.shape[0]
+    n = ar.shape[-1]
     if npad == n:
         return ar, ai
-    bound = torch.max(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=1)) + 1.0
+    # one bound an item
+    bound = torch.amax(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=-1), dim=-1) + 1.0
     k = npad - n
-    padvals = bound * (
+    padvals = bound[..., None] * (
         2.0 + torch.arange(k, dtype=ar.dtype, device=ar.device) * (1.0 / 256.0)
     )
-    out_r = torch.zeros((npad, npad), dtype=ar.dtype, device=ar.device)
+    out_r = torch.zeros(ar.shape[:-2] + (npad, npad), dtype=ar.dtype, device=ar.device)
     out_i = torch.zeros_like(out_r)
-    out_r[:n, :n] = ar
-    out_i[:n, :n] = ai
+    out_r[..., :n, :n] = ar
+    out_i[..., :n, :n] = ai
     idx = torch.arange(n, npad, device=ar.device)
-    out_r[idx, idx] = padvals
+    out_r[..., idx, idx] = padvals
     return out_r, out_i
 
 
@@ -103,7 +107,9 @@ def _tri_eigh(d, e, cfg):
     """Tridiagonal eigensolve per cfg.stedc_backend: 'dc' = on-device
     divide and conquer, 'xla' = dense eigh of the tridiagonal."""
     if cfg.stedc_backend == "xla":
-        return torch.linalg.eigh(torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1))
+        return eigh_or_nan(
+            torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
+        )
     return stedc(d, e, leaf=cfg.stedc_leaf)
 
 
@@ -152,14 +158,24 @@ def _check_ported(cfg):
         )
 
 
+def _two_stage_engaged(npad, cfg):
+    """The planar two-stage gate: ``tridiag_mode='two'`` and a padded size
+    that is a multiple of ``band`` and at least ``3 * band``."""
+    return cfg.tridiag_mode == "two" and npad % cfg.band == 0 and npad >= 3 * cfg.band
+
+
 @highest_precision
 def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
     """Planar A x = lambda B x, eigenpairs il..iu (1-based).
 
     Returns PlanarResult(w, zr, zi, info) with info the cuSOLVER devInfo
     of the Cholesky of B (0 on success, else the 1-based column of the
-    first non-positive pivot), as an int32 0-d tensor on the device."""
-    n = ar.shape[0]
+    first non-positive pivot), as an int32 0-d tensor on the device.
+
+    Leading axes of the four planes are a batch of problems, solved
+    together by the one-stage pipeline (``zhegvdx_planar_batched`` is the
+    entry point that also takes the other configurations)."""
+    n = ar.shape[-1]
     if iu is None:
         iu = n
     if not (1 <= il <= iu <= n):
@@ -197,11 +213,10 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
             sel=(sel0, sel1 - sel0), w0=w32.to(ar.dtype),
             extra_max=cfg.refine_extra_max,
         )
-        order = torch.argsort(w, stable=True)
-        w, zr, zi = w[order], zr[:, order], zi[:, order]
+        w, zr, zi = sort_pairs(w, zr, zi)
         lo = il - 1 - sel0
         hi = lo + (iu - il + 1)
-        return PlanarResult(w=w[lo:hi], zr=zr[:, lo:hi], zi=zi[:, lo:hi], info=info)
+        return PlanarResult(w=w[..., lo:hi], zr=zr[..., lo:hi], zi=zi[..., lo:hi], info=info)
 
     # fp32: diagonal-block-inverted solves (n/nb sequential steps; the
     # fp64 refinement absorbs the eps32 * kappa forward error); fp64 or
@@ -217,29 +232,86 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         x = _solve_l(l, (ar, ai), nb=nb_chol)
         y = _solve_l(l, pH(x), nb=nb_chol)
         cr, ci = pH(y)
-        cr = (cr + cr.T) / 2
-        ci = (ci - ci.T) / 2
+        cr = (cr + cr.mT) / 2
+        ci = (ci - ci.mT) / 2
 
         # PHASE 3: tridiagonalize -> real D&C -> back-transform
         nbt = cfg.nb_tridiag
         npad = -(-n // nbt) * nbt
         cr_p, ci_p = _pad_planar(cr, ci, npad)
-        if cfg.tridiag_mode == "two" and npad % cfg.band == 0 and npad >= 3 * cfg.band:
+        if _two_stage_engaged(npad, cfg):
+            if cr_p.dim() > 2:
+                raise ValueError("the two-stage reduction takes one problem at a time")
             w, (yr, yi) = _two_stage_planar(cr_p, ci_p, il, iu, cfg)
         else:
             (pr, pi), d, e, (taur, taui) = hetrd_planar(
                 cr_p, ci_p, nb=nbt, bucket=128, use_pallas=cfg.use_pallas
             )
             w_all, q_tri = _tri_eigh(d, e, cfg)
-            w = w_all[il - 1 : iu]
-            zr0 = q_tri[:, il - 1 : iu]
+            w = w_all[..., il - 1 : iu]
+            zr0 = q_tri[..., il - 1 : iu]
             yr, yi = unmtr_planar(pr, pi, taur, taui, zr0, torch.zeros_like(zr0),
                                   nb=cfg.nb_back)
-        yr, yi = yr[:n], yi[:n]
+        yr, yi = yr[..., :n, :], yi[..., :n, :]
 
         # PHASE 4: x = L^{-H} y  (L^H is upper triangular)
         zr, zi = ptrsm_left_upper(pH(l), (yr, yi), nb=nb_chol, solve_lower=_solve_l)
         return PlanarResult(w=w, zr=zr, zi=zi, info=info)
+
+
+def _stack_results(parts, kind):
+    """One result of the whole batch from the results of its parts."""
+    return kind(*(torch.cat([getattr(p, f) for p in parts], 0) for f in kind._fields))
+
+
+def _chunks(batch, chunk):
+    """Slices of the batch solved one after the other (JAX's lax.map over
+    vmap): the whole batch when ``chunk`` is None or covers it."""
+    if chunk is None or chunk >= batch:
+        return [slice(0, batch)]
+    if batch % chunk != 0:
+        raise ValueError(f"batch {batch} not divisible by chunk {chunk}")
+    return [slice(c, c + chunk) for c in range(0, batch, chunk)]
+
+
+def zhegvdx_planar_batched(
+    ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG, chunk=None
+):
+    """A batch of planar problems (Quantum ESPRESSO k-point batches,
+    BASELINE.md config 4): ``(batch, n, n)`` planes in, PlanarResult with
+    a leading batch axis out: w (batch, k), zr and zi (batch, n, k), info
+    (batch,) int32. Each item is the solve of ``zhegvdx_planar`` on it.
+
+    The one-stage pipeline runs the whole batch at once: a batch axis runs
+    through every stage, so each column step of the reduction and each
+    block step of the Cholesky (one launch of kernel K1) serve every
+    problem. Configurations whose kernels take one problem at a time
+    (``use_pallas=True``: K2; the two-stage reduction, ``tridiag_mode='two'``
+    where it engages: K6, K8, K10) run the unbatched solve on each item in
+    turn, so the same kernels launch as for one problem.
+
+    ``chunk``: solve the batch in sequential chunks of this size, to bound
+    the peak memory; ``batch % chunk`` must be 0.
+    """
+    if ar.dim() != 3 or any(x.shape != ar.shape for x in (ai, br, bi)):
+        raise ValueError(
+            "zhegvdx_planar_batched takes four (batch, n, n) planes of one shape, got "
+            f"{[tuple(x.shape) for x in (ar, ai, br, bi)]}"
+        )
+    batch, n = ar.shape[0], ar.shape[-1]
+    slices = _chunks(batch, chunk)
+    npad = -(-n // cfg.nb_tridiag) * cfg.nb_tridiag
+    by_item = cfg.use_pallas or _two_stage_engaged(npad, cfg)
+    parts = []
+    for sl in slices:
+        args = (ar[sl], ai[sl], br[sl], bi[sl])
+        if by_item:
+            items = [zhegvdx_planar(*(x[k] for x in args), il=il, iu=iu, cfg=cfg)
+                     for k in range(args[0].shape[0])]
+            parts.append(PlanarResult(*(torch.stack(f) for f in zip(*items))))
+        else:
+            parts.append(zhegvdx_planar(*args, il=il, iu=iu, cfg=cfg))
+    return parts[0] if len(parts) == 1 else _stack_results(parts, PlanarResult)
 
 
 def zhegvdx_planar_host(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG,

@@ -24,13 +24,14 @@ def cholesky_upper(b):
     tensor, 0 on success, else the 1-based index of the first row whose
     pivot is invalid (non-positive or NaN diagonal, or a non-finite entry
     in the row) -- the LAPACK/cuSOLVER devInfo convention. When info > 0
-    the factor is undefined, as in LAPACK."""
+    the factor is undefined, as in LAPACK. Leading axes of ``b`` are a
+    batch of problems: ``info`` then has one entry an item."""
     l, info = torch.linalg.cholesky_ex(b, upper=False, check_errors=False)
     u = l.mH.resolve_conj()
     # potrf reports the first non-positive pivot; the scan below also
     # catches a factor poisoned by NaN/Inf input, as the JAX function does
-    row_bad = ~torch.isfinite(u).all(1) | ~(torch.diagonal(u).real > 0)
-    first = torch.argmax(row_bad.to(torch.int32)).to(torch.int32) + 1
-    scanned = torch.where(row_bad.any(), first, torch.zeros_like(first))
+    row_bad = ~torch.isfinite(u).all(-1) | ~(torch.diagonal(u, dim1=-2, dim2=-1).real > 0)
+    first = torch.argmax(row_bad.to(torch.int32), dim=-1).to(torch.int32) + 1
+    scanned = torch.where(row_bad.any(-1), first, torch.zeros_like(first))
     info = info.to(torch.int32)
     return u, torch.where(info > 0, info, scanned)

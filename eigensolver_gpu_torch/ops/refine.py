@@ -28,7 +28,10 @@ Port differences:
   * the defect-gated escalation is a host loop that reads the defect
     after each sweep (one device sync per extra sweep, against five
     large gemms per sweep) instead of a fixed-trip masked loop, which
-    would always pay ``extra_max`` sweeps;
+    would always pay ``extra_max`` sweeps; over a batch of problems
+    (leading axes) it sweeps while any item's defect exceeds that item's
+    tolerance, and the items that stopped keep their state
+    (:func:`escalate`);
   * ``mesh`` (row sharding) is not carried: sharding is not ported yet.
 """
 
@@ -45,10 +48,10 @@ _EPS32 = torch.finfo(torch.float32).eps
 def _mm_chunked(x, y, chunk):
     """x @ y with y's columns in sequential chunks, so only one chunk's
     temporaries are alive at once."""
-    m = y.shape[1]
+    m = y.shape[-1]
     if chunk is None or chunk >= m or m % chunk != 0:
         return x @ y
-    return torch.cat([x @ y[:, c : c + chunk] for c in range(0, m, chunk)], 1)
+    return torch.cat([x @ y[..., c : c + chunk] for c in range(0, m, chunk)], -1)
 
 
 def _renorm(m_gram, e, sel0, ms):
@@ -56,9 +59,9 @@ def _renorm(m_gram, e, sel0, ms):
     (I+E))) for the ms block columns, from the gram M = X^H B X_blk
     already in hand (see the JAX twin for the derivation)."""
     d = (
-        torch.diagonal(m_gram[sel0 : sel0 + ms]).real
-        + 2.0 * torch.sum(e.conj() * m_gram, dim=0).real
-        + torch.sum((e.conj() * e).real, dim=0)
+        torch.diagonal(m_gram[..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1).real
+        + 2.0 * torch.sum(e.conj() * m_gram, dim=-2).real
+        + torch.sum((e.conj() * e).real, dim=-2)
     )
     return 1.0 / torch.sqrt(torch.clamp_min(d, torch.finfo(d.dtype).tiny))
 
@@ -67,35 +70,35 @@ def _correct_block(gram, s, sel0, ms, w_rows):
     """Shared tail of one selected-block sweep: from gram = X^H M X_blk
     (M = B or I) and s = X^H A X_blk, build the correction E (n_all, ms),
     the block column scales, the updated eigenvalue estimates and the
-    marginal-pair defect.
+    marginal-pair defect (leading axes: a batch, one defect an item).
 
     Returns (e, sc, lam, w_rows', defect)."""
     dt = gram.dtype
     dev = gram.device
     eps = torch.finfo(w_rows.dtype).eps
-    n_all = gram.shape[0]
+    n_all = gram.shape[-2]
     rows = torch.arange(n_all, device=dev)[:, None]
     cols = torch.arange(ms, device=dev)[None, :]
     is_self = rows == cols + sel0
     inblk = (rows >= sel0) & (rows < sel0 + ms)
 
     r = is_self.to(dt) - gram
-    lam = torch.diagonal(s[sel0 : sel0 + ms]).real / (
-        1.0 - torch.diagonal(r[sel0 : sel0 + ms]).real
+    lam = torch.diagonal(s[..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1).real / (
+        1.0 - torch.diagonal(r[..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1).real
     )
     w_rows = w_rows.clone()
-    w_rows[sel0 : sel0 + ms] = lam
-    denom = lam[None, :] - w_rows[:, None]
-    anorm = w_rows.abs().max()
+    w_rows[..., sel0 : sel0 + ms] = lam
+    denom = lam[..., None, :] - w_rows[..., :, None]
+    anorm = w_rows.abs().amax(-1)[..., None, None]  # one an item
     sep_in = torch.clamp_min(1e3 * eps * anorm, _EPS32 * anorm)
     # out-of-block lambdas carry the fp32 pipeline's O(eps32*anorm)
     # error -- widen the cluster floor there
     sep = torch.where(inblk, sep_in, torch.clamp_min(sep_in, 64 * _EPS32 * anorm))
     ok = denom.abs() > sep
     safe = torch.where(ok, denom, torch.ones_like(denom))
-    num = s + lam[None, :] * r
+    num = s + lam[..., None, :] * r
     e = torch.where(ok, num / safe, r / 2)
-    sc = _renorm(gram, e, sel0, ms)[None, :]
+    sc = _renorm(gram, e, sel0, ms)[..., None, :]
     # defect = predicted post-sweep residual per column (l2 over rows,
     # max over columns); cluster-branch pairs are suppressed by the
     # max(.., sep): their gap-level floor must not drive escalation
@@ -106,7 +109,7 @@ def _correct_block(gram, s, sel0, ms, w_rows):
         torch.zeros_like(absnum),
         torch.minimum(absnum, (delta + absnum) * absnum / torch.maximum(denom.abs(), sep)),
     )
-    defect = torch.sqrt(torch.max(torch.sum(pred * pred, dim=0)))
+    defect = torch.sqrt(torch.amax(torch.sum(pred * pred, dim=-2), dim=-1))
     return e, sc, lam, w_rows, defect
 
 
@@ -117,14 +120,40 @@ def _sweep(a, b, x, sel, w_rows, chunk=None):
     (R = I - X^H X_blk), else R = I - X^H B X_blk.
     Returns (x', lam, w_rows', defect)."""
     sel0, ms = sel
-    xs = x[:, sel0 : sel0 + ms]
+    xs = x[..., sel0 : sel0 + ms]
     xh = x.mH
     gram = _mm_chunked(xh, xs if b is None else _mm_chunked(b, xs, chunk), chunk)
     s = _mm_chunked(xh, _mm_chunked(a, xs, chunk), chunk)
     e, sc, lam, w_rows, defect = _correct_block(gram, s, sel0, ms, w_rows)
     x = x.clone()
-    x[:, sel0 : sel0 + ms] = (xs + _mm_chunked(x, e, chunk)) * sc
+    x[..., sel0 : sel0 + ms] = (xs + _mm_chunked(x, e, chunk)) * sc
     return x, lam, w_rows, defect
+
+
+def escalate(one_sweep, state, defect, tol, extra_max):
+    """Defect-gated extra sweeps: at most ``extra_max`` more while
+    ``defect > tol``. ``one_sweep(state)`` returns (state', defect');
+    ``state`` is a tuple of tensors whose leading axes, like those of
+    ``defect`` and ``tol``, are a batch of problems (none for one).
+
+    Each item sweeps while its own defect exceeds its own tolerance, and
+    an item that stops keeps its state: the semantics of the JAX package's
+    ``lax.while_loop`` under ``vmap``. The test is read on the host once a
+    sweep, for all items at once; a sweep in which every item is active
+    takes the new state whole, so one problem runs exactly as before."""
+    for _ in range(extra_max):
+        active = defect > tol
+        flags = active.reshape(-1).tolist()  # one device sync a sweep
+        if not any(flags):
+            break
+        new_state, new_defect = one_sweep(state)
+        if all(flags):
+            state, defect = new_state, new_defect
+            continue
+        keep = lambda t: active.reshape(active.shape + (1,) * (t.dim() - active.dim()))
+        state = tuple(torch.where(keep(s), ns, s) for ns, s in zip(new_state, state))
+        defect = torch.where(active, new_defect, defect)
+    return state, defect
 
 
 def _run_sweeps(one_sweep, x, w_rows, n_full, extra_max, n, is64):
@@ -142,12 +171,15 @@ def _run_sweeps(one_sweep, x, w_rows, n_full, extra_max, n, is64):
         extra_max -= 1
     if extra_max > 0 and defect is not None and is64:
         # tolerance sits well above the defect's gram-noise floor and
-        # well below a one-sweep-short defect
-        tol = 100.0 * torch.finfo(torch.float64).eps * (n**0.5) * w_rows.abs().max()
-        it = 0
-        while it < extra_max and bool(defect > tol):
+        # well below a one-sweep-short defect; one an item
+        tol = 100.0 * torch.finfo(torch.float64).eps * (n**0.5) * w_rows.abs().amax(-1)
+
+        def step(state):
+            x, w_rows = state
             x, _, w_rows, defect = one_sweep(x, w_rows)
-            it += 1
+            return (x, w_rows), defect
+
+        (x, w_rows), defect = escalate(step, (x, w_rows), defect, tol, extra_max)
         w = None
     return x, w, w_rows
 
@@ -167,13 +199,13 @@ def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name):
     (w or None, w_rows, x) after all sweeps."""
     dt = a.dtype
     x = x.to(dt)
-    n, m = x.shape
+    n, m = x.shape[-2:]
     sel0, ms = sel
     rdt = a.real.dtype
     if w0 is None:
         if ms < m:
             raise ValueError("sel with a strict subset requires w0")
-        w0 = torch.zeros((m,), dtype=rdt, device=a.device)
+        w0 = torch.zeros(x.shape[:-2] + (m,), dtype=rdt, device=a.device)
     w_rows = w0.to(rdt)
     is64 = rdt == torch.float64
 
@@ -213,13 +245,13 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
     """
     _check_gemm(gemm)
     if sel is None:
-        sel = (0, x.shape[1])
+        sel = (0, x.shape[-1])
     sel0, ms = sel
     x, w, w_rows = _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0,
                            extra_max, "refine_gevp")
     if w is None:
-        w = w_rows[sel0 : sel0 + ms]
-    return w, x[:, sel0 : sel0 + ms]
+        w = w_rows[..., sel0 : sel0 + ms]
+    return w, x[..., sel0 : sel0 + ms]
 
 
 @highest_precision
@@ -233,11 +265,11 @@ def refine_eigh(a, x, sweeps=2, coarse_first=True, chunk=None,
     """
     _check_gemm(gemm)
     if sel is None:
-        sel = (0, x.shape[1])
+        sel = (0, x.shape[-1])
     sel0, ms = sel
     x, _, _ = _refine(a, None, x, sweeps, coarse_first, chunk, sel, w0,
                       extra_max, "refine_eigh")
-    xs = x[:, sel0 : sel0 + ms]
-    xs = xs / torch.linalg.vector_norm(xs, dim=0)[None, :]
-    w = torch.sum(xs.conj() * (a @ xs), dim=0).real
+    xs = x[..., sel0 : sel0 + ms]
+    xs = xs / torch.linalg.vector_norm(xs, dim=-2)[..., None, :]
+    w = torch.sum(xs.conj() * (a @ xs), dim=-2).real
     return w, xs

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from eigensolver_gpu_torch.ops.planar import pH, pmatmul_chunked
+from eigensolver_gpu_torch.ops.refine import escalate
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -38,22 +39,23 @@ def _renorm_planar(m, e, sel0, ms):
     """Second-order B-norm column scales 1/sqrt(diag((I+E)^H M (I+E)))
     from the gram M = X^H B X_sel and the correction E, gemm-free."""
     d = (
-        torch.diagonal(m[0][sel0 : sel0 + ms])
-        + 2.0 * torch.sum(e[0] * m[0] + e[1] * m[1], dim=0)
-        + torch.sum(e[0] * e[0] + e[1] * e[1], dim=0)
+        torch.diagonal(m[0][..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1)
+        + 2.0 * torch.sum(e[0] * m[0] + e[1] * m[1], dim=-2)
+        + torch.sum(e[0] * e[0] + e[1] * e[1], dim=-2)
     )
     return 1.0 / torch.sqrt(torch.clamp_min(d, torch.finfo(d.dtype).tiny))
 
 
 def _correct_block(xhbx, s, sel0, ms, w_rows):
     """From the grams xhbx = X^H B Xs and s = X^H A Xs ((n_all, ms)
-    planar pairs) build the correction E, the column scales, the updated
-    eigenvalue estimates and the marginal-pair defect.
+    planar pairs, leading axes a batch) build the correction E, the
+    column scales, the updated eigenvalue estimates and the marginal-pair
+    defect (one an item).
 
     Returns (e, sc, lam_sel, w_rows', defect)."""
     dt = xhbx[0].dtype
     dev = xhbx[0].device
-    n_all = xhbx[0].shape[0]
+    n_all = xhbx[0].shape[-2]
     eps = torch.finfo(dt).eps
     rows = torch.arange(n_all, device=dev)[:, None]
     cols = torch.arange(ms, device=dev)[None, :]
@@ -61,26 +63,26 @@ def _correct_block(xhbx, s, sel0, ms, w_rows):
     inblk = (rows >= sel0) & (rows < sel0 + ms)
 
     r = (is_self.to(dt) - xhbx[0], -xhbx[1])
-    lam_sel = torch.diagonal(s[0][sel0 : sel0 + ms]) / (
-        1.0 - torch.diagonal(r[0][sel0 : sel0 + ms])
+    lam_sel = torch.diagonal(s[0][..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1) / (
+        1.0 - torch.diagonal(r[0][..., sel0 : sel0 + ms, :], dim1=-2, dim2=-1)
     )
     w_rows = w_rows.clone()
-    w_rows[sel0 : sel0 + ms] = lam_sel
-    denom = lam_sel[None, :] - w_rows[:, None]
-    anorm = w_rows.abs().max()
+    w_rows[..., sel0 : sel0 + ms] = lam_sel
+    denom = lam_sel[..., None, :] - w_rows[..., :, None]
+    anorm = w_rows.abs().amax(-1)[..., None, None]  # one an item
     sep_in = torch.clamp_min(1e3 * eps * anorm, _EPS32 * anorm)
     # out-of-block lambdas carry the fp32 pipeline's O(eps32*anorm)
     # error: denominators below ~64x that cannot be trusted as separated
     sep = torch.where(inblk, sep_in, torch.clamp_min(sep_in, 64 * _EPS32 * anorm))
     ok = denom.abs() > sep
     safe = torch.where(ok, denom, 1.0)
-    num_r = s[0] + lam_sel[None, :] * r[0]
-    num_i = s[1] + lam_sel[None, :] * r[1]
+    num_r = s[0] + lam_sel[..., None, :] * r[0]
+    num_i = s[1] + lam_sel[..., None, :] * r[1]
     e = (
         torch.where(ok, num_r / safe, r[0] / 2),
         torch.where(ok, num_i / safe, r[1] / 2),
     )
-    sc = _renorm_planar(xhbx, e, sel0, ms)[None, :]
+    sc = _renorm_planar(xhbx, e, sel0, ms)[..., None, :]
     # defect = predicted post-sweep residual; cluster-branch pairs are
     # suppressed via max(.., sep)
     delta = torch.where(inblk, 1e3 * eps * anorm, 64 * _EPS32 * anorm)
@@ -90,7 +92,7 @@ def _correct_block(xhbx, s, sel0, ms, w_rows):
         0.0,
         torch.minimum(absnum, (delta + absnum) * absnum / torch.maximum(denom.abs(), sep)),
     )
-    defect = torch.sqrt(torch.max(torch.sum(pred * pred, dim=0)))
+    defect = torch.sqrt(torch.amax(torch.sum(pred * pred, dim=-2), dim=-1))
     return e, sc, lam_sel, w_rows, defect
 
 
@@ -100,7 +102,7 @@ def _sweep(a, b, x, sel, w_rows, chunk=None):
     sel0..sel0+ms change. Returns (x', lam_sel, w_rows', defect)."""
     sel0, ms = sel
     xr, xi = x
-    xs = (xr[:, sel0 : sel0 + ms], xi[:, sel0 : sel0 + ms])
+    xs = (xr[..., sel0 : sel0 + ms], xi[..., sel0 : sel0 + ms])
     bx = pmatmul_chunked(b, xs, chunk)
     ax = pmatmul_chunked(a, xs, chunk)
     xhbx = pmatmul_chunked(pH(x), bx, chunk)
@@ -109,8 +111,8 @@ def _sweep(a, b, x, sel, w_rows, chunk=None):
     dx = pmatmul_chunked(x, e, chunk)
     xr = xr.clone()
     xi = xi.clone()
-    xr[:, sel0 : sel0 + ms] = (xs[0] + dx[0]) * sc
-    xi[:, sel0 : sel0 + ms] = (xs[1] + dx[1]) * sc
+    xr[..., sel0 : sel0 + ms] = (xs[0] + dx[0]) * sc
+    xi[..., sel0 : sel0 + ms] = (xs[1] + dx[1]) * sc
     return (xr, xi), lam_sel, w_rows, defect
 
 
@@ -130,6 +132,8 @@ def refine_gevp_planar(
     extra_max: at most this many extra fp64 sweeps while the defect
     exceeds 100 * eps64 * sqrt(n) * anorm. The test reads the defect on
     the host: one device sync per sweep.
+    Leading axes of a, b, x (and w0) are a batch of problems: each item
+    has its own tolerance and escalates on its own (ops/refine.escalate).
     gemm: 'native' (fp64 torch.matmul). 'ozaki', the JAX package's
     default, raises NotImplementedError until ops/ozaki.py is ported.
     """
@@ -142,7 +146,7 @@ def refine_gevp_planar(
         raise ValueError(f"unknown gemm {gemm!r}")
     ar, _ = a
     xr, xi = x
-    n, m = xr.shape
+    n, m = xr.shape[-2:]
     if sel is None:
         sel = (0, m)
     sel0, ms = sel
@@ -150,7 +154,7 @@ def refine_gevp_planar(
     if w0 is None:
         if ms < m:
             raise ValueError("sel with a strict subset requires w0")
-        w0 = torch.zeros((m,), dtype=ar.dtype, device=ar.device)
+        w0 = torch.zeros(xr.shape[:-2] + (m,), dtype=ar.dtype, device=ar.device)
     w_rows = w0.to(ar.dtype)
 
     with trace_range("refine_gevp_planar"):
@@ -174,12 +178,16 @@ def refine_gevp_planar(
             (xr, xi), w, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
 
         if extra_max > 0 and f64:
-            anorm = w_rows.abs().max()
+            anorm = w_rows.abs().amax(-1)
             tol = 100.0 * torch.finfo(torch.float64).eps * (n**0.5) * anorm
-            it = 0
-            while it < extra_max and bool(defect > tol):
-                (xr, xi), _, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
-                it += 1
-            w = w_rows[sel0 : sel0 + ms]
 
-        return w, (xr[:, sel0 : sel0 + ms], xi[:, sel0 : sel0 + ms])
+            def one_sweep(state):
+                xr, xi, w_rows = state
+                (xr, xi), _, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
+                return (xr, xi, w_rows), defect
+
+            (xr, xi, w_rows), defect = escalate(one_sweep, (xr, xi, w_rows), defect, tol,
+                                                extra_max)
+            w = w_rows[..., sel0 : sel0 + ms]
+
+        return w, (xr[..., sel0 : sel0 + ms], xi[..., sel0 : sel0 + ms])

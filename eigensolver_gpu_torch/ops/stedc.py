@@ -23,8 +23,9 @@ Port differences:
     leaf), the batched cyclic Jacobi of ops/jacobi.py in fp64 (for an
     even leaf size, else dense eigh).
 
-Input: d (n,), e (n-1,) real. Output: (w, q) with w ascending and q
-orthogonal, T q = q diag(w), T = tridiag(e, d, e).
+Input: d (n,), e (n-1,) real, or a batch d (B, n), e (B, n-1). Output:
+(w, q) with w ascending and q orthogonal, T q = q diag(w),
+T = tridiag(e, d, e), with the batch axis in front when given one.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def _secular_iters(dt):
 def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
     """Merge batches of solved blocks coupled by off-diagonal ``beta``.
 
-    d1 (B, m), q1 (B, m, m), d2 (B, m2), q2 (B, m2, m2), beta (B,):
+    d1 (B, m), q1 (B, m, m), d2 (B, m2), q2 (B, m2, m2), beta (B,),
+    gap_scale (B,) (each pair's problem's scale):
     [[T1, beta e e^T], [.., T2]] = blockdiag(D1, D2) + rho v v^T with
     rho = |beta| (the diagonal adjustments were applied on the way down,
     in stedc()). Returns (w (B, m+m2) ascending, q (B, m+m2, m+m2))."""
@@ -75,6 +77,7 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
     af = alive.to(dt)
 
     # --- separate surviving poles to a minimum gap ---
+    gap_scale = gap_scale[:, None]
     gap_min = 16.0 * eps * gap_scale
     rank = torch.cumsum(af, dim=1) - af
     neg_big = ds.amin(dim=1, keepdim=True) - 2.0 * gap_scale - 1.0
@@ -190,8 +193,20 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
     return w, qnew
 
 
+def eigh_or_nan(t):
+    """torch.linalg.eigh of symmetric matrices (leading axes a batch), where
+    a matrix with a non-finite entry gives NaN eigenpairs instead of an
+    error for the whole batch (torch.linalg.eigh raises when one item fails
+    to converge; JAX's eigh returns NaN). Such a matrix comes from a B that
+    is not positive definite, whose item ``info`` already reports."""
+    bad = ~torch.isfinite(t).all(-1).all(-1)
+    w, q = torch.linalg.eigh(torch.where(bad[..., None, None], 0.0, t))
+    nan = torch.full((), float("nan"), dtype=w.dtype, device=w.device)
+    return torch.where(bad[..., None], nan, w), torch.where(bad[..., None, None], nan, q)
+
+
 def _tridiag_dense(d, e):
-    return torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+    return torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
 
 
 @highest_precision
@@ -201,8 +216,16 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     leaf_solver: None = auto ('xla' for fp32, 'jacobi' for fp64, as in
     the JAX package), 'xla' (torch.linalg.eigh) or 'jacobi'
     (ops/jacobi.py; a leaf of odd size takes dense eigh).
+
+    d (B, n), e (B, n-1) is a batch of problems: the merge tree is static
+    in n and ``leaf``, so the problem axis folds into each level's pair
+    axis and every level is one merge for the whole batch; the scaling is
+    per problem.
     """
-    n = d.shape[0]
+    batched = d.dim() == 2
+    if not batched:
+        d, e = d[None], e[None]
+    bsz, n = d.shape
     dt = d.dtype
     dev = d.device
     if leaf_solver is None:
@@ -213,15 +236,18 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     def leaf_eigh(tb):
         if leaf_solver == "jacobi" and tb.shape[-1] % 2 == 0:
             return jacobi_eigh(tb)
-        return torch.linalg.eigh(tb)
+        return eigh_or_nan(tb)
+
+    def done(w, q):
+        return (w, q) if batched else (w[0], q[0])
 
     if n <= 2 or n <= leaf:
-        return leaf_eigh(_tridiag_dense(d, e))
+        return done(*leaf_eigh(_tridiag_dense(d, e)))
 
     with trace_range("stedc"):
-        # scale to unit norm-ish (dstedc scales by orgnrm)
-        orgnrm = torch.maximum(d.abs().max(), e.abs().max())
-        scale = torch.where(orgnrm > 0, orgnrm, torch.ones_like(orgnrm))
+        # scale each problem to unit norm-ish (dstedc scales by orgnrm)
+        orgnrm = torch.maximum(d.abs().amax(-1), e.abs().amax(-1))
+        scale = torch.where(orgnrm > 0, orgnrm, torch.ones_like(orgnrm))[:, None]
         d = d / scale
         e = e / scale
 
@@ -231,45 +257,46 @@ def stedc(d, e, leaf=64, leaf_solver=None):
         npad = leaf * nblk
         pad = npad - n
         pad_vals = 4.0 + torch.arange(pad, dtype=dt, device=dev) * (1.0 / 1024.0)
-        dp_full = torch.cat([d, pad_vals])
-        e_full = torch.cat([e, torch.zeros((pad,), dtype=dt, device=dev)])
+        dp_full = torch.cat([d, pad_vals.expand(bsz, pad)], 1)
+        e_full = torch.cat([e, torch.zeros((bsz, pad), dtype=dt, device=dev)], 1)
         if pad > 0:
-            e_full[n - 1] = 0.0  # decouple the padding
+            e_full[:, n - 1] = 0.0  # decouple the padding
 
         # way-down diagonal adjustments at every merge boundary
         bidx = torch.arange(1, nblk, device=dev) * leaf
-        babs = e_full[bidx - 1].abs()
+        babs = e_full[:, bidx - 1].abs()
         dp_adj = dp_full.clone()
-        dp_adj[bidx - 1] -= babs
-        dp_adj[bidx] -= babs
+        dp_adj[:, bidx - 1] -= babs
+        dp_adj[:, bidx] -= babs
 
         # leaves: batched dense eigh of leaf-sized tridiagonal blocks
-        db = dp_adj.reshape(nblk, leaf)
-        e_in = torch.cat([e_full[: npad - 1], torch.zeros((1,), dtype=dt, device=dev)])
-        e_in = e_in.reshape(nblk, leaf).clone()
-        e_in[:, -1] = 0.0  # drop the cross-block boundary e
-        tb = torch.diag_embed(db) + torch.diag_embed(e_in[:, :-1], 1) + torch.diag_embed(
-            e_in[:, :-1], -1
+        db = dp_adj.reshape(bsz, nblk, leaf)
+        e_in = torch.cat([e_full[:, : npad - 1], torch.zeros((bsz, 1), dtype=dt, device=dev)], 1)
+        e_in = e_in.reshape(bsz, nblk, leaf).clone()
+        e_in[..., -1] = 0.0  # drop the cross-block boundary e
+        tb = torch.diag_embed(db) + torch.diag_embed(e_in[..., :-1], 1) + torch.diag_embed(
+            e_in[..., :-1], -1
         )
         wb, qb = leaf_eigh(tb)
 
-        gap_scale = torch.clamp_min(dp_full.abs().max(), 1.0)
+        gap_scale = torch.clamp_min(dp_full.abs().amax(-1), 1.0)
 
         def tree(wb_c, qb_c, start_el, nblk_c):
-            """Power-of-two merge tree over nblk_c leaves whose first
-            element sits at global index start_el."""
+            """Power-of-two merge tree over nblk_c leaves of every problem
+            whose first element sits at global index start_el; a level
+            merges the pairs of all problems at once."""
             m = leaf
             sz = nblk_c * leaf
             while m < sz:
                 pairs = sz // (2 * m)
-                w2 = wb_c.reshape(pairs, 2, m)
-                q2 = qb_c.reshape(pairs, 2, m, m)
-                betas = e_full[start_el + (2 * torch.arange(pairs, device=dev) + 1) * m - 1]
-                wb_c, qb_c = _merge_pair(
-                    w2[:, 0], q2[:, 0], w2[:, 1], q2[:, 1], betas, gap_scale
-                )
+                w2 = wb_c.reshape(bsz * pairs, 2, m)
+                q2 = qb_c.reshape(bsz * pairs, 2, m, m)
+                cols = start_el + (2 * torch.arange(pairs, device=dev) + 1) * m - 1
+                betas = e_full[:, cols].reshape(bsz * pairs)
+                gs = gap_scale[:, None].expand(bsz, pairs).reshape(bsz * pairs)
+                wb_c, qb_c = _merge_pair(w2[:, 0], q2[:, 0], w2[:, 1], q2[:, 1], betas, gs)
                 m *= 2
-            return wb_c.reshape(sz), qb_c.reshape(sz, sz)
+            return wb_c.reshape(bsz, sz), qb_c.reshape(bsz, sz, sz)
 
         # binary decomposition of the block count, largest group first;
         # the groups fold left to right through unequal-size merges
@@ -279,18 +306,15 @@ def stedc(d, e, leaf=64, leaf_solver=None):
             size = 1 << bit
             if not nblk & size:
                 continue
-            wg, qg = tree(wb[start : start + size], qb[start : start + size],
+            wg, qg = tree(wb[:, start : start + size], qb[:, start : start + size],
                           start * leaf, size)
             if acc_w is None:
                 acc_w, acc_q = wg, qg
             else:
-                beta = e_full[start * leaf - 1].reshape(1)
-                acc_w, acc_q = _merge_pair(
-                    acc_w[None], acc_q[None], wg[None], qg[None], beta, gap_scale
-                )
-                acc_w, acc_q = acc_w[0], acc_q[0]
+                beta = e_full[:, start * leaf - 1]
+                acc_w, acc_q = _merge_pair(acc_w, acc_q, wg, qg, beta, gap_scale)
             start += size
 
         # padding deflates to eigenvalues >= 4 > Gershgorin(T/scale) <= 3,
         # so after the sorted merge the real pairs come first
-        return acc_w[:n] * scale, acc_q[:n, :n]
+        return done(acc_w[:, :n] * scale, acc_q[:, :n, :n])

@@ -14,7 +14,8 @@ solves of ops/trsm.py (``sygst_inv``, fp32 pipelines only).
 The JAX ``sygst_blocked`` pads to whole blocks, groups them into
 fixed-shape buckets and masks the trailing extents, all for XLA's static
 shapes; the port slices the exact trailing block (the last block may be
-ragged), which gives the same C.
+ragged), which gives the same C. Every form takes a batch of problems on
+leading axes.
 """
 
 from __future__ import annotations
@@ -56,28 +57,28 @@ def sygst_blocked(a, u, nb=512):
     Per block k (size nb): transform the diagonal block, then update the
     trailing panel with trsm -> gemm(-1/2) -> her2k -> gemm(-1/2) -> trsm.
     """
-    n = a.shape[0]
+    n = a.shape[-1]
     a = _herm(a)
     with trace_range("sygst_blocked"):
         for k0 in range(0, n, nb):
             k1 = min(k0 + nb, n)
-            ukk = u[k0:k1, k0:k1]
+            ukk = u[..., k0:k1, k0:k1]
             # diagonal block: U_kk^{-H} A_kk U_kk^{-1}
-            akk = _tsolve(ukk, a[k0:k1, k0:k1], left=True, trans=True)
+            akk = _tsolve(ukk, a[..., k0:k1, k0:k1], left=True, trans=True)
             akk = _herm(_tsolve(ukk, akk, left=False, trans=False))
-            a[k0:k1, k0:k1] = akk
+            a[..., k0:k1, k0:k1] = akk
             if k1 == n:
                 break
             # trailing panel update (dsygst_gpu.F90:76-93)
-            ukt = u[k0:k1, k1:]
-            akt = _tsolve(ukk, a[k0:k1, k1:], left=True, trans=True)
+            ukt = u[..., k0:k1, k1:]
+            akt = _tsolve(ukk, a[..., k0:k1, k1:], left=True, trans=True)
             akt = akt - 0.5 * akk @ ukt
             upd = akt.mH @ ukt
-            a[k1:, k1:] = _herm(a[k1:, k1:] - (upd + upd.mH))
+            a[..., k1:, k1:] = _herm(a[..., k1:, k1:] - (upd + upd.mH))
             akt = akt - 0.5 * akk @ ukt
-            akt = _tsolve(u[k1:, k1:], akt, left=False, trans=False)
-            a[k0:k1, k1:] = akt
-            a[k1:, k0:k1] = akt.mH
+            akt = _tsolve(u[..., k1:, k1:], akt, left=False, trans=False)
+            a[..., k0:k1, k1:] = akt
+            a[..., k1:, k0:k1] = akt.mH
         return a
 
 

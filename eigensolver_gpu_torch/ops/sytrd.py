@@ -64,38 +64,55 @@ def _larfg(alpha, xnormsq, iscomplex):
     return beta, tau, scale
 
 
+def _mv(m, v):
+    """m @ v for a matrix and a vector, or for batches of each."""
+    return m @ v if v.dim() == 1 else (m @ v[..., None])[..., 0]
+
+
+def _vdot(x, y):
+    """x^H y for vectors, or one an item for batches of them."""
+    if x.dim() == 1:
+        return torch.vdot(x, y)
+    return (x.conj()[..., None, :] @ y[..., :, None])[..., 0, 0]
+
+
 def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False):
     """dlatrd-equivalent: process the nb columns [panel_end-nb, panel_end)
     in descending order. Writes the packed columns into ``a_mb`` and the
     scalars into d, e, tau in place; returns the compact-WY panels
-    (v_p, w_p), (mb, nb), slot k = column panel_end-1-k.
+    (v_p, w_p), (mb, nb), slot k = column panel_end-1-k. Leading axes are
+    a batch of problems (per-item scalars are tensors of the batch shape);
+    ``use_pallas`` (the symv kernel) takes one problem.
 
     The panels live side by side in two stacked buffers, vw = [V W] and
     wv = [W V], so each of the reference's stacked gemv pairs
     (dsytrd_gpu.F90:449, 511, 618) is one product; unfilled slots are
     zero columns.
     """
-    mb = a_mb.shape[0]
+    mb = a_mb.shape[-1]
     iscomplex = a_mb.is_complex()
-    vw = torch.zeros((mb, 2 * nb), dtype=a_mb.dtype, device=a_mb.device)
+    vw = torch.zeros(a_mb.shape[:-2] + (mb, 2 * nb), dtype=a_mb.dtype, device=a_mb.device)
     wv = torch.zeros_like(vw)
     for k in range(nb):
         cj = panel_end - 1 - k  # absolute column being reduced
         # rank-2 correction from this panel's already-computed columns
         # (dlatrd's leading gemv pair; zlatrd conjugates the row picks)
-        a_col = a_mb[:, cj] - vw @ wv[cj].conj()
-        d_val = a_col[cj].real.clone()
-        d[cj] = d_val
+        a_col = a_mb[..., :, cj] - _mv(vw, wv[..., cj, :].conj())
+        d_val = a_col[..., cj].real.clone()
+        d[..., cj] = d_val
         if cj == 0:  # no reflector: only the diagonal entry is left
-            a_col[0] = d_val
-            a_mb[:, 0] = a_col
+            a_col[..., 0] = d_val
+            a_mb[..., :, 0] = a_col
             break
         # Householder generation for rows [0, cj): pivot at row cj-1
-        x = a_col[: cj - 1]
-        xnormsq = torch.sum(x.real * x.real + x.imag * x.imag) if iscomplex else x @ x
-        beta, tau_k, scale = _larfg(a_col[cj - 1], xnormsq, iscomplex)
-        v = a_col[:cj] * scale
-        v[cj - 1] = 1.0
+        x = a_col[..., : cj - 1]
+        if iscomplex:
+            xnormsq = torch.sum(x.real * x.real + x.imag * x.imag, dim=-1)
+        else:
+            xnormsq = x @ x if x.dim() == 1 else torch.sum(x * x, dim=-1)
+        beta, tau_k, scale = _larfg(a_col[..., cj - 1], xnormsq, iscomplex)
+        v = a_col[..., :cj] * scale[..., None]
+        v[..., cj - 1] = 1.0
 
         # w = tau * (A v - V (W^H v) - W (V^H v)), then the -1/2 tau
         # (w^H v) v correction (dlatrd tail). A v is the flops-dominant
@@ -103,32 +120,37 @@ def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False):
         if use_pallas:
             y = symv(a_mb, v, extent=cj)
         else:
-            y = a_mb[:cj, :cj] @ v
-        y = y - vw[:cj] @ (wv[:cj].mH @ v)
-        w = tau_k * y
-        w = w + (-0.5 * tau_k * torch.vdot(w, v)) * v
-        vw[:cj, k] = v
-        wv[:cj, nb + k] = v
-        vw[:cj, nb + k] = w
-        wv[:cj, k] = w
+            y = _mv(a_mb[..., :cj, :cj], v)
+        y = y - _mv(vw[..., :cj, :], _mv(wv[..., :cj, :].mH, v))
+        w = tau_k[..., None] * y
+        w = w + (-0.5 * tau_k * _vdot(w, v))[..., None] * v
+        vw[..., :cj, k] = v
+        wv[..., :cj, nb + k] = v
+        vw[..., :cj, nb + k] = w
+        wv[..., :cj, k] = w
 
         # column cj in LAPACK storage: v in rows [0, cj-1), e (= beta) at
         # row cj-1, the updated diagonal at row cj
-        a_col[:cj] = v
-        a_col[cj - 1] = beta
-        a_col[cj] = d_val
-        a_mb[:, cj] = a_col
-        e[cj - 1] = beta
-        tau[cj - 1] = tau_k
-    return vw[:, :nb], vw[:, nb:]
+        a_col[..., :cj] = v
+        a_col[..., cj - 1] = beta
+        a_col[..., cj] = d_val
+        a_mb[..., :, cj] = a_col
+        e[..., cj - 1] = beta
+        tau[..., cj - 1] = tau_k
+    return vw[..., :, :nb], vw[..., :, nb:]
 
 
 @highest_precision
 def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
-    """Full blocked tridiagonalization. Returns (a_packed, d, e, tau)."""
-    n = a.shape[0]
+    """Full blocked tridiagonalization. Returns (a_packed, d, e, tau).
+    Leading axes of ``a`` are a batch of problems, reduced together
+    column by column; ``use_pallas`` takes one problem at a time."""
+    n = a.shape[-1]
     if n % nb != 0:
         raise ValueError(f"sytrd_blocked requires n % nb == 0, got n={n}, nb={nb}")
+    lead = a.shape[:-2]
+    if use_pallas and lead:
+        raise ValueError("sytrd(use_pallas=True) takes one problem at a time")
     dtype = a.dtype
     iscomplex = a.is_complex()
     rdtype = a.real.dtype
@@ -138,16 +160,16 @@ def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
     # bucket views need unit column stride)
     a = ((a + a.mH) / 2).contiguous()
 
-    d = torch.zeros((n,), dtype=rdtype, device=a.device)
-    e = torch.zeros((max(n - 1, 1),), dtype=rdtype, device=a.device)
-    tau = torch.zeros((max(n - 1, 1),), dtype=dtype, device=a.device)
+    d = torch.zeros(lead + (n,), dtype=rdtype, device=a.device)
+    e = torch.zeros(lead + (max(n - 1, 1),), dtype=rdtype, device=a.device)
+    tau = torch.zeros(lead + (max(n - 1, 1),), dtype=dtype, device=a.device)
 
     with trace_range("sytrd"):
         num_buckets = -(-n // bucket)
         for b in range(num_buckets, 0, -1):
             mb = min(b * bucket, n)
             lo = (b - 1) * bucket
-            a_mb = a[:mb, :mb]  # view: updated in place
+            a_mb = a[..., :mb, :mb]  # view: updated in place
             # the JAX gate (its Pallas symv is fp32-only with 2 x 256
             # tiles); kept so both packages take the same branch
             kernel_ok = (
@@ -159,11 +181,11 @@ def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
                 # trailing rank-2nb update A -= V W^H + W V^H on the
                 # leading t x t block (syr2k/her2k in the reference)
                 t = panel_end - nb
-                upd = v_p[:t] @ w_p[:t].mH
-                a_mb[:t, :t] -= upd + upd.mH
+                upd = v_p[..., :t, :] @ w_p[..., :t, :].mH
+                a_mb[..., :t, :t] -= upd + upd.mH
 
     ne = n - 1 if n > 1 else 0
-    return a, d, e[:ne], tau[:ne]
+    return a, d, e[..., :ne], tau[..., :ne]
 
 
 def sytrd(a, nb=32, bucket=512, use_pallas=False):

@@ -28,6 +28,7 @@ import torch
 
 from eigensolver_gpu_torch.ops.latrd import latrd_panel_planar
 from eigensolver_gpu_torch.ops.symv import hemv_planar
+from eigensolver_gpu_torch.ops.sytrd import _mv
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -62,85 +63,94 @@ def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb, use_pallas=Fa
     eager column loop. Writes the packed columns into (ar, ai) and the
     scalars into d, e, taur, taui in place; returns the compact-WY
     panels (vr, vi, wr, wi), (mb, nb), slot k = column panel_end-1-k.
+    Leading axes are a batch of problems, each column one set of ops for
+    the whole batch (per-item scalars are tensors of the batch shape).
 
     v is zero from row cj on and w is masked to rows < cj, so the matvec
     and corrections run on the leading cj rows only. With ``use_pallas``
-    the matvec is the planar hemv kernel on the leading cj x cj block."""
-    mb = ar.shape[0]
-    vr = torch.zeros((mb, nb), dtype=ar.dtype, device=ar.device)
+    the matvec is the planar hemv kernel on the leading cj x cj block
+    (one problem only)."""
+    mb = ar.shape[-1]
+    vr = torch.zeros(ar.shape[:-2] + (mb, nb), dtype=ar.dtype, device=ar.device)
     vi, wr, wi = torch.zeros_like(vr), torch.zeros_like(vr), torch.zeros_like(vr)
     rows = torch.arange(mb, device=ar.device)
     for k in range(nb):
         cj = panel_end - 1 - k
-        acr = ar[:, cj]
-        aci = ai[:, cj]
+        acr = ar[..., :, cj]
+        aci = ai[..., :, cj]
         if k > 0:
             # a_col -= [V W] @ conj([w_row; v_row])   (zlatrd's zlacgv'd pair)
-            V_r, V_i, W_r, W_i = vr[:, :k], vi[:, :k], wr[:, :k], wi[:, :k]
-            wrow_r, wrow_i, vrow_r, vrow_i = W_r[cj], W_i[cj], V_r[cj], V_i[cj]
-            acr = acr - (V_r @ wrow_r + V_i @ wrow_i + W_r @ vrow_r + W_i @ vrow_i)
-            aci = aci - (V_i @ wrow_r - V_r @ wrow_i + W_i @ vrow_r - W_r @ vrow_i)
-        d_val = acr[cj]  # diagonal forced real (zlatrd A(I,I)=DBLE(...))
+            V_r, V_i, W_r, W_i = vr[..., :, :k], vi[..., :, :k], wr[..., :, :k], wi[..., :, :k]
+            wrow_r, wrow_i = W_r[..., cj, :], W_i[..., cj, :]
+            vrow_r, vrow_i = V_r[..., cj, :], V_i[..., cj, :]
+            acr = acr - (_mv(V_r, wrow_r) + _mv(V_i, wrow_i) + _mv(W_r, vrow_r)
+                         + _mv(W_i, vrow_i))
+            aci = aci - (_mv(V_i, wrow_r) - _mv(V_r, wrow_i) + _mv(W_i, vrow_r)
+                         - _mv(W_r, vrow_i))
+        d_val = acr[..., cj]  # diagonal forced real (zlatrd A(I,I)=DBLE(...))
 
         pidx = max(cj - 1, 0)
         has_r = cj > 0
         xmask = rows < cj - 1
         x_r = torch.where(xmask, acr, 0.0)
         x_i = torch.where(xmask, aci, 0.0)
-        xnormsq = torch.sum(x_r * x_r + x_i * x_i)
-        beta, tk_r, tk_i, sc_r, sc_i = _larfg_planar(acr[pidx], aci[pidx], xnormsq)
+        xnormsq = torch.sum(x_r * x_r + x_i * x_i, dim=-1)
+        beta, tk_r, tk_i, sc_r, sc_i = _larfg_planar(acr[..., pidx], aci[..., pidx], xnormsq)
         if not has_r:
             tk_r = torch.zeros_like(tk_r)
             tk_i = torch.zeros_like(tk_i)
-        v_r = x_r * sc_r - x_i * sc_i
-        v_i = x_r * sc_i + x_i * sc_r
+        # the per-item scalars against vectors (views, no copies)
+        tk_rv, tk_iv = tk_r[..., None], tk_i[..., None]
+        v_r = x_r * sc_r[..., None] - x_i * sc_i[..., None]
+        v_i = x_r * sc_i[..., None] + x_i * sc_r[..., None]
         if has_r:
-            v_r[cj - 1] = 1.0
-            v_i[cj - 1] = 0.0
+            v_r[..., cj - 1] = 1.0
+            v_i[..., cj - 1] = 0.0
 
         # y = A v - [V W] ([W V]^H v) on rows < cj (the reference's zhemv)
         c = cj
-        vt_r, vt_i = v_r[:c], v_i[:c]
+        vt_r, vt_i = v_r[..., :c], v_i[..., :c]
         if use_pallas and c > 0:
             y_r, y_i = hemv_planar(ar, ai, vt_r, vt_i, extent=c)
         else:
-            a_r, a_i = ar[:c, :c], ai[:c, :c]
-            y_r = a_r @ vt_r - a_i @ vt_i
-            y_i = a_r @ vt_i + a_i @ vt_r
+            a_r, a_i = ar[..., :c, :c], ai[..., :c, :c]
+            y_r = _mv(a_r, vt_r) - _mv(a_i, vt_i)
+            y_i = _mv(a_r, vt_i) + _mv(a_i, vt_r)
         if k > 0:
-            V_r, V_i, W_r, W_i = vr[:c, :k], vi[:c, :k], wr[:c, :k], wi[:c, :k]
-            zw_r = W_r.T @ vt_r + W_i.T @ vt_i  # W^H v
-            zw_i = W_r.T @ vt_i - W_i.T @ vt_r
-            zv_r = V_r.T @ vt_r + V_i.T @ vt_i  # V^H v
-            zv_i = V_r.T @ vt_i - V_i.T @ vt_r
-            y_r = y_r - (V_r @ zw_r - V_i @ zw_i + W_r @ zv_r - W_i @ zv_i)
-            y_i = y_i - (V_r @ zw_i + V_i @ zw_r + W_r @ zv_i + W_i @ zv_r)
+            V_r, V_i = vr[..., :c, :k], vi[..., :c, :k]
+            W_r, W_i = wr[..., :c, :k], wi[..., :c, :k]
+            zw_r = _mv(W_r.mT, vt_r) + _mv(W_i.mT, vt_i)  # W^H v
+            zw_i = _mv(W_r.mT, vt_i) - _mv(W_i.mT, vt_r)
+            zv_r = _mv(V_r.mT, vt_r) + _mv(V_i.mT, vt_i)  # V^H v
+            zv_i = _mv(V_r.mT, vt_i) - _mv(V_i.mT, vt_r)
+            y_r = y_r - (_mv(V_r, zw_r) - _mv(V_i, zw_i) + _mv(W_r, zv_r) - _mv(W_i, zv_i))
+            y_i = y_i - (_mv(V_r, zw_i) + _mv(V_i, zw_r) + _mv(W_r, zv_i) + _mv(W_i, zv_r))
         # w = tau y;  alpha = -1/2 tau (w^H v);  w += alpha v
-        w_r = tk_r * y_r - tk_i * y_i
-        w_i = tk_r * y_i + tk_i * y_r
-        hr = torch.sum(w_r * vt_r + w_i * vt_i)
-        hi = torch.sum(w_r * vt_i - w_i * vt_r)
-        al_r = -0.5 * (tk_r * hr - tk_i * hi)
-        al_i = -0.5 * (tk_r * hi + tk_i * hr)
-        vr[:, k] = v_r
-        vi[:, k] = v_i
-        wr[:c, k] = w_r + al_r * vt_r - al_i * vt_i
-        wi[:c, k] = w_i + al_r * vt_i + al_i * vt_r
+        w_r = tk_rv * y_r - tk_iv * y_i
+        w_i = tk_rv * y_i + tk_iv * y_r
+        hr = torch.sum(w_r * vt_r + w_i * vt_i, dim=-1)
+        hi = torch.sum(w_r * vt_i - w_i * vt_r, dim=-1)
+        al_r = (-0.5 * (tk_r * hr - tk_i * hi))[..., None]
+        al_i = (-0.5 * (tk_r * hi + tk_i * hr))[..., None]
+        vr[..., :, k] = v_r
+        vi[..., :, k] = v_i
+        wr[..., :c, k] = w_r + al_r * vt_r - al_i * vt_i
+        wi[..., :c, k] = w_i + al_r * vt_i + al_i * vt_r
 
         # packed column (LAPACK storage) and the per-column scalars
         new_r = torch.where(xmask, v_r, acr)
         new_i = torch.where(xmask, v_i, aci)
         if has_r:
-            new_r[cj - 1] = beta
-            new_i[cj - 1] = 0.0
-            e[pidx] = beta
-            taur[pidx] = tk_r
-            taui[pidx] = tk_i
-        new_r[cj] = d_val
-        new_i[cj] = 0.0
-        d[cj] = d_val
-        ar[:, cj] = new_r
-        ai[:, cj] = new_i
+            new_r[..., cj - 1] = beta
+            new_i[..., cj - 1] = 0.0
+            e[..., pidx] = beta
+            taur[..., pidx] = tk_r
+            taui[..., pidx] = tk_i
+        new_r[..., cj] = d_val
+        new_i[..., cj] = 0.0
+        d[..., cj] = d_val
+        ar[..., :, cj] = new_r
+        ai[..., :, cj] = new_i
     return vr, vi, wr, wi
 
 
@@ -168,17 +178,24 @@ def _panel_via_kernel(ar_mb, ai_mb, d, e, taur, taui, panel_end, nb):
 
 @highest_precision
 def hetrd_planar(a_r, a_i, nb=32, bucket=512, use_pallas=False):
-    """Planar blocked hetrd. Returns ((ar, ai) packed, d, e, (taur, taui))."""
-    n = a_r.shape[0]
+    """Planar blocked hetrd. Returns ((ar, ai) packed, d, e, (taur, taui)).
+
+    Leading axes of (a_r, a_i) are a batch of problems, reduced together
+    column by column; ``use_pallas`` (the latrd kernel, which has no batch
+    axis) takes one problem at a time."""
+    n = a_r.shape[-1]
     if n % nb != 0:
         raise ValueError(f"hetrd_planar requires n % nb == 0, got n={n}, nb={nb}")
+    lead = a_r.shape[:-2]
+    if use_pallas and lead:
+        raise ValueError("hetrd_planar(use_pallas=True) takes one problem at a time")
     rdt = a_r.dtype
     dev = a_r.device
     # hermitize in planar form: Ar <- (Ar+Ar^T)/2, Ai <- (Ai-Ai^T)/2
-    ar = (a_r + a_r.T) / 2
-    ai = (a_i - a_i.T) / 2
-    d = torch.zeros((n,), dtype=rdt, device=dev)
-    e = torch.zeros((max(n - 1, 1),), dtype=rdt, device=dev)
+    ar = (a_r + a_r.mT) / 2
+    ai = (a_i - a_i.mT) / 2
+    d = torch.zeros(lead + (n,), dtype=rdt, device=dev)
+    e = torch.zeros(lead + (max(n - 1, 1),), dtype=rdt, device=dev)
     taur = torch.zeros_like(e)
     taui = torch.zeros_like(e)
 
@@ -187,8 +204,8 @@ def hetrd_planar(a_r, a_i, nb=32, bucket=512, use_pallas=False):
         for b in range(num_buckets, 0, -1):
             mb = min(b * bucket, n)
             lo = (b - 1) * bucket
-            ar_mb = ar[:mb, :mb]  # views: updated in place
-            ai_mb = ai[:mb, :mb]
+            ar_mb = ar[..., :mb, :mb]  # views: updated in place
+            ai_mb = ai[..., :mb, :mb]
             kernel_ok = (
                 use_pallas and rdt == torch.float32 and mb % 256 == 0 and mb <= 4096
             )
@@ -198,11 +215,12 @@ def hetrd_planar(a_r, a_i, nb=32, bucket=512, use_pallas=False):
                 vr, vi, wr, wi = panel(ar_mb, ai_mb, d, e, taur, taui, pe, nb)
                 # trailing her2k on the leading t x t block: A -= V W^H + W V^H
                 t = pe - nb
-                vr, vi, wr, wi = vr[:t], vi[:t], wr[:t], wi[:t]
-                p_r = vr @ wr.T + vi @ wi.T  # (V W^H)_r
-                p_i = vi @ wr.T - vr @ wi.T  # (V W^H)_i
-                ar_mb[:t, :t] -= p_r + p_r.T
-                ai_mb[:t, :t] -= p_i - p_i.T
+                vr, vi = vr[..., :t, :], vi[..., :t, :]
+                wr, wi = wr[..., :t, :], wi[..., :t, :]
+                p_r = vr @ wr.mT + vi @ wi.mT  # (V W^H)_r
+                p_i = vi @ wr.mT - vr @ wi.mT  # (V W^H)_i
+                ar_mb[..., :t, :t] -= p_r + p_r.mT
+                ai_mb[..., :t, :t] -= p_i - p_i.mT
 
     ne = n - 1 if n > 1 else 0
-    return (ar, ai), d, e[:ne], (taur[:ne], taui[:ne])
+    return (ar, ai), d, e[..., :ne], (taur[..., :ne], taui[..., :ne])

@@ -16,6 +16,7 @@ Forward error is ~eps * kappa(U_block) (explicit-inverse apply) instead
 of pure substitution's eps * kappa(U): acceptable only where the fp64
 refinement absorbs it, so the drivers gate this to their fp32 inner
 pipelines. The fp64 path keeps ``torch.linalg.solve_triangular``.
+Every solve takes a batch of problems on leading axes.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ from eigensolver_gpu_torch.utils.precision import highest_precision
 
 
 def _diag_blocks(x, nb):
-    """(n/nb, nb, nb) stack of the diagonal blocks of x."""
-    return torch.stack([x[k : k + nb, k : k + nb] for k in range(0, x.shape[0], nb)])
+    """(..., n/nb, nb, nb) stack of the diagonal blocks of x (..., n, n)."""
+    return torch.stack([x[..., k : k + nb, k : k + nb] for k in range(0, x.shape[-1], nb)], -3)
 
 
 def _merge_pairs(ia, idd, c):
     """inv([[A, 0], [C, D]]) = [[iA, 0], [-iD C iA, iD]], batched."""
     m = idd @ c @ ia
     z = torch.zeros_like(m)
-    return torch.cat([torch.cat([ia, z], 2), torch.cat([-m, idd], 2)], 1)
+    return torch.cat([torch.cat([ia, z], -1), torch.cat([-m, idd], -1)], -2)
 
 
 def _trinv_lower_batched(l, base=16):
@@ -72,9 +73,11 @@ def _trinv_lower_batched(l, base=16):
 
 
 def upper_block_inverses(u, nb):
-    """Batched inverses of U's nb x nb diagonal blocks (upper)."""
-    inv = _trinv_lower_batched(_diag_blocks(u, nb).transpose(1, 2))
-    return inv.transpose(1, 2)
+    """Batched inverses of U's nb x nb diagonal blocks (upper), shape
+    (..., n/nb, nb, nb) for U (..., n, n)."""
+    blocks = _diag_blocks(u, nb).mT
+    inv = _trinv_lower_batched(blocks.reshape((-1,) + blocks.shape[-2:]))
+    return inv.reshape(blocks.shape).mT
 
 
 def _check_blocks(n, nb, what):
@@ -92,16 +95,16 @@ def trsm_left_upper_inv(u, b, nb=512):
     n % nb == 0 and nb a power-of-two multiple of 16 -- callers fall back
     to ``torch.linalg.solve_triangular`` otherwise.
     """
-    n = u.shape[0]
+    n = u.shape[-1]
     _check_blocks(n, nb, "trsm_left_upper_inv")
     inv = upper_block_inverses(u, nb)
     x = torch.zeros_like(b)
     for k in range(n // nb - 1, -1, -1):
         k0, k1 = k * nb, k * nb + nb
-        rhs = b[k0:k1]
+        rhs = b[..., k0:k1, :]
         if k1 < n:
-            rhs = rhs - u[k0:k1, k1:] @ x[k1:]  # solved rows only
-        x[k0:k1] = inv[k] @ rhs
+            rhs = rhs - u[..., k0:k1, k1:] @ x[..., k1:, :]  # solved rows only
+        x[..., k0:k1, :] = inv[..., k, :, :] @ rhs
     return x
 
 
@@ -116,19 +119,20 @@ def trinv_upper_full(u, base=512):
     Forward error ~eps * kappa(U) (explicit full inverse): strictly for
     fp32 pipelines whose fp64 refinement absorbs it. Requires
     n = base * 2^k."""
-    n = u.shape[0]
+    n = u.shape[-1]
     if n % base != 0 or (n // base) & (n // base - 1):
         raise ValueError(f"trinv_upper_full requires n = base * 2^k, got {n}")
-    l = u.T  # lower view; inv(U) = inv(L)^T (transpose, no conjugation)
-    inv = _trinv_lower_batched(_diag_blocks(l, base))
+    l = u.mT  # lower view; inv(U) = inv(L)^T (transpose, no conjugation)
+    blocks = _diag_blocks(l, base)
+    inv = _trinv_lower_batched(blocks.reshape((-1,) + blocks.shape[-2:])).reshape(blocks.shape)
     size = base
     while size < n:
         c = torch.stack(
-            [l[p + size : p + 2 * size, p : p + size] for p in range(0, n, 2 * size)]
+            [l[..., p + size : p + 2 * size, p : p + size] for p in range(0, n, 2 * size)], -3
         )
-        inv = _merge_pairs(inv[0::2], inv[1::2], c)
+        inv = _merge_pairs(inv[..., 0::2, :, :], inv[..., 1::2, :, :], c)
         size *= 2
-    return inv[0].T
+    return inv[..., 0, :, :].mT
 
 
 @highest_precision
@@ -136,16 +140,16 @@ def trsm_left_upper_trans_inv(u, b, nb=512):
     """Solve U^H X = B (forward substitution over row blocks; same scheme
     and caveats as trsm_left_upper_inv). Block row k's correction reads
     U[:k0, k0:k1]^H against the already-solved X[:k0]."""
-    n = u.shape[0]
+    n = u.shape[-1]
     _check_blocks(n, nb, "trsm_left_upper_trans_inv")
     inv = upper_block_inverses(u, nb)
     x = torch.zeros_like(b)
     for k in range(n // nb):
         k0, k1 = k * nb, k * nb + nb
-        rhs = b[k0:k1]
+        rhs = b[..., k0:k1, :]
         if k0 > 0:
-            rhs = rhs - u[:k0, k0:k1].mH @ x[:k0]
-        x[k0:k1] = inv[k].mH @ rhs
+            rhs = rhs - u[..., :k0, k0:k1].mH @ x[..., :k0, :]
+        x[..., k0:k1, :] = inv[..., k, :, :].mH @ rhs
     return x
 
 
@@ -153,16 +157,16 @@ def trsm_left_upper_trans_inv(u, b, nb=512):
 def trsm_right_upper_inv(u, b, nb=512):
     """Solve X U = B (column blocks left to right; same scheme and
     caveats as trsm_left_upper_inv)."""
-    n = u.shape[0]
+    n = u.shape[-1]
     _check_blocks(n, nb, "trsm_right_upper_inv")
     inv = upper_block_inverses(u, nb)
     x = torch.zeros_like(b)
     for k in range(n // nb):
         k0, k1 = k * nb, k * nb + nb
-        rhs = b[:, k0:k1]
+        rhs = b[..., k0:k1]
         if k0 > 0:
-            rhs = rhs - x[:, :k0] @ u[:k0, k0:k1]
-        x[:, k0:k1] = rhs @ inv[k]
+            rhs = rhs - x[..., :k0] @ u[..., :k0, k0:k1]
+        x[..., k0:k1] = rhs @ inv[..., k, :, :]
     return x
 
 
@@ -174,7 +178,7 @@ def trsm_phase4(u, y, nb=512):
     the explicit-inverse forward error) and exact substitution everywhere
     else (the fp64 contract path).
     """
-    n = u.shape[0]
+    n = u.shape[-1]
     lowprec = u.dtype in (torch.float32, torch.complex64)
     if lowprec and n % nb == 0 and n // nb >= 2:
         return trsm_left_upper_inv(u, y, nb=nb)

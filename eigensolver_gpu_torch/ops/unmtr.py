@@ -29,8 +29,8 @@ def _block_v(a_packed, r0, kb, nref):
     combined with tau = 0 make H = I. ``a_packed`` must have at least
     r0 + 1 + kb columns.
     """
-    n = a_packed.shape[0]
-    cols = a_packed[:, r0 + 1 : r0 + 1 + kb]
+    n = a_packed.shape[-2]
+    cols = a_packed[..., :, r0 + 1 : r0 + 1 + kb]
     rows = torch.arange(n, device=a_packed.device)[:, None]
     refl = torch.arange(kb, device=a_packed.device)[None, :] + r0
     valid = refl < nref
@@ -48,38 +48,41 @@ def _larft_left(v, tau_blk):
 
 
 def _larft_left_batched(v, tau):
-    """_larft_left for a stack of blocks at once: the per-block row
-    recurrences are independent, so one loop over kb rows builds every
-    T (sequential depth kb instead of kb * nblocks)."""
-    nblk, _, kb = v.shape
+    """_larft_left for a stack of blocks at once (leading axes): the
+    per-block row recurrences are independent, so one loop over kb rows
+    builds every T (sequential depth kb instead of kb * nblocks)."""
+    kb = v.shape[-1]
     m = v.mH @ v  # m[b, j, i] = v_j^H v_i
-    t = torch.zeros((nblk, kb, kb), dtype=v.dtype, device=v.device)
+    t = torch.zeros(v.shape[:-2] + (kb, kb), dtype=v.dtype, device=v.device)
     for j in range(kb):
-        row = (m[:, j : j + 1, :j] @ t[:, :j]).squeeze(1)
-        t[:, j] = -tau[:, j, None] * row
-        t[:, j, j] = tau[:, j]
+        row = (m[..., j : j + 1, :j] @ t[..., :j, :]).squeeze(-2)
+        t[..., j, :] = -tau[..., j, None] * row
+        t[..., j, j] = tau[..., j]
     return t
 
 
 @highest_precision
 def unmtr(a_packed, tau, c, nb=128):
     """C <- Q @ C with Q from sytrd's packed reflectors. Blocked WY apply;
-    the ragged tail is padded with tau = 0 identity reflectors."""
-    n = a_packed.shape[0]
+    the ragged tail is padded with tau = 0 identity reflectors. Leading
+    axes are a batch of problems."""
+    n = a_packed.shape[-1]
     nref = n - 1
     if nref <= 0:
         return c
+    lead = a_packed.shape[:-2]
     nblocks = -(-nref // nb)
-    tau_pad = torch.cat([tau, tau.new_zeros(nblocks * nb - nref)]).reshape(nblocks, nb)
-    a_ext = torch.cat([a_packed, a_packed.new_zeros((n, nblocks * nb + 1 - n))], 1)
+    tau_pad = torch.cat([tau, tau.new_zeros(lead + (nblocks * nb - nref,))], -1)
+    tau_pad = tau_pad.reshape(lead + (nblocks, nb))
+    a_ext = torch.cat([a_packed, a_packed.new_zeros(lead + (n, nblocks * nb + 1 - n))], -1)
 
     with trace_range("unmtr"):
-        v_all = torch.stack([_block_v(a_ext, k * nb, nb, nref) for k in range(nblocks)])
+        v_all = torch.stack([_block_v(a_ext, k * nb, nb, nref) for k in range(nblocks)], -3)
         t_all = _larft_left_batched(v_all, tau_pad)
         for i in range(nblocks):
             # C <- (I - V T V^H) C : two gemms + one small triangular gemm
-            v = v_all[i]
-            c = c - v @ (t_all[i] @ (v.mH @ c))
+            v = v_all[..., i, :, :]
+            c = c - v @ (t_all[..., i, :, :] @ (v.mH @ c))
         return c
 
 

@@ -41,7 +41,8 @@ def config_from_jax_fields(d: dict) -> SolverConfig:
 
 
 def planar_from_numpy(a, b, device="cuda", dtype=torch.float64):
-    """(ar, ai, br, bi) contiguous tensors from complex host arrays."""
+    """(ar, ai, br, bi) contiguous tensors from complex host arrays: one
+    problem (n, n), or a batch (batch, n, n) for zhegvdx_planar_batched."""
     a = np.asarray(a)
     b = np.asarray(b)
     return tuple(
@@ -51,8 +52,9 @@ def planar_from_numpy(a, b, device="cuda", dtype=torch.float64):
 
 
 def dense_from_numpy(a, b, device="cuda", dtype=None):
-    """(a, b) contiguous dense tensors from real or complex host arrays.
-    ``dtype`` None keeps each array's own dtype."""
+    """(a, b) contiguous dense tensors from real or complex host arrays,
+    one problem or a batch (batch, n, n) for sygvdx_batched. ``dtype``
+    None keeps each array's own dtype."""
     return tuple(
         torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=device) for x in (a, b)
     )

@@ -87,6 +87,42 @@ def test_pchol_block_kernel_matches_plain(cuda_device, nb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nb", [128, 100])
+def test_pchol_block_kernel_batched(cuda_device, nb):
+    """K1 on a batch of 64 blocks in one launch (profiler), read through
+    the batched Cholesky's panel view (the leading nb rows of (64, 2 nb, nb)
+    panels: a batch stride and a row stride of their own). Item 5 has a bad
+    pivot at row 37. Each item's outputs are bit-identical to the unbatched
+    launch on that item; within 1e-4 relative of the plain version (L on the
+    columns before a bad pivot, the inverse on the leading block); fail
+    exact."""
+    batch = 64
+    rng = np.random.default_rng(nb + 1)
+    t = rng.standard_normal((batch, nb, nb)) + 1j * rng.standard_normal((batch, nb, nb))
+    a = t @ t.conj().transpose(0, 2, 1) + nb * np.eye(nb)
+    a[5, 37, 37] = -1e4
+    pan = np.concatenate([a, rng.standard_normal((batch, nb, nb))], 1)
+    pr, pi = _planes(pan, cuda_device)
+    dr, di = pr[:, :nb], pi[:, :nb]
+    assert dr.stride() == (2 * nb * nb, nb, 1)
+    before = pchol_block_planar.launches
+    got, launched, calls = _device_launches(lambda: pchol_block_planar(dr, di), "pchol")
+    assert pchol_block_planar.launches == before + calls and launched == 1
+    assert got[4].shape == (batch,)
+    want = pchol_block_plain(dr, di)
+    assert got[4].cpu().tolist() == want[4].cpu().tolist() == [0] * 5 + [38] + [0] * 58
+    for k in range(batch):
+        one = pchol_block_planar(dr[k], di[k])
+        for x, y in zip(got, one):
+            assert bool(((x[k] == y) | (x[k].isnan() & y.isnan())).all())
+        c = 37 if k == 5 else nb
+        held = [(x[k][:, :c], y[k][:, :c]) for x, y in zip(got[:2], want[:2])]
+        held += [(x[k][:c, :c], y[k][:c, :c]) for x, y in zip(got[2:4], want[2:4])]
+        for g, w in held:
+            assert float(torch.linalg.norm(g - w)) <= 1e-4 * float(torch.linalg.norm(w))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pe_off", [0, 64, None])
 def test_latrd_panel_kernel_matches_plain(cuda_device, pe_off):
     """K2 within rtol 1e-4 / atol 1e-3 of its plain version (fp32 sums in

@@ -127,7 +127,9 @@ def main():
 
     lib, lines, to_source = build("pchol_block", "const int t = threadIdx.x;")
     fn = lib.pchol_block_planar_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     nb = 128
     g = rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb))
@@ -138,8 +140,9 @@ def main():
     fail = torch.empty((), dtype=torch.int32, device=dev)
     for _ in range(2):  # the second call is the one read
         lib.marks_reset()
-        status = fn(ar.data_ptr(), ai.data_ptr(), nb, nb, *(out[i].data_ptr() for i in range(4)),
-                    fail.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        status = fn(ar.data_ptr(), ai.data_ptr(), nb, 0, nb, 1,  # one block: batch 1
+                    *(out[i].data_ptr() for i in range(4)), nb * nb, fail.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented pchol_block launch")
         torch.cuda.synchronize()
     report(lib, lines, to_source, f"K1 nb={nb}")
