@@ -38,7 +38,16 @@ g) is a ValueError under ``mosaic_kernels``: set ``replay_g`` to at most
 ``zhegvdx_planar_batched`` solves a batch of problems (leading axis) with
 the batch axis through every stage of the one-stage pipeline.
 
-Not ported yet: ``planar_solve_mode='trinv'``.
+The triangular solves of phases 2 and 4 follow ``cfg.planar_solve_mode``
+(default ``'blockinv'``), by the JAX rule: ``'trinv'`` forms the full
+inv(L) once (``ops/planar.ptrinv_lower``) and turns the three solves into
+planar gemms, phase 2 as ``pmatmul(inv(L), .)`` and phase 4 as
+``pmatmul(inv(L)^H, .)``; its gate is fp32 input with n / 128 a power of
+two (n = 4096 qualifies). Where the gate fails, ``'trinv'`` and
+``'blockinv'`` take the block-inverted substitution
+(``ptrsm_left_lower_inv``) in fp32 and ``'subst'`` and every fp64 solve the
+exact substitution (``ptrsm_left_lower``). The mixed driver passes the mode
+to its fp32 inner solve, one-stage or two-stage, batched or not.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ from eigensolver_gpu_torch.models.syevdx import sort_pairs
 from eigensolver_gpu_torch.ops.planar import (
     pcholesky_lower,
     pH,
+    pmatmul,
+    ptrinv_lower,
     ptrsm_left_lower,
     ptrsm_left_lower_inv,
     ptrsm_left_upper,
@@ -151,13 +162,6 @@ def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
     return w_all[il - 1 : iu], apply_q1_planar(vs, ts, y)
 
 
-def _check_ported(cfg):
-    if cfg.planar_solve_mode == "trinv":
-        raise NotImplementedError(
-            "planar_solve_mode='trinv' (ptrinv_lower) is not ported yet"
-        )
-
-
 def _two_stage_engaged(npad, cfg):
     """The planar two-stage gate: ``tridiag_mode='two'`` and a padded size
     that is a multiple of ``band`` and at least ``3 * band``."""
@@ -180,7 +184,6 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         iu = n
     if not (1 <= il <= iu <= n):
         raise ValueError(f"require 1 <= il <= iu <= n, got il={il}, iu={iu}, n={n}")
-    _check_ported(cfg)
     nb_chol = min(128, n)
 
     # UPLO='U' contract: only the upper triangles are read.
@@ -220,17 +223,32 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
 
     # fp32: diagonal-block-inverted solves (n/nb sequential steps; the
     # fp64 refinement absorbs the eps32 * kappa forward error); fp64 or
-    # 'subst': pure substitution
+    # 'subst': pure substitution; 'trinv' where its gate holds: one full
+    # inv(L) and planar gemms
+    trinv_ok = (
+        cfg.planar_solve_mode == "trinv"
+        and ar.dtype == torch.float32
+        and n % 128 == 0
+        and (n // 128) & (n // 128 - 1) == 0
+    )
     if ar.dtype == torch.float32 and cfg.planar_solve_mode != "subst":
-        _solve_l = ptrsm_left_lower_inv
+        subst = ptrsm_left_lower_inv
     else:
-        _solve_l = ptrsm_left_lower
+        subst = ptrsm_left_lower
 
     with trace_range("zhegvdx_planar"):
         l, info = pcholesky_lower((br, bi), nb=nb_chol, block_kernel=cfg.mosaic_kernels)
+        if trinv_ok:
+            linv = ptrinv_lower(l)
+            solve_l = lambda rhs: pmatmul(linv, rhs)
+            # phase 4 solves L^H x = y, so x = inv(L)^H y
+            solve_u = lambda rhs: pmatmul(pH(linv), rhs)
+        else:
+            solve_l = lambda rhs: subst(l, rhs, nb=nb_chol)
+            solve_u = lambda rhs: ptrsm_left_upper(pH(l), rhs, nb=nb_chol, solve_lower=subst)
         # PHASE 2: C = L^{-1} A L^{-H} = L^{-1} (L^{-1} A^H)^H
-        x = _solve_l(l, (ar, ai), nb=nb_chol)
-        y = _solve_l(l, pH(x), nb=nb_chol)
+        x = solve_l((ar, ai))
+        y = solve_l(pH(x))
         cr, ci = pH(y)
         cr = (cr + cr.mT) / 2
         ci = (ci - ci.mT) / 2
@@ -255,7 +273,7 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         yr, yi = yr[..., :n, :], yi[..., :n, :]
 
         # PHASE 4: x = L^{-H} y  (L^H is upper triangular)
-        zr, zi = ptrsm_left_upper(pH(l), (yr, yi), nb=nb_chol, solve_lower=_solve_l)
+        zr, zi = solve_u((yr, yi))
         return PlanarResult(w=w, zr=zr, zi=zi, info=info)
 
 

@@ -11,12 +11,17 @@ real planes:
   * ``ptrsm_left_lower``      -- blocked forward substitution, L X = B
   * ``ptrsm_left_lower_inv``  -- the same with inverted diagonal blocks
   * ``ptrsm_left_upper``      -- U X = B via the flip identity
+  * ``ptrinv_lower``          -- full inv(L) by bottom-up batched doubling
+                                 (the ``'trinv'`` solve mode)
+
+and the elementwise helpers ``pconj``, ``pT``, ``pH``, ``padd``,
+``psub``, ``pscale``, ``pdiv``, ``to_planar`` and ``from_planar``.
 
 A planar array is a ``(re, im)`` tuple of equal-shape real tensors. The
 JAX package's fixed-shape tricks (masked full-width gemms, the 4-segment
-bucketing of ``_chol_segments``) exist for XLA's static shapes; eager
-PyTorch slices the exact triangle instead. ``ptrinv_lower`` and the
-``'trinv'`` solve mode are not ported yet.
+bucketing of ``_chol_segments``, ``ptrinv_lower``'s loop of slices and
+concatenations) exist for XLA's static shapes; eager PyTorch slices the
+exact triangle, and takes the blocks of a level as views.
 
 Every function takes a batch of problems on leading axes (the k-point
 batches of ``zhegvdx_planar_batched``): ``...``-indexing, per-item
@@ -31,9 +36,54 @@ from eigensolver_gpu_torch.ops.pchol import _pchol_base, pchol_block_planar
 from eigensolver_gpu_torch.utils.precision import highest_precision
 
 
+def pconj(x):
+    """Elementwise complex conjugate."""
+    return (x[0], -x[1])
+
+
+def pT(x):
+    """Transpose (of the last two axes), no conjugation."""
+    return (x[0].mT, x[1].mT)
+
+
 def pH(x):
     """Conjugate transpose (of the last two axes)."""
     return (x[0].mT, -x[1].mT)
+
+
+def padd(x, y):
+    return (x[0] + y[0], x[1] + y[1])
+
+
+def psub(x, y):
+    return (x[0] - y[0], x[1] - y[1])
+
+
+def pscale(x, sr, si=0.0):
+    """Multiply by a complex scalar sr + i si (numbers, or tensors that
+    broadcast: one scalar an item of a batch)."""
+    return (x[0] * sr - x[1] * si, x[0] * si + x[1] * sr)
+
+
+def pdiv(x, y):
+    """Elementwise complex division x / y (0 where y is 0)."""
+    den = y[0] * y[0] + y[1] * y[1]
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    return ((x[0] * y[0] + x[1] * y[1]) / safe, (x[1] * y[0] - x[0] * y[1]) / safe)
+
+
+def to_planar(a):
+    """Split a complex (or real) numpy array or tensor into a planar pair of
+    tensors; real input gets a zero imaginary plane."""
+    t = torch.as_tensor(a)
+    if not t.is_complex():
+        return t, torch.zeros_like(t)
+    return t.real.contiguous(), t.imag.contiguous()
+
+
+def from_planar(x):
+    """The complex numpy array of a planar pair (on the host)."""
+    return x[0].detach().cpu().numpy() + 1j * x[1].detach().cpu().numpy()
 
 
 def pmatmul(x, y):
@@ -123,6 +173,56 @@ def _diag_blocks(x, nb):
     """(..., n/nb, nb, nb) stack of the diagonal blocks of x (..., n, n)."""
     n = x.shape[-1]
     return torch.stack([x[..., k : k + nb, k : k + nb] for k in range(0, n, nb)], -3)
+
+
+def _pmm4(x, y):
+    """Planar product with four real gemms (the JAX twin's form in the
+    inverse's doubling steps)."""
+    return (x[0] @ y[0] - x[1] @ y[1], x[0] @ y[1] + x[1] @ y[0])
+
+
+@highest_precision
+def ptrinv_lower(l, base=128):
+    """Full planar lower-triangular inverse by bottom-up batched doubling.
+
+    Level 0 inverts all n/base diagonal blocks together
+    (``_ptrinv_batched``); each further level merges neighbouring pairs by
+    inv([[A,0],[C,D]]) = [[iA,0],[-iD C iA, iD]], all pairs of a level in
+    one batched product, so a triangular solve against any right-hand side
+    becomes one planar gemm. The blocks of a level are views of L and of
+    the previous level's inverses (reshapes, no copies). Forward error
+    ~eps * kappa(L) (an explicit inverse): the fp32 pipeline's choice,
+    which the fp64 refinement absorbs. Leading axes are a batch of
+    problems. Raises ValueError unless n = base * 2^k.
+    """
+    lr, li = l
+    n = lr.shape[-1]
+    if n % base != 0 or (n // base) & (n // base - 1):
+        raise ValueError(f"ptrinv requires n = base * 2^k, got n={n}, base={base}")
+    lead = lr.shape[:-2]
+    inv = _ptrinv_batched(_diag_blocks(lr, base), _diag_blocks(li, base))  # (..., n/base, b, b)
+    size = base
+    while size < n:
+        pairs = n // (2 * size)
+
+        def lower_left(x):
+            # the (pairs, size, size) blocks x[(2p+1)s:(2p+2)s, 2ps:(2p+1)s]
+            x6 = x.reshape(lead + (pairs, 2, size, pairs, 2, size))[..., :, 1, :, :, 0, :]
+            return torch.diagonal(x6, dim1=-4, dim2=-2).movedim(-1, -3)
+
+        ia = (inv[0][..., 0::2, :, :], inv[1][..., 0::2, :, :])
+        id_ = (inv[0][..., 1::2, :, :], inv[1][..., 1::2, :, :])
+        m = _pmm4(id_, _pmm4((lower_left(lr), lower_left(li)), ia))  # M = iD C iA
+        new = []
+        for a_, d_, m_ in zip(ia, id_, m):
+            out = torch.zeros(lead + (pairs, 2, size, 2, size), dtype=a_.dtype, device=a_.device)
+            out[..., 0, :, 0, :] = a_
+            out[..., 1, :, 0, :] = -m_
+            out[..., 1, :, 1, :] = d_
+            new.append(out.reshape(lead + (pairs, 2 * size, 2 * size)))
+        inv = tuple(new)
+        size *= 2
+    return inv[0][..., 0, :, :], inv[1][..., 0, :, :]
 
 
 @highest_precision

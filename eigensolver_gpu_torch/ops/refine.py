@@ -21,10 +21,13 @@ predicted post-sweep coupling of marginally separated pairs; while it
 exceeds the residual contract, up to ``extra_max`` more fp64 sweeps run.
 
 Port differences:
-  * the fp64 products are native fp64 ``torch.matmul``. The JAX package
-    defaults to ``gemm='ozaki'`` (bf16 digit products, a workaround for
-    emulated fp64); here the default is ``'native'`` and ``gemm='ozaki'``
-    raises NotImplementedError until ops/ozaki.py is ported;
+  * ``gemm='native'``, the port's default and the card's, runs the fp64
+    products as native fp64 ``torch.matmul``. ``gemm='ozaki'``, the JAX
+    package's default (a workaround for its emulated fp64), runs the real
+    fp64 sweeps' products as exact digit gemms (ops/ozaki.py), as JAX's
+    ``_resolve_mm`` does: only on real fp64 input, the plain product
+    otherwise. Which route the card should take by default is for a
+    benchmark to decide;
   * the defect-gated escalation is a host loop that reads the defect
     after each sweep (one device sync per extra sweep, against five
     large gemms per sweep) instead of a fixed-trip masked loop, which
@@ -37,8 +40,11 @@ Port differences:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from eigensolver_gpu_torch.ops.ozaki import ozaki_matmul_chunked
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -113,21 +119,32 @@ def _correct_block(gram, s, sel0, ms, w_rows):
     return e, sc, lam, w_rows, defect
 
 
-def _sweep(a, b, x, sel, w_rows, chunk=None):
+def _sweep(a, b, x, sel, w_rows, chunk=None, mm=_mm_chunked, mm_dx=None):
     """One sweep on the selected block (the JAX package's _sweep_eigh and
     _sweep_gevp in one); updates only columns sel0..sel0+ms of the full
     basis x (n, n_all). ``b`` None is the standard problem
-    (R = I - X^H X_blk), else R = I - X^H B X_blk.
+    (R = I - X^H X_blk), else R = I - X^H B X_blk. ``mm(x, y, chunk)`` is
+    the product, ``mm_dx`` (default ``mm``) the correction's X @ E.
     Returns (x', lam, w_rows', defect)."""
     sel0, ms = sel
     xs = x[..., sel0 : sel0 + ms]
     xh = x.mH
-    gram = _mm_chunked(xh, xs if b is None else _mm_chunked(b, xs, chunk), chunk)
-    s = _mm_chunked(xh, _mm_chunked(a, xs, chunk), chunk)
+    gram = mm(xh, xs if b is None else mm(b, xs, chunk), chunk)
+    s = mm(xh, mm(a, xs, chunk), chunk)
     e, sc, lam, w_rows, defect = _correct_block(gram, s, sel0, ms, w_rows)
     x = x.clone()
-    x[..., sel0 : sel0 + ms] = (xs + _mm_chunked(x, e, chunk)) * sc
+    x[..., sel0 : sel0 + ms] = (xs + (mm_dx or mm)(x, e, chunk)) * sc
     return x, lam, w_rows, defect
+
+
+def _resolve_mm(gemm, dt):
+    """(mm, mm_dx) of the fp64 sweeps: the ozaki digit product on real fp64
+    input under ``gemm='ozaki'``, with the correction X @ E at 28 bits (its
+    error is relative to |E|, below the sweep's own quadratic term); the
+    plain product otherwise (JAX's ``_resolve_mm``)."""
+    if gemm == "ozaki" and dt == torch.float64:
+        return ozaki_matmul_chunked, functools.partial(ozaki_matmul_chunked, bits=28)
+    return _mm_chunked, None
 
 
 def escalate(one_sweep, state, defect, tol, extra_max):
@@ -185,16 +202,11 @@ def _run_sweeps(one_sweep, x, w_rows, n_full, extra_max, n, is64):
 
 
 def _check_gemm(gemm):
-    if gemm == "ozaki":
-        raise NotImplementedError(
-            "gemm='ozaki' needs ops/ozaki.py, which is not ported yet; "
-            "use gemm='native'"
-        )
-    if gemm != "native":
+    if gemm not in ("native", "ozaki"):
         raise ValueError(f"unknown gemm {gemm!r}")
 
 
-def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name):
+def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name, gemm):
     """Body shared by refine_gevp and refine_eigh (``b`` None). Returns
     (w or None, w_rows, x) after all sweeps."""
     dt = a.dtype
@@ -224,8 +236,9 @@ def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name):
             n_full = max(sweeps - n_coarse, 1)
         else:
             n_full = sweeps
+        mm, mm_dx = _resolve_mm(gemm, dt)
         return _run_sweeps(
-            lambda x, w_rows: _sweep(a, b, x, sel, w_rows, chunk),
+            lambda x, w_rows: _sweep(a, b, x, sel, w_rows, chunk, mm, mm_dx),
             x, w_rows, n_full, extra_max, n, is64,
         )
 
@@ -241,6 +254,9 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
     fp32-pipeline eigenvalue estimates, required with a strict-subset
     sel. coarse_first: all but the last sweep (at most 2) run in the
     32-bit dtype. extra_max: defect-gated extra fp64 sweeps.
+    gemm: 'native' (the default, here and on the card: fp64
+    torch.matmul) or 'ozaki' (the JAX default: exact digit gemms on real
+    fp64 input, ops/ozaki.py); anything else is a ValueError.
     Returns (w (ms,), x_block (n, ms)).
     """
     _check_gemm(gemm)
@@ -248,7 +264,7 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
         sel = (0, x.shape[-1])
     sel0, ms = sel
     x, w, w_rows = _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0,
-                           extra_max, "refine_gevp")
+                           extra_max, "refine_gevp", gemm)
     if w is None:
         w = w_rows[..., sel0 : sel0 + ms]
     return w, x[..., sel0 : sel0 + ms]
@@ -268,7 +284,7 @@ def refine_eigh(a, x, sweeps=2, coarse_first=True, chunk=None,
         sel = (0, x.shape[-1])
     sel0, ms = sel
     x, _, _ = _refine(a, None, x, sweeps, coarse_first, chunk, sel, w0,
-                      extra_max, "refine_eigh")
+                      extra_max, "refine_eigh", gemm)
     xs = x[..., sel0 : sel0 + ms]
     xs = xs / torch.linalg.vector_norm(xs, dim=-2)[..., None, :]
     w = torch.sum(xs.conj() * (a @ xs), dim=-2).real

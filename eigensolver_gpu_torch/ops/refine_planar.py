@@ -17,18 +17,32 @@ predicted post-sweep coupling of marginally separated pairs; while it
 exceeds the residual contract, up to ``extra_max`` more fp64 sweeps run.
 See the JAX twin's docstring for the derivations.
 
-The fp64 products here are native fp64 ``torch.matmul``. The JAX
-package defaults to ``gemm='ozaki'`` (bf16 digit products), a TPU
-workaround for emulated fp64; ``gemm='ozaki'`` raises
-NotImplementedError until ops/ozaki.py is ported.
+``gemm='native'``, the port's default and the card's, runs the fp64
+products as native fp64 ``torch.matmul``. ``gemm='ozaki'``, the JAX
+package's default (a workaround for its emulated fp64), runs the fp64
+sweeps as exact digit gemms (ops/ozaki.py) with X's slicings reused across
+the four products of a sweep (``_sweep_ozaki``), or, with ``chunk``, the
+chunked ozaki products. Which route the card should take by default is for
+a benchmark to decide.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from eigensolver_gpu_torch.ops.ozaki import (
+    digit_bits_for,
+    nslice_for,
+    ozaki_planar_slices,
+    ozaki_pmatmul,
+    ozaki_pmatmul_chunked,
+    ozaki_pmatmul_pre,
+    ozaki_slice,
+)
 from eigensolver_gpu_torch.ops.planar import pH, pmatmul_chunked
-from eigensolver_gpu_torch.ops.refine import escalate
+from eigensolver_gpu_torch.ops.refine import _check_gemm, escalate
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -96,24 +110,61 @@ def _correct_block(xhbx, s, sel0, ms, w_rows):
     return e, sc, lam_sel, w_rows, defect
 
 
-def _sweep(a, b, x, sel, w_rows, chunk=None):
+def _update(x, sel, dx, sc):
+    """x with block columns sel0..sel0+ms replaced by (x_blk + dx) * sc."""
+    sel0, ms = sel
+    xr, xi = x[0].clone(), x[1].clone()
+    xr[..., sel0 : sel0 + ms] = (x[0][..., sel0 : sel0 + ms] + dx[0]) * sc
+    xi[..., sel0 : sel0 + ms] = (x[1][..., sel0 : sel0 + ms] + dx[1]) * sc
+    return xr, xi
+
+
+def _sweep(a, b, x, sel, w_rows, chunk=None, mm=pmatmul_chunked, mm_dx=None):
     """One Ogita-Aishima sweep on the selected block, in the dtype of its
     arguments. ``x`` is the full planar basis (n, n_all); only columns
-    sel0..sel0+ms change. Returns (x', lam_sel, w_rows', defect)."""
+    sel0..sel0+ms change. ``mm(x, y, chunk)`` is the planar product,
+    ``mm_dx`` (default ``mm``) the correction's X @ E.
+    Returns (x', lam_sel, w_rows', defect)."""
     sel0, ms = sel
     xr, xi = x
     xs = (xr[..., sel0 : sel0 + ms], xi[..., sel0 : sel0 + ms])
-    bx = pmatmul_chunked(b, xs, chunk)
-    ax = pmatmul_chunked(a, xs, chunk)
-    xhbx = pmatmul_chunked(pH(x), bx, chunk)
-    s = pmatmul_chunked(pH(x), ax, chunk)
+    bx = mm(b, xs, chunk)
+    ax = mm(a, xs, chunk)
+    xhbx = mm(pH(x), bx, chunk)
+    s = mm(pH(x), ax, chunk)
     e, sc, lam_sel, w_rows, defect = _correct_block(xhbx, s, sel0, ms, w_rows)
-    dx = pmatmul_chunked(x, e, chunk)
-    xr = xr.clone()
-    xi = xi.clone()
-    xr[..., sel0 : sel0 + ms] = (xs[0] + dx[0]) * sc
-    xi[..., sel0 : sel0 + ms] = (xs[1] + dx[1]) * sc
-    return (xr, xi), lam_sel, w_rows, defect
+    dx = (mm_dx or mm)(x, e, chunk)
+    return _update(x, sel, dx, sc), lam_sel, w_rows, defect
+
+
+def _sweep_ozaki(a, b, x, sel, w_rows, bits=48):
+    """fp64 selected-block sweep with slice-reused ozaki products: the same
+    math as _sweep; X's column slicings are made once and serve B @ Xs and
+    A @ Xs (the block's columns are a slice of them, per-column scales
+    slice with them) and both grams (as the transposed lhs: X^T's row
+    scales are X's column scales)."""
+    sel0, ms = sel
+    xr, xi = x
+    n = a[0].shape[-1]
+    dbits = digit_bits_for(n)
+    ns = nslice_for(dbits, bits)
+
+    xcol = ozaki_planar_slices((xr, xi), 1, dbits, ns)
+    blk = lambda p: (p[0][..., sel0 : sel0 + ms], p[1][..., sel0 : sel0 + ms])
+    xcol_s = tuple(blk(p) for p in xcol)
+    bx = ozaki_pmatmul_pre(ozaki_planar_slices(b, 0, dbits, ns), xcol_s, dbits)
+    ax = ozaki_pmatmul_pre(ozaki_planar_slices(a, 0, dbits, ns), xcol_s, dbits)
+    # X^H @ BX and X^H @ AX: X's column slicings as the transposed lhs
+    xconj = (xcol[0], xcol[1], ozaki_slice(xr - xi, 1, dbits, ns))
+    xhbx = ozaki_pmatmul_pre(xconj, ozaki_planar_slices(bx, 1, dbits, ns), dbits,
+                             transpose_lhs=True, conj_lhs=True)
+    s = ozaki_pmatmul_pre(xconj, ozaki_planar_slices(ax, 1, dbits, ns), dbits,
+                          transpose_lhs=True, conj_lhs=True)
+    e, sc, lam_sel, w_rows, defect = _correct_block(xhbx, s, sel0, ms, w_rows)
+    # the correction needs ~28 bits relative to E: its error stays below
+    # the sweep's own quadratic O(|E|^2) term (4 digit slices, not 7)
+    dx = ozaki_pmatmul((xr, xi), e, bits=28)
+    return _update(x, sel, dx, sc), lam_sel, w_rows, defect
 
 
 @highest_precision
@@ -134,16 +185,12 @@ def refine_gevp_planar(
     the host: one device sync per sweep.
     Leading axes of a, b, x (and w0) are a batch of problems: each item
     has its own tolerance and escalates on its own (ops/refine.escalate).
-    gemm: 'native' (fp64 torch.matmul). 'ozaki', the JAX package's
-    default, raises NotImplementedError until ops/ozaki.py is ported.
+    gemm: 'native' (the default, here and on the card: fp64
+    torch.matmul) or 'ozaki' (the JAX default: the fp64 sweeps as exact
+    digit gemms, ops/ozaki.py; the coarse fp32 sweeps stay plain);
+    anything else is a ValueError.
     """
-    if gemm == "ozaki":
-        raise NotImplementedError(
-            "gemm='ozaki' needs ops/ozaki.py, which is not ported yet; "
-            "use gemm='native'"
-        )
-    if gemm != "native":
-        raise ValueError(f"unknown gemm {gemm!r}")
+    _check_gemm(gemm)
     ar, _ = a
     xr, xi = x
     n, m = xr.shape[-2:]
@@ -172,10 +219,20 @@ def refine_gevp_planar(
         else:
             n_f64_sweeps = sweeps
 
+        use_ozaki = gemm == "ozaki" and f64
+
+        def sweep(xpair, w_rows):
+            if use_ozaki and chunk is None:
+                return _sweep_ozaki(a, b, xpair, sel, w_rows)
+            if use_ozaki:
+                return _sweep(a, b, xpair, sel, w_rows, chunk, ozaki_pmatmul_chunked,
+                              functools.partial(ozaki_pmatmul_chunked, bits=28))
+            return _sweep(a, b, xpair, sel, w_rows, chunk)
+
         w = None
         defect = None
         for _ in range(n_f64_sweeps):
-            (xr, xi), w, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
+            (xr, xi), w, w_rows, defect = sweep((xr, xi), w_rows)
 
         if extra_max > 0 and f64:
             anorm = w_rows.abs().amax(-1)
@@ -183,7 +240,7 @@ def refine_gevp_planar(
 
             def one_sweep(state):
                 xr, xi, w_rows = state
-                (xr, xi), _, w_rows, defect = _sweep(a, b, (xr, xi), sel, w_rows, chunk)
+                (xr, xi), _, w_rows, defect = sweep((xr, xi), w_rows)
                 return (xr, xi, w_rows), defect
 
             (xr, xi, w_rows), defect = escalate(one_sweep, (xr, xi, w_rows), defect, tol,

@@ -13,12 +13,35 @@ Design decisions carried over from the JAX package (see its docstring):
 deflation by masking, separation of surviving poles to a minimum gap
 instead of dlaed2's Givens chain, and the Gu/Eisenstat recomputed z.
 
+The secular iteration stops by JAX's rule: a lane is done once it has
+converged (|f| at its evaluation's roundoff floor) or its bracket has
+collapsed to eps * max(|lo|, |hi|) + eps * gap_min; the loop ends when
+every lane of the call is done, or at the ``_secular_iters`` ceiling (35
+sweeps in fp32, 60 in fp64). The deflation-aware assembly (``compact``)
+is JAX's: alive poles first, the update gemm at the smallest of four
+bucket sizes covering the alive count, the deflated columns passed
+through; ``stedc`` takes it where JAX does, at the levels of at most two
+pairs and at the fold merges.
+
 Port differences:
-  * the secular iteration runs the fixed ``_secular_iters`` count (35 in
-    fp32, 60 in fp64) instead of a while loop: converged lanes freeze,
-    and no step reads a device value on the host;
-  * the deflation-aware bucketed assembly (``compact``) and the mesh
-    sharding are not ported; every merge runs the full assembly gemm;
+  * the done flag is computed on the device and read on the host every
+    ``STOP_EVERY`` sweeps (JAX tests it before every sweep inside a
+    ``while_loop``), so a merge may run up to ``STOP_EVERY - 1`` sweeps
+    past JAX's stop. Such sweeps leave converged lanes where they are (a
+    converged lane re-running the step is a no-op: the safeguard
+    invariant) and move the others only inside brackets already
+    collapsed to eps, so the roots agree with JAX's within that bracket
+    width (eps relative, the eps * gap_min floor near zero). A batch
+    (problems and pairs of a level) stops when its last lane is done,
+    as under JAX's vmap. ``stedc.sweeps`` holds the sweeps of each merge
+    of the last call, in order;
+  * ``compact`` reads the alive count on the host to choose the bucket
+    (JAX's ``lax.switch`` chooses on the device): one read a compact
+    merge, a handful a solve. Under a batch each item gets its own
+    bucket, as under JAX's vmap, and the items of one bucket share one
+    gemm (at most four a merge). ``stedc.compact`` holds (n2, alive
+    counts, buckets) of each compact merge of the last call;
+  * the mesh sharding is not ported;
   * leaves follow the JAX rule: torch.linalg.eigh in fp32 (the JAX 'xla'
     leaf), the batched cyclic Jacobi of ops/jacobi.py in fp64 (for an
     even leaf size, else dense eigh).
@@ -37,20 +60,39 @@ from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
 
+# sweeps between two host reads of the secular iteration's done flag
+STOP_EVERY = 4
+
+
 def _secular_iters(dt):
-    """Safeguarded-iteration count: worst-case lanes degrade to bisection,
+    """Safeguarded-iteration ceiling: worst-case lanes degrade to bisection,
     so the count must bottom out the dtype's precision."""
     return 60 if dt == torch.float64 else 35
 
 
-def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
+def _buckets(n2):
+    """The compact assembly's gemm sizes: the quarters of n2 rounded up to
+    a multiple of 128 (at most n2), and n2."""
+    sizes = sorted({min(n2, -(-(n2 * (i + 1) // 4) // 128) * 128) for i in range(4)})
+    return sizes if sizes[-1] == n2 else sizes + [n2]
+
+
+def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
     """Merge batches of solved blocks coupled by off-diagonal ``beta``.
 
     d1 (B, m), q1 (B, m, m), d2 (B, m2), q2 (B, m2, m2), beta (B,),
     gap_scale (B,) (each pair's problem's scale):
     [[T1, beta e e^T], [.., T2]] = blockdiag(D1, D2) + rho v v^T with
     rho = |beta| (the diagonal adjustments were applied on the way down,
-    in stedc()). Returns (w (B, m+m2) ascending, q (B, m+m2, m+m2))."""
+    in stedc()). Returns (w (B, m+m2) ascending, q (B, m+m2, m+m2)).
+
+    compact: deflation-aware assembly. The deflated columns of the update
+    are unit vectors, so with the alive poles ordered first the update
+    gemm runs at the smallest bucket (``_buckets``) that covers the alive
+    count, each item at its own, and the other columns pass through.
+
+    Sets ``_merge_pair.sweeps`` (secular sweeps run) and, under compact,
+    ``_merge_pair.alive`` and ``_merge_pair.bucket`` (one an item)."""
     bsz, m = d1.shape
     n2 = m + d2.shape[1]
     dt = d1.dtype
@@ -121,7 +163,18 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
     mu = (lo + hi) / 2
     di = torch.where(sig_right, -gap, zero)  # left pole (mu coordinates)
     dn = torch.where(sig_right, zero, gap)  # right pole
-    for _ in range(_secular_iters(dt)):
+    conv = torch.zeros_like(alive)
+    # absolute floor eps * gap_min: roots hugging their pole still resolve
+    # to full relative precision before the stop fires
+    tol_abs = eps * gap_min
+    max_it = _secular_iters(dt)
+    it = 0
+    while it < max_it:
+        if it % STOP_EVERY == 0:
+            done = conv | (hi - lo <= eps * torch.maximum(lo.abs(), hi.abs()) + tol_abs)
+            if bool(done.all()):  # one host read every STOP_EVERY sweeps
+                break
+        it += 1
         psi, phi, dpsi, dphi = secular_parts(mu, sig_right)
         f = 1.0 + psi + phi
         fp = dpsi + dphi
@@ -154,7 +207,8 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
             torch.isfinite(cand), cand,
             torch.where((newton > lo) & (newton < hi), newton, bis),
         )
-        # converged lanes freeze (re-applying the step is then a no-op)
+        # converged lanes freeze (the safeguard invariant: a converged lane
+        # re-running the step is a no-op; keep it in any new step formula)
         mu = torch.where(conv, mu, cand)
     mu = torch.minimum(torch.maximum(mu, lo), hi)
     sigma = torch.where(sig_right, nxt_d, dp)
@@ -185,12 +239,31 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale):
     qcat[:, :m, :m] = q1
     qcat[:, m:, m:] = q2
     qp = torch.gather(qcat, 2, perm[:, None, :].expand(bsz, n2, n2))
-    qnew = qp @ u
-
     order = torch.argsort(w, dim=1, stable=True)
     w = torch.gather(w, 1, order)
-    qnew = torch.gather(qnew, 2, order[:, None, :].expand(bsz, n2, n2))
-    return w, qnew
+    _merge_pair.sweeps = it
+    cols = lambda idx: idx[:, None, :].expand(bsz, n2, n2)
+    if not compact:
+        return w, torch.gather(qp @ u, 2, cols(order))
+
+    # alive poles first; U restricted to the leading block of the alive
+    # count is the whole update (dead rows and columns of U are unit)
+    perm2 = torch.argsort((~alive).to(torch.int8), dim=1, stable=True)
+    qp_c = torch.gather(qp, 2, cols(perm2))
+    u_c = torch.gather(torch.gather(u, 1, perm2[:, :, None].expand(bsz, n2, n2)), 2, cols(perm2))
+    sizes = _buckets(n2)
+    alive_n = alive.sum(1).tolist()  # the host read of the bucket choice
+    bucket = [sizes[sum(a > sz for sz in sizes[:-1])] for a in alive_n]
+    for sz in sorted(set(bucket)):
+        if bucket.count(sz) == bsz:
+            qp_c[:, :, :sz] = qp_c[:, :, :sz] @ u_c[:, :sz, :sz]
+        else:
+            ix = torch.tensor([k for k, b in enumerate(bucket) if b == sz], device=dev)
+            qp_c[ix, :, :sz] = qp_c[ix, :, :sz] @ u_c[ix, :sz, :sz]
+    _merge_pair.alive, _merge_pair.bucket = alive_n, bucket
+    # column j of the result is column inv2[order[j]] of the alive-first one
+    inv2 = torch.argsort(perm2, dim=1)
+    return w, torch.gather(qp_c, 2, cols(torch.gather(inv2, 1, order)))
 
 
 def eigh_or_nan(t):
@@ -221,6 +294,11 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     in n and ``leaf``, so the problem axis folds into each level's pair
     axis and every level is one merge for the whole batch; the scaling is
     per problem.
+
+    The levels of at most two pairs a problem and the fold merges take the
+    compact assembly (JAX's ``compact=mesh is None``). After a call,
+    ``stedc.sweeps`` lists the secular sweeps of each merge and
+    ``stedc.compact`` (n2, alive counts, buckets) of each compact merge.
     """
     batched = d.dim() == 2
     if not batched:
@@ -240,6 +318,15 @@ def stedc(d, e, leaf=64, leaf_solver=None):
 
     def done(w, q):
         return (w, q) if batched else (w[0], q[0])
+
+    def merge(*args, compact):
+        out = _merge_pair(*args, compact=compact)
+        stedc.sweeps.append(_merge_pair.sweeps)
+        if compact:
+            stedc.compact.append((out[0].shape[1], _merge_pair.alive, _merge_pair.bucket))
+        return out
+
+    stedc.sweeps, stedc.compact = [], []
 
     if n <= 2 or n <= leaf:
         return done(*leaf_eigh(_tridiag_dense(d, e)))
@@ -284,7 +371,8 @@ def stedc(d, e, leaf=64, leaf_solver=None):
         def tree(wb_c, qb_c, start_el, nblk_c):
             """Power-of-two merge tree over nblk_c leaves of every problem
             whose first element sits at global index start_el; a level
-            merges the pairs of all problems at once."""
+            merges the pairs of all problems at once, compactly once it
+            has at most two pairs a problem (JAX's unbatched top merges)."""
             m = leaf
             sz = nblk_c * leaf
             while m < sz:
@@ -294,7 +382,8 @@ def stedc(d, e, leaf=64, leaf_solver=None):
                 cols = start_el + (2 * torch.arange(pairs, device=dev) + 1) * m - 1
                 betas = e_full[:, cols].reshape(bsz * pairs)
                 gs = gap_scale[:, None].expand(bsz, pairs).reshape(bsz * pairs)
-                wb_c, qb_c = _merge_pair(w2[:, 0], q2[:, 0], w2[:, 1], q2[:, 1], betas, gs)
+                wb_c, qb_c = merge(w2[:, 0], q2[:, 0], w2[:, 1], q2[:, 1], betas, gs,
+                                   compact=pairs <= 2)
                 m *= 2
             return wb_c.reshape(bsz, sz), qb_c.reshape(bsz, sz, sz)
 
@@ -312,7 +401,7 @@ def stedc(d, e, leaf=64, leaf_solver=None):
                 acc_w, acc_q = wg, qg
             else:
                 beta = e_full[:, start * leaf - 1]
-                acc_w, acc_q = _merge_pair(acc_w, acc_q, wg, qg, beta, gap_scale)
+                acc_w, acc_q = merge(acc_w, acc_q, wg, qg, beta, gap_scale, compact=True)
             start += size
 
         # padding deflates to eigenvalues >= 4 > Gershgorin(T/scale) <= 3,

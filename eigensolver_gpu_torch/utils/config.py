@@ -2,12 +2,11 @@
 
 The same frozen dataclass, field names, defaults and checks as the JAX
 package, so one configuration can drive either package and a test can
-hold the two against each other. Options whose code path has not been
-ported yet are accepted here and refused with ``NotImplementedError``
-where the solver would take them:
-
-  * ``planar_solve_mode='trinv'`` (full block-doubled ``inv(L)``);
-  * ``gemm='ozaki'`` in the refinement (ops/refine.py, ops/refine_planar.py).
+hold the two against each other. Every value the JAX single-device
+drivers accept runs here: ``planar_solve_mode`` 'blockinv' (the default),
+'trinv' (one full block-doubled ``inv(L)``, ops/planar.ptrinv_lower, under
+JAX's gate: fp32 with n / 128 a power of two) and 'subst'
+(models/zhegvdx_planar.py).
 
 ``use_pallas`` keeps its JAX name: it selects the hand-written latrd
 panel kernel (ops/latrd.py) for the planar hetrd column loop, and the

@@ -6,10 +6,11 @@ the pieces of eigensolver_gpu_tpu/utils/testing.py it needs).
   ``create_random_hermetian_pd`` (test_driver/test_zhegvdx.F90:28-66)
   and a Quantum-ESPRESSO-style clustered spectrum; with the same seed
   they give the same arrays as the JAX package's fixtures.
-* ``compare_vectors`` is the phase-insensitive matrix comparison of
-  test_driver/toolbox.F90:80-177, ``ge_residual`` the normalized
-  generalized residual, ``orthonormality_error`` the B-orthonormality
-  defect.
+* ``compare_values`` is the relative L2 comparison of eigenvalues of
+  test_driver/toolbox.F90:36-78, ``compare_vectors`` the phase-insensitive
+  matrix comparison of toolbox.F90:80-177, ``ge_residual`` and
+  ``std_residual`` the normalized generalized and standard residuals,
+  ``orthonormality_error`` the B-orthonormality defect.
 """
 
 from __future__ import annotations
@@ -39,10 +40,11 @@ def random_hpd_pair(n, seed=0, dtype=np.complex128, diag_shift=None):
     return a, b
 
 
-def qe_style_pair(n, seed=0, dtype=np.complex128):
+def qe_style_pair(n, seed=0, dtype=np.complex128, decay=0.5):
     """Hermitian pair with a clustered low spectrum (occupied bands) and a
     spread-out tail, built by conjugating a chosen spectrum with a random
-    unitary."""
+    unitary. ``decay`` is accepted and not read, as in the JAX fixture, so
+    one call drives both packages."""
     rng = np.random.default_rng(seed)
     lam = np.concatenate(
         [
@@ -65,6 +67,14 @@ def qe_style_pair(n, seed=0, dtype=np.complex128):
     return a.astype(dtype), b
 
 
+def compare_values(x, y):
+    """Relative L2 error of eigenvalues, compared directly."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    denom = np.linalg.norm(y)
+    return float(np.linalg.norm(x - y) / (denom if denom else 1.0))
+
+
 def compare_vectors(z1, z2):
     """Relative L2 distance of |z1| and |z2| (absorbs column phases)."""
     z1 = np.abs(np.asarray(z1))
@@ -83,6 +93,14 @@ def ge_residual(a, b, w, z):
     r = a @ z - (b @ z) * w[None, :]
     anorm = np.linalg.norm(a, ord=1)
     return float(np.max(np.linalg.norm(r, axis=0)) / (n * anorm))
+
+
+def std_residual(a, w, z):
+    """max_k ||A z_k - w_k z_k||_2 / (n * ||A||_1) for the standard problem."""
+    a = np.asarray(a)
+    r = a @ np.asarray(z) - np.asarray(z) * np.asarray(w)[None, :]
+    anorm = np.linalg.norm(a, ord=1)
+    return float(np.max(np.linalg.norm(r, axis=0)) / (a.shape[0] * anorm))
 
 
 def orthonormality_error(z, b=None):

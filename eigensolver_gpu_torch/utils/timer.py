@@ -1,6 +1,10 @@
-"""Device timing with CUDA events (the port's counterpart of
-eigensolver_gpu_tpu/utils/timer.py, whose native wallclock timed the
-JAX harness from the host).
+"""Device timing with CUDA events, and the host's monotonic clock (the
+port's counterpart of eigensolver_gpu_tpu/utils/timer.py).
+
+:func:`wallclock` is the JAX package's ``wallclock``: seconds of
+CLOCK_MONOTONIC, which the JAX package reads through a small C library
+(its csrc/wallclock.c, the reference's test_driver/wallclock.c:30-42) and
+the port through ``time.clock_gettime``, the same clock with no build.
 
 PyTorch returns before the device finishes, so a host clock without a
 synchronize measures the enqueue. :func:`device_ms` brackets ``iters``
@@ -25,6 +29,11 @@ import time
 import torch
 
 _HEAD_START_CYCLES = 60_000_000  # about 30 ms at the H100's 1.98 GHz boost clock
+
+
+def wallclock() -> float:
+    """Seconds from the host's monotonic clock (CLOCK_MONOTONIC)."""
+    return time.clock_gettime(time.CLOCK_MONOTONIC)
 
 
 def device_ms(fn, iters: int = 10, warmup: int = 1) -> float:

@@ -636,3 +636,62 @@ def test_replay_planar_kernel_is_bit_reproducible(cuda_device, n, b, g, m, dtype
     first = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
     second = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
     assert all(torch.equal(x, z) for x, z in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m", [(64, 64, 64), (257, 129, 65), (512, 4096, 96)])
+def test_ozaki_card_digit_gemm_gives_the_cpu_bits(cuda_device, n, k, m):
+    """The ozaki products on the card (bf16 digit gemms with an fp32
+    result) give the CPU route's bits (fp32 gemms of the digits): both sums
+    are exact integers. Also a transposed lhs, a batch and the planar
+    form."""
+    from eigensolver_gpu_torch.ops import ozaki
+
+    rng = np.random.default_rng(k)
+    a = torch.tensor(rng.standard_normal((n, k)) * np.exp2(rng.integers(-30, 30, (n, 1))))
+    b = torch.tensor(rng.standard_normal((k, m)))
+    dev = lambda x: x.to(cuda_device)
+    assert torch.equal(ozaki.ozaki_matmul(dev(a), dev(b)).cpu(), ozaki.ozaki_matmul(a, b))
+    dbits = ozaki.digit_bits_for(k)
+    ns = ozaki.nslice_for(dbits)
+    at = a.mT.contiguous()  # (k, n): its rows are contracted
+    got = ozaki.ozaki_matmul_pre(ozaki.ozaki_slice(dev(at), 1, dbits, ns),
+                                 ozaki.ozaki_slice(dev(b), 1, dbits, ns), dbits,
+                                 transpose_lhs=True)
+    want = ozaki.ozaki_matmul_pre(ozaki.ozaki_slice(at, 1, dbits, ns),
+                                  ozaki.ozaki_slice(b, 1, dbits, ns), dbits, transpose_lhs=True)
+    assert torch.equal(got.cpu(), want)
+    batch = torch.stack([b, 2 * b])
+    lhs = torch.stack([a, -a])
+    assert torch.equal(ozaki.ozaki_matmul(dev(lhs), dev(batch)).cpu(),
+                       ozaki.ozaki_matmul(lhs, batch))
+    pg = ozaki.ozaki_pmatmul((dev(a), dev(0.5 * a)), (dev(b), dev(-b)))
+    pw = ozaki.ozaki_pmatmul((a, 0.5 * a), (b, -b))
+    assert torch.equal(pg[0].cpu(), pw[0]) and torch.equal(pg[1].cpu(), pw[1])
+
+
+@pytest.mark.cuda
+def test_trinv_matches_blockinv_on_the_card(cuda_device):
+    """planar_solve_mode='trinv' (ptrinv_lower and planar gemms; 8 K1
+    launches) against the default 'blockinv' at n = 1024, iu = 128, mp:
+    eigenvalues within 1e-12 relative, vectors phase-insensitively within
+    1e-8, both with residual at the fp64 contract."""
+    from eigensolver_gpu_torch import SolverConfig, zhegvdx_planar_host
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.utils.testing import compare_vectors, ge_residual, random_hpd_pair
+
+    n, iu = 1024, 128
+    a, b = random_hpd_pair(n, seed=3)
+    out = {}
+    for mode in ("blockinv", "trinv"):
+        pchol_block_planar.launches = 0
+        res = zhegvdx_planar_host(a, b, il=1, iu=iu, device="cuda", cfg=SolverConfig(
+            compute_dtype="float32", planar_solve_mode=mode))
+        assert pchol_block_planar.launches == n // 128 and int(res.info) == 0
+        w = res.w.cpu().numpy()
+        z = res.zr.cpu().numpy() + 1j * res.zi.cpu().numpy()
+        assert ge_residual(a, b, w, z) < 1e-12
+        out[mode] = (w, z)
+    (w0, z0), (w1, z1) = out["blockinv"], out["trinv"]
+    assert np.abs(w1 - w0).max() < 1e-12 * np.abs(w0).max()
+    assert compare_vectors(z1, z0) < 1e-8

@@ -16,6 +16,7 @@ import torch
 from eigensolver_gpu_tpu import SolverConfig as JaxConfig
 from eigensolver_gpu_tpu.models.zhegvdx_planar import zhegvdx_planar_host as jax_zhegvdx
 from eigensolver_gpu_tpu.ops.planar import pcholesky_lower as jax_pchol
+from eigensolver_gpu_tpu.ops.refine_planar import refine_gevp_planar as jax_refine_planar
 from eigensolver_gpu_tpu.ops.stedc import stedc as jax_stedc
 from eigensolver_gpu_tpu.ops.sytrd_planar import hetrd_planar as jax_hetrd
 from eigensolver_gpu_tpu.ops.unmtr_planar import unmtr_planar as jax_unmtr
@@ -245,17 +246,39 @@ def test_zhegvdx_uplo_contract():
     assert torch.allclose(w0, w1, atol=1e-11 * n)
 
 
-@pytest.mark.parametrize("cfg", [SolverConfig(planar_solve_mode="trinv")], ids=["trinv"])
-def test_unported_options_raise(cfg):
+@pytest.mark.parametrize("kw", [dict(planar_solve_mode="trinv")], ids=["trinv"])
+def test_unported_options_raise(kw):
+    """Options that once raised NotImplementedError now solve as the JAX
+    package does: 'trinv' at n = 32 in fp64 misses its gate (fp32, n / 128
+    a power of two) and takes the exact substitution in both packages;
+    eigenvalues within 1e-12 of JAX's, vectors within 1e-9 (the gated
+    route itself: tests/test_torch_trinv.py)."""
     a, b = random_hpd_pair(32, seed=99)
-    with pytest.raises(NotImplementedError):
-        zhegvdx_planar_host(a, b, il=1, iu=4, cfg=cfg, device="cpu")
+    res = zhegvdx_planar_host(a, b, il=1, iu=4, cfg=SolverConfig(**kw), device="cpu")
+    jw, jzr, jzi, jinfo = jax_zhegvdx(a, b, il=1, iu=4, cfg=JaxConfig(**kw))
+    assert int(res.info) == int(jinfo) == 0
+    assert np.abs(res.w.numpy() - np.asarray(jw)).max() < 1e-12
+    z = res.zr.numpy() + 1j * res.zi.numpy()
+    assert compare_vectors(z, np.asarray(jzr) + 1j * np.asarray(jzi)) < 1e-9
 
 
 def test_refine_ozaki_raises():
-    x = (torch.eye(4, dtype=torch.float64), torch.zeros(4, 4, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        refine_gevp_planar(x, x, x, gemm="ozaki")
+    """gemm='ozaki' (once NotImplementedError) refines as the JAX default
+    does: one fp64 ozaki sweep of a perturbed basis at n = 16, eigenvalues
+    within 1e-13 relative of JAX's; an unknown gemm is a ValueError."""
+    n = 16
+    a, b = random_hpd_pair(n, seed=100)
+    w_ref, z = scipy.linalg.eigh(a, b)
+    z = z + 1e-6 * np.random.default_rng(101).standard_normal(z.shape)
+    pl = lambda x: (T(x.real), T(x.imag))
+    kw = dict(sweeps=1, coarse_first=False)
+    w, _ = refine_gevp_planar(pl(a), pl(b), pl(z), gemm="ozaki", **kw)
+    jw, _ = jax_refine_planar((a.real, a.imag), (b.real, b.imag), (z.real, z.imag), **kw)
+    assert np.abs(w.numpy() - np.asarray(jw)).max() < 1e-13 * np.abs(w_ref).max()
+    # the Rayleigh quotients of a basis perturbed at 1e-6: LAPACK's to 1e-9
+    assert np.abs(w.numpy() - w_ref).max() < 1e-9
+    with pytest.raises(ValueError):
+        refine_gevp_planar(pl(a), pl(b), pl(z), gemm="bf16")
 
 
 def test_range_validation():

@@ -205,7 +205,17 @@ def test_planar_two_stage_stages_are_traced():
 
 
 def test_trinv_still_raises_with_the_two_stage_path():
+    """'trinv' with the two-stage reduction (once NotImplementedError) solves
+    as the JAX package does: at n = 32 in fp64 it misses its gate and takes
+    the exact substitution in both; eigenvalues within 1e-10 of JAX's,
+    vectors within 1e-8, ge_residual < 1e-12 (the gated fp32 route with the
+    two-stage reduction: tests/test_torch_trinv.py)."""
     a, b = random_hpd_pair(32, seed=46)
-    with pytest.raises(NotImplementedError):
-        eig.zhegvdx_planar_host(a, b, il=1, iu=4, device="cpu", cfg=eig.SolverConfig(
-            tridiag_mode="two", band=8, planar_solve_mode="trinv"))
+    kw = dict(tridiag_mode="two", band=8, planar_solve_mode="trinv")
+    res = eig.zhegvdx_planar_host(a, b, il=1, iu=4, device="cpu", cfg=eig.SolverConfig(**kw))
+    jw, jzr, jzi, jinfo = jax_zhegvdx(a, b, il=1, iu=4, cfg=jax_eig.SolverConfig(**kw))
+    w, z = res.w.numpy(), res.zr.numpy() + 1j * res.zi.numpy()
+    assert int(res.info) == int(jinfo) == 0
+    assert np.abs(w - np.asarray(jw)).max() < 1e-10
+    assert compare_vectors(z, np.asarray(jzr) + 1j * np.asarray(jzi)) < 1e-8
+    assert ge_residual(a, b, w, z) < 1e-12

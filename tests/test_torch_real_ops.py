@@ -400,11 +400,18 @@ def test_refine_eigh_matches_jax(sel):
 
 
 def test_refine_argument_checks():
+    """gemm='ozaki' (once NotImplementedError) refines as the JAX default
+    does (one fp64 sweep at n = 8, eigenvalues within 1e-13 of JAX's); an
+    unknown gemm and a strict-subset sel without w0 are ValueErrors."""
     x = torch.eye(8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        refine.refine_gevp(x, x, x, gemm="ozaki")
-    with pytest.raises(NotImplementedError):
-        refine.refine_eigh(x, x, gemm="ozaki")
+    a, b = random_spd_pair(8, seed=64)
+    kw = dict(sweeps=1, coarse_first=False)
+    w, _ = refine.refine_gevp(T(a), T(b), x, gemm="ozaki", **kw)
+    jw, _ = jax_refine.refine_gevp(a, b, np.eye(8), **kw)
+    _close(w, jw, 1e-13)
+    w, _ = refine.refine_eigh(T(a), x, gemm="ozaki", **kw)
+    jw, _ = jax_refine.refine_eigh(a, np.eye(8), **kw)
+    _close(w, jw, 1e-13)
     with pytest.raises(ValueError):
         refine.refine_eigh(x, x, gemm="bf16")
     with pytest.raises(ValueError):

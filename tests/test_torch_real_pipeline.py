@@ -149,12 +149,20 @@ def test_only_the_upper_triangles_are_read(dtype):
 
 
 def test_unported_options_raise():
+    """gemm='ozaki' (once NotImplementedError) refines as the JAX default
+    does: two sweeps of a basis perturbed at 1e-6 at n = 32, eigenvalues
+    within 1e-13 relative of JAX's and within 1e-11 of LAPACK's."""
     a, b = make_pair(32, np.float64)
+    from eigensolver_gpu_tpu.ops.refine import refine_gevp as jax_refine_gevp
     from eigensolver_gpu_torch.ops.refine import refine_gevp
 
+    w_ref, z = scipy.linalg.eigh(a, b)
+    z = z + 1e-6 * np.random.default_rng(73).standard_normal(z.shape)
     ta, tb = dense_from_numpy(a, b, device="cpu")
-    with pytest.raises(NotImplementedError):
-        refine_gevp(ta, tb, ta, gemm="ozaki")
+    w, _ = refine_gevp(ta, tb, torch.tensor(z), gemm="ozaki")
+    jw, _ = jax_refine_gevp(a, b, z)
+    assert np.abs(w.numpy() - np.asarray(jw)).max() < 1e-13 * np.abs(w_ref).max()
+    assert np.abs(w.numpy() - w_ref).max() < 1e-11
 
 
 def test_numpy_and_tensor_inputs_agree_and_stay_on_their_device():
