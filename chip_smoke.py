@@ -18,6 +18,12 @@ non-zero without printing a result:
                 inputs on the card, with times of kernel, plain version
                 and a library yardstick; K1 also on a batch of 64 blocks in
                 one launch (each item bit-identical to its unbatched launch);
+                K6, K8 and K10 likewise on batches in one launch: 64 at the
+                k-point batch's shapes (K6 the (1024, 32) panel, K8 n=1024
+                b=32, K10 n=m=1024) with times and bounds, and K6 3 x
+                (1100, 16) rb=1000 fp64, K8 2 x n=2400 b=6 fp64 (268 pairs
+                on 132 blocks), K10 3 x n=1000 m=1 fp64, each item
+                bit-identical to its unbatched launch, one kernel a call;
                 K3 also through the planar column
                 loop that launches it; K3 and K4 also at the real solve's
                 extents on lda=4096 views, n=999 and n=1, with one launch a
@@ -50,8 +56,8 @@ non-zero without printing a result:
                 logged) and apply_q1_planar, then one n=1024 solve with
                 mosaic_kernels=False (no launch of K1, K6, K8, K10);
  10. main (batched) -- the k-point batch: zhegvdx_planar_batched on 64
-                distinct pairs random_hpd_pair(1024, seed=k), iu=128, mp,
-                with chunk None and 8: residual over every item, info, K1
+                distinct pairs random_hpd_pair(1024, seed=k), iu=128, mp
+                (chunk 8 runs in phase 14): residual over every item, info, K1
                 launches (8 a batched solve, one a block step for all 64
                 problems; the profiler too), wall ms a batch and a problem,
                 busy ms, idle share and peak memory; items 0, 21, 42, 63
@@ -63,8 +69,9 @@ non-zero without printing a result:
                 stedc's sweeps a merge and its compact merges logged for
                 the batch, as for the planar two-stage solve of phase 9;
  11. trinv   -- the main problem (zhegvdx n=4096, iu=1024, mp) with
-                planar_solve_mode 'trinv' beside 'blockinv', one-stage and
-                with tridiag_mode='two': solve ms, residual, info, K1
+                planar_solve_mode 'trinv' beside 'blockinv' with
+                tridiag_mode='two', and 'trinv' one-stage (its 'blockinv'
+                twin is phase 4's solve): solve ms, residual, info, K1
                 launches (32), peak memory; pcholesky_lower, the three
                 solves and ptrinv_lower with its three planar gemms timed
                 alone at the solve's shapes;
@@ -78,9 +85,18 @@ non-zero without printing a result:
                 the fp32 pipeline's vectors, sel=(0, 1056), w0, extra_max)
                 with gemm 'native' beside 'ozaki': ms and residual; one
                 ozaki_matmul (4096, 4096) x (4096, 1056) against the fp64
-                product.
+                product;
+ 14. main (batched, two-stage) -- run after phase 10: the k-point batch of
+                phase 10 with tridiag_mode='two', one batched solve (chunk
+                None and 8): info, residual over every item, launches a
+                batched solve by the counters and the profiler (K1 8, K6 31,
+                K8 1, K10 1), wall ms, stage ms, busy ms, idle share, peak
+                memory; items 0, 21, 42, 63 against their unbatched
+                two-stage solves; the same 64 problems solved in turn by the
+                unbatched two-stage driver, timed once. The last lines put
+                it beside phase 10's one-stage batched solve.
 
-Phases 1 and 2 run in this process; the checks and phases 3 to 13 run in
+Phases 1 and 2 run in this process; the checks and phases 3 to 14 run in
 groups (GROUPS), each in a child process of its own, one after the other.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -1258,7 +1274,7 @@ def _k8_checks(torch, out, band_r, band_i, sci, b):
 
 
 def check_k8(torch):
-    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel, chase_planar_blocks
     from eigensolver_gpu_torch.ops.sb2st import chase_dims
     from eigensolver_gpu_torch.ops.sb2st_planar import bulge_chase_planar
     from eigensolver_gpu_torch.utils.timer import device_ms
@@ -1270,7 +1286,8 @@ def check_k8(torch):
     # n = 4096 once, in the main path's type; the fp64 instance is held at
     # N_K8_HELD and checked through spectrum and similarity at n = 4096. At
     # n = 2400, b = 6 (134 slots) and n = 2048, b = 4 (171) the slots
-    # outnumber the SMs, so a block of the persistent kernel owns several.
+    # outnumber the SMs; where they outnumber the blocks that fit on the
+    # card at once too (logged), a block of the persistent kernel owns several.
     # At b = 4 the columns of the last sweeps are tiny and their reflectors
     # ill-conditioned (a perturbation of the band in its last bits moves the
     # plain chase's own reflectors there by about 1e-6, logged below): d and
@@ -1285,7 +1302,7 @@ def check_k8(torch):
         slots = chase_dims(n, b)[0]
         label = f"n={n} b={b} {'fp32' if f32 else 'fp64'}"
         if slots > sms:
-            label += f" ({slots} slots on {sms} blocks)"
+            label += f" ({slots} slots on {chase_planar_blocks(b, slots, dtype)} blocks, {sms} SMs)"
         band_r, band_i, sci = _random_hband(torch, n, b, 8, dtype)
         got = bulge_chase_planar_kernel(band_r, band_i, b)
         if not all(torch.equal(x, y) for x, y in
@@ -1308,9 +1325,7 @@ def check_k8(torch):
             if f32:
                 # moduli on the first sweeps: d, |e|, |v|, |tau|
                 h = min(K7_HEAD, n - 1)
-                mod = lambda o: [o[0][:h], torch.hypot(o[1], o[2])[:h],
-                                 torch.hypot(o[3], o[4])[: 3 * h], torch.hypot(o[5], o[6])[: 3 * h]]
-                errs = [rel_err(x, y) for x, y in zip(mod(g), mod(w))]
+                errs = _k8_moduli(torch, got, want)
                 msg += (f"; rel_err vs plain on the first {h} sweeps d={errs[0][0]:.1e} "
                         f"|e|={errs[1][0]:.1e} |vt|={errs[2][0]:.1e} |taut|={errs[3][0]:.1e}")
             elif head:
@@ -1442,6 +1457,217 @@ def check_k10(torch):
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
+
+
+def _same_items(torch, got, one_of, batch):
+    """True when item k of every batched output equals (torch.equal) the
+    output of one_of(k), the unbatched launch on item k, for every k."""
+    return all(all(torch.equal(x[k], y) for x, y in zip(got, one_of(k))) for k in range(batch))
+
+
+def check_k6_batched(torch, entry):
+    """K6 on a batch of panels in one launch (a cluster an item): the first
+    psbrd panel of the batched cell at K1_BATCH ((1024, 32) column slices of
+    64 planes of n = 1024, rb = 960, fp32), and 3 panels (1100, 16), rb =
+    1000 in fp64 (four blocks an item, slabs across blocks). Each item
+    bit-identical to its unbatched launch, within K6_TOL (K6_TOL64) of the
+    plain version, one kernel a call (counter and profiler); times at batch
+    64 against the bound of the batch's work. Adds the readings to K6's
+    entry under "batched"."""
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar, ql_panel_planar_plain
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    rng = np.random.default_rng(66)
+    batch, n, b = K1_BATCH, N_BATCHED, BAND
+    big = torch.tensor(rng.standard_normal((2, batch, n, n)), dtype=torch.float32, device="cuda")
+    wide = torch.tensor(rng.standard_normal((2, 3, 1100, 64)), device="cuda")
+    cases = [(f"batch={batch} ({n}, {b}) rb={n - 2 * b} fp32 (the first psbrd panel at n={n})",
+              big[0][:, :, n - b :], big[1][:, :, n - b :], n - 2 * b, K6_TOL),
+             ("batch=3 (1100, 16) rb=1000 fp64 (four blocks an item)", wide[0][:, :, 7:23],
+              wide[1][:, :, 7:23], 1000, K6_TOL64)]
+    max_abs = 0.0
+    for label, pr, pi, rb, tol in cases:
+        ql_panel_planar.launches = 0
+        got = ql_panel_planar(pr, pi, rb)
+        launches = ql_panel_planar.launches
+        want = ql_panel_planar_plain(pr, pi, rb)
+        torch.cuda.synchronize()
+        same = _same_items(torch, got, lambda k: ql_panel_planar(pr[k], pi[k], rb), pr.shape[0])
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if tol == K6_TOL:
+            max_abs = max(max_abs, max(e[1] for e in errs))
+        _, kernels = _kineto(torch, lambda: ql_panel_planar(pr, pi, rb), "ql_panel_planar_kernel")
+        log(f"K6 batched {label}: one launch (counter {launches}, kineto {kernels}), every item "
+            f"bit-identical to its unbatched launch: {same}, worst rel_err vs plain "
+            f"{max(e[0] for e in errs):.1e}")
+        if launches != 1 or kernels != 1 or not same or not max(e[0] for e in errs) <= tol:
+            raise RuntimeError(f"batched K6 disagrees at {label}")
+    _, pr, pi, rb, _ = cases[0]
+    ms = device_ms(lambda: ql_panel_planar(pr, pi, rb), iters=20)
+    one_ms = device_ms(lambda: ql_panel_planar(pr[0], pi[0], rb), iters=20)
+    plain_ms = device_ms(lambda: ql_panel_planar_plain(pr, pi, rb), iters=2)
+    nbytes, flops = _k6_work(n, b, rb, 4)
+    bound_ms, bound_by = bound(batch * nbytes, batch * flops)
+    log(f"K6 batched times at batch={batch} ({n}, {b}) rb={rb} fp32: kernel {ms:.4f} ms "
+        f"({ms / batch * 1e3:.2f} us an item; one item alone {one_ms:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); library_ms null")
+    entry["batched"] = {"batch": batch, "shape": f"({n}, {b}) rb={rb} fp32", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "max_abs_err": max_abs}
+
+
+def _k8_moduli(torch, got, want):
+    """Relative errors of an fp32 chase against its plain version as
+    check_k8 holds them: the moduli d, |e|, |v|, |tau| on the first K7_HEAD
+    sweeps, reflectors whose tau is 0 masked. Any leading batch axis rides
+    along."""
+    flat = lambda o: [o[0], o[1][0], o[1][1], o[2][0], o[2][1], o[3][0], o[3][1]]
+    g, w = flat(got), flat(want)
+    act = ((want[3][0] != 0) | (want[3][1] != 0))[..., None]
+    for k in (3, 4):
+        g[k], w[k] = g[k] * act, w[k] * act
+    h = min(K7_HEAD, g[0].shape[-1] - 1)
+    mod = lambda o: [o[0][..., :h], torch.hypot(o[1], o[2])[..., :h],
+                     torch.hypot(o[3], o[4])[..., : 3 * h, :, :],
+                     torch.hypot(o[5], o[6])[..., : 3 * h, :]]
+    return [rel_err(x, y) for x, y in zip(mod(g), mod(w))]
+
+
+def check_k8_batched(torch, entry):
+    """K8 on a batch of bands in one launch: K1_BATCH bands at n = 1024,
+    b = 32, fp32 (704 (item, slot) pairs on fewer blocks) and 2 at n = 2400,
+    b = 6, fp64 (268 pairs, more than the SMs). Each item bit-identical to
+    its unbatched launch; at batch 64 within K8_TOL of the plain version as
+    check_k8 holds it; one kernel a call (counter and profiler); times
+    against the bound. Adds the readings to K8's entry under "batched"."""
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel, chase_planar_blocks
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
+    from eigensolver_gpu_torch.ops.sb2st_planar import bulge_chase_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    flat = lambda o: [o[0], o[1][0], o[1][1], o[2][0], o[2][1], o[3][0], o[3][1]]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch, n, b, dtype in ((K1_BATCH, N_BATCHED, BAND, torch.float32),
+                               (2, 2400, 6, torch.float64)):
+        pairs = batch * chase_dims(n, b)[0]
+        blocks = chase_planar_blocks(b, pairs, dtype)
+        label = (f"batch={batch} n={n} b={b} {'fp32' if dtype == torch.float32 else 'fp64'} "
+                 f"({pairs} pairs on {blocks} blocks, {sms} SMs)")
+        planes = [_random_hband(torch, n, b, 80 + k, dtype)[:2] for k in range(batch)]
+        band_r = torch.stack([p[0] for p in planes])
+        band_i = torch.stack([p[1] for p in planes])
+        del planes
+        bulge_chase_planar_kernel.launches = 0
+        got = bulge_chase_planar_kernel(band_r, band_i, b)
+        launches = bulge_chase_planar_kernel.launches
+        same = _same_items(torch, flat(got),
+                           lambda k: flat(bulge_chase_planar_kernel(band_r[k], band_i[k], b)),
+                           batch)
+        _, kernels = _kineto(torch, lambda: bulge_chase_planar_kernel(band_r, band_i, b),
+                             "chase_planar_kernel")
+        msg = (f"K8 batched {label}: one launch (counter {launches}, kineto {kernels}), every "
+               f"item bit-identical to its unbatched launch: {same}")
+        if launches != 1 or kernels != 1 or not same or not blocks < pairs:
+            log(msg)
+            raise RuntimeError(f"batched K8 disagrees at {label}")
+        if dtype == torch.float64:
+            log(msg)
+            continue
+        want, plain_ms = _timed_once(torch, lambda: bulge_chase_planar(band_r, band_i, b))
+        errs = _k8_moduli(torch, got, want)
+        log(msg + f"; rel_err vs plain (moduli, first {K7_HEAD} sweeps) "
+            + " ".join(f"{e[0]:.1e}" for e in errs))
+        if not max(e[0] for e in errs) <= K8_TOL:
+            raise RuntimeError(f"batched K8 disagrees with its plain version at {label}")
+        ms = device_ms(lambda: bulge_chase_planar_kernel(band_r, band_i, b), iters=3)
+        one_ms = device_ms(lambda: bulge_chase_planar_kernel(band_r[0], band_i[0], b), iters=3)
+        nbytes, flops, windows = _k7_work(n, b, 4)
+        bound_ms, bound_by = bound(batch * 2 * nbytes, batch * 4 * flops)
+        log(f"K8 batched times at {label}: kernel {ms:.3f} ms (one item alone {one_ms:.3f} ms), "
+            f"plain {plain_ms:.1f} ms (the batch through its tensors), bound {bound_ms:.4f} ms "
+            f"({bound_by}; {windows} windows an item); library_ms null")
+        entry["batched"] = {"batch": batch, "shape": f"n={n} b={b} fp32", "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None, "max_abs_err": max(e[1] for e in errs)}
+
+
+def check_k10_batched(torch, entry):
+    """K10 on a batch of problems in one launch: K1_BATCH at n = m = 1024,
+    b = 32, g = 96, fp32, and 3 at n = 1000, b = g = 24, m = 1, fp64. On the
+    batch's window store each item's result is bit-identical to the launch
+    on that item's windows alone (the zero fill past row n stays inside the
+    item); the wrapper within K10_TOL (K10_TOL64) of the plain version; one
+    kernel a call (counter and profiler); times at batch 64 against the
+    bound. Adds the readings to K10's entry under "batched"."""
+    import numpy as np
+
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.replay import (
+        apply_q2_planar_kernel,
+        replay_planar_store,
+        window_store_planar,
+    )
+    from eigensolver_gpu_torch.ops.sb2st_planar import apply_q2_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    rng = np.random.default_rng(100)
+    for batch, n, b, g, m, dtype, tol in ((K1_BATCH, N_BATCHED, BAND, REPLAY_G, N_BATCHED,
+                                           torch.float32, K10_TOL),
+                                          (3, 1000, 24, 24, 1, torch.float64, K10_TOL64)):
+        label = (f"batch={batch} n={n} b={b} g={g} m={m} "
+                 f"{'fp32' if dtype == torch.float32 else 'fp64'}")
+        planes = [_random_hband(torch, n, b, 100 + k, dtype)[:2] for k in range(batch)]
+        _, _, vt, taut = bulge_chase_planar_kernel(torch.stack([p[0] for p in planes]),
+                                                   torch.stack([p[1] for p in planes]), b)
+        del planes
+        y = tuple(torch.tensor(rng.standard_normal((batch, n, m)), dtype=dtype, device="cuda")
+                  for _ in range(2))
+        apply_q2_planar_kernel.launches = 0
+        got = apply_q2_planar_kernel(vt, taut, y, n, b, g=g)
+        launches = apply_q2_planar_kernel.launches
+        want = apply_q2_planar(vt, taut, y, n, b, g=g)
+        torch.cuda.synchronize()
+        errs = [rel_err(x, w) for x, w in zip(got, want)]
+        moved = min(rel_err(w, y0)[0] for w, y0 in zip(want, y))
+        del want
+        store, table = window_store_planar(vt, taut, n, b, g)
+        row0 = torch.tensor(table["row0"], dtype=torch.int32, device="cuda")
+        l_win = table["geo"]["l_win"]
+        both = replay_planar_store(store, row0, y, l_win)
+        same = _same_items(torch, both,
+                           lambda k: replay_planar_store(store[:, k], row0, (y[0][k], y[1][k]),
+                                                         l_win), batch)
+        _, kernels = _kineto(torch, lambda: replay_planar_store(store, row0, y, l_win),
+                             "replay_planar_kernel")
+        log(f"K10 batched {label}: one launch (counter {launches}, kineto {kernels}), every item "
+            f"bit-identical to the launch on its windows alone: {same}, rel_err vs plain "
+            f"re={errs[0][0]:.2e} im={errs[1][0]:.2e} (plain vs its input {moved:.2e}); window "
+            f"store {store.numel() * store.element_size() / 1e6:.1f} MB ({len(table['row0'])} "
+            f"windows an item)")
+        if launches != 1 or kernels != 1 or not same or not max(e[0] for e in errs) <= tol \
+                or not moved > 0.1:
+            raise RuntimeError(f"batched K10 disagrees at {label}")
+        if dtype != torch.float32:
+            continue
+        max_abs = max(e[1] for e in errs)
+        del got, both
+        ms = device_ms(lambda: apply_q2_planar_kernel(vt, taut, y, n, b, g=g), iters=3)
+        qs_ms = device_ms(lambda: window_store_planar(vt, taut, n, b, g), iters=3)
+        kernel_ms, _ = _kineto(torch, lambda: replay_planar_store(store, row0, y, l_win),
+                               "replay_planar_kernel")
+        del store
+        plain_ms = device_ms(lambda: apply_q2_planar(vt, taut, y, n, b, g=g), iters=1)
+        nbytes, flops, windows = _k9_work(n, m, b, g, 4)
+        bound_ms, bound_by = bound(batch * 2 * nbytes, batch * 4 * flops)
+        log(f"K10 batched times at {label}: wrapper {ms:.3f} ms, of which the window pass "
+            f"window_store_planar {qs_ms:.3f} ms and the kernel {kernel_ms:.3f} ms in 1 launch "
+            f"(kineto); plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {windows} "
+            "windows an item); library_ms null")
+        entry["batched"] = {"batch": batch, "shape": f"n=m={n} b={b} g={g} fp32", "ms": ms,
+                            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": None, "max_abs_err": max_abs}
 
 
 def _window_store_mb(n, b, g):
@@ -1840,11 +2066,11 @@ def _held_items(torch, got, want, what):
 
 def phase_main_batched(torch):
     """The k-point batch (BASELINE config 4): zhegvdx_planar_batched on 64
-    distinct pairs random_hpd_pair(1024, seed=k), il=1..iu=128, mode mp,
-    chunk None then 8; items 0, 21, 42, 63 against the unbatched solve;
-    then sygvdx_batched on 64 x random_spd_pair(1024, seed=k), iu=64, mp;
-    then a batch of 4 whose item 2 has a B that is not positive definite.
-    Returns K1's launches over one batched solve."""
+    distinct pairs random_hpd_pair(1024, seed=k), il=1..iu=128, mode mp;
+    items 0, 21, 42, 63 against the unbatched solve; then sygvdx_batched on
+    64 x random_spd_pair(1024, seed=k), iu=64, mp; then a batch of 4 whose
+    item 2 has a B that is not positive definite. Returns K1's launches
+    over one batched solve and the batched solve's wall ms."""
     import numpy as np
 
     from eigensolver_gpu_torch import (
@@ -1855,64 +2081,45 @@ def phase_main_batched(torch):
         zhegvdx_planar_batched,
     )
     from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
-    from eigensolver_gpu_torch.utils.testing import random_hpd_pair, random_spd_pair
+    from eigensolver_gpu_torch.utils.testing import random_spd_pair
     from eigensolver_gpu_torch.utils.timer import wall_ms
 
     batch, n, iu = K1_BATCH, N_BATCHED, IU_BATCHED
     cfg = SolverConfig(compute_dtype="float32", refine_iters=2)
-    t0 = time.perf_counter()
-    pairs = [random_hpd_pair(n, seed=k) for k in range(batch)]
-    dev = lambda x: torch.tensor(np.stack(x), dtype=torch.float64, device="cuda")
-    args = (dev([p[0].real for p in pairs]), dev([p[0].imag for p in pairs]),
-            dev([p[1].real for p in pairs]), dev([p[1].imag for p in pairs]))
-    del pairs
-    log(f"main (batched): {batch} x random_hpd_pair({n}, seed=k) made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    args = _kpoint_batch(torch, "main (batched)")
     want_k1 = n // 128
 
-    for chunk in (None, 8):
-        solve = lambda: zhegvdx_planar_batched(*args, il=1, iu=iu, cfg=cfg, chunk=chunk)
-        pchol_block_planar.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = solve()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        k1 = pchol_block_planar.launches
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        info = res.info.cpu().tolist()
-        resid = _device_residual(torch, args, res)
-        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
-                      and torch.isfinite(res.zi).all())
-        shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape),
-                  tuple(res.info.shape))
-        # the chunked solve is timed by its first call only (8 batched solves in turn)
-        times = wall_ms(solve, iters=1) if chunk is None else [first_ms]
-        log(f"main (batched) chunk={chunk}: {batch} x n={n} iu={iu} mp: info all 0: "
-            f"{set(info) == {0}}, residual (max over items) {resid:.3e}, first {first_ms:.1f} ms, "
-            f"timed {[round(x, 1) for x in times]} ms = {min(times) / batch:.2f} ms a problem, "
-            f"K1 launches {k1}, peak memory {peak:.2f} GiB")
-        if set(info) != {0} or not finite or not resid <= 1e-13:
-            raise RuntimeError(f"batched path wrong: info={info} finite={finite} residual={resid}")
-        if shapes != ((batch, iu), (batch, n, iu), (batch, n, iu), (batch,)):
-            raise RuntimeError(f"batched path shapes {shapes}")
-        chunks = 1 if chunk is None or chunk >= batch else batch // chunk
-        if k1 != want_k1 * chunks:
-            raise RuntimeError(f"K1 launched {k1} times, want {want_k1 * chunks}: one a block "
-                               f"step for the whole (chunk of the) batch")
-        if chunk is None:
-            batched_k1, full = k1, res
-            _, totals = _breakdown(torch, solve, min(times), kernels=("pchol",))
-            if totals["pchol"][1] != want_k1:
-                raise RuntimeError(f"one batched solve ran {totals['pchol'][1]} K1 kernels "
-                                   f"(kineto), want {want_k1}")
-        else:
-            for k in range(batch):  # the chunked solve is the same solve, chunk by chunk
-                _held_items(torch, (res.w[k], torch.complex(res.zr[k], res.zi[k])),
-                            (full.w[k], torch.complex(full.zr[k], full.zi[k])),
-                            f"chunk=8 item {k}")
-    del res
+    # chunk 8 (the same solve chunk by chunk, 25 s of host-paced column loops)
+    # is driven by phase 14, on the two-stage route
+    solve = lambda: zhegvdx_planar_batched(*args, il=1, iu=iu, cfg=cfg)
+    pchol_block_planar.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    full, first_ms = _timed_once(torch, solve)
+    batched_k1 = pchol_block_planar.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    info = full.info.cpu().tolist()
+    resid = _device_residual(torch, args, full)
+    finite = bool(torch.isfinite(full.w).all() and torch.isfinite(full.zr).all()
+                  and torch.isfinite(full.zi).all())
+    shapes = (tuple(full.w.shape), tuple(full.zr.shape), tuple(full.zi.shape),
+              tuple(full.info.shape))
+    times = wall_ms(solve, iters=1)
+    one_stage_ms = min(times)
+    log(f"main (batched) chunk=None: {batch} x n={n} iu={iu} mp: info all 0: "
+        f"{set(info) == {0}}, residual (max over items) {resid:.3e}, first {first_ms:.1f} ms, "
+        f"timed {[round(x, 1) for x in times]} ms = {one_stage_ms / batch:.2f} ms a problem, "
+        f"K1 launches {batched_k1}, peak memory {peak:.2f} GiB")
+    if set(info) != {0} or not finite or not resid <= 1e-13:
+        raise RuntimeError(f"batched path wrong: info={info} finite={finite} residual={resid}")
+    if shapes != ((batch, iu), (batch, n, iu), (batch, n, iu), (batch,)):
+        raise RuntimeError(f"batched path shapes {shapes}")
+    if batched_k1 != want_k1:
+        raise RuntimeError(f"K1 launched {batched_k1} times, want {want_k1}: one a block "
+                           "step for the whole batch")
+    _, totals = _breakdown(torch, solve, one_stage_ms, kernels=("pchol",))
+    if totals["pchol"][1] != want_k1:
+        raise RuntimeError(f"one batched solve ran {totals['pchol'][1]} K1 kernels "
+                           f"(kineto), want {want_k1}")
 
     for k in (0, batch // 3, 2 * batch // 3, batch - 1):  # 0, 21, 42, 63
         item = tuple(x[k] for x in args)
@@ -2001,7 +2208,123 @@ def phase_main_batched(torch):
                                   f"real item {k}")
         log(f"  real item {k} against its unbatched solve: eigenvalues {werr:.2e} relative, "
             f"vectors {vdist:.2e}; unbatched {min(wall_ms(one, iters=1)):.1f} ms")
-    return batched_k1
+    return {"k1_batched": batched_k1, "batched_one_stage_ms": one_stage_ms}
+
+
+def _kpoint_batch(torch, what):
+    """The k-point batch's operands on the card: K1_BATCH distinct
+    random_hpd_pair(N_BATCHED, seed=k), k = 0 .., as four fp64 planes."""
+    import numpy as np
+
+    from eigensolver_gpu_torch.utils.testing import random_hpd_pair
+
+    t0 = time.perf_counter()
+    pairs = [random_hpd_pair(N_BATCHED, seed=k) for k in range(K1_BATCH)]
+    dev = lambda x: torch.tensor(np.stack(x), dtype=torch.float64, device="cuda")
+    args = (dev([p[0].real for p in pairs]), dev([p[0].imag for p in pairs]),
+            dev([p[1].real for p in pairs]), dev([p[1].imag for p in pairs]))
+    log(f"{what}: {K1_BATCH} x random_hpd_pair({N_BATCHED}, seed=k) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return args
+
+
+def phase_batched_two_stage(torch):
+    """The k-point batch (BASELINE config 4) with tridiag_mode='two': one
+    batched solve of the 64 pairs of phase 10 (iu=128, mp) through psbrd
+    (K6 a panel for the batch), the planar chase (K8 once) and the replay
+    (K10 once), chunk None then 8: info, residual over every item, launches
+    by the counters (K1 8, K6 31, K8 1, K10 1 a batched solve) and kineto,
+    wall ms a batch and a problem, stage ms, busy ms, idle share, peak
+    memory; items 0, 21, 42, 63 against their unbatched two-stage solves;
+    the yardstick: the same 64 problems solved in turn by the unbatched
+    two-stage driver, timed once. Returns the batched kernels' launches and
+    the wall ms of both routes."""
+    from eigensolver_gpu_torch import SolverConfig, zhegvdx_planar, zhegvdx_planar_batched
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar
+    from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    batch, n, iu = K1_BATCH, N_BATCHED, IU_BATCHED
+    cfg = SolverConfig(compute_dtype="float32", refine_iters=2, tridiag_mode="two")
+    args = _kpoint_batch(torch, "main (batched, two-stage)")
+    wrappers = (pchol_block_planar, ql_panel_planar, bulge_chase_planar_kernel,
+                apply_q2_planar_kernel)
+    want = {"pchol_block_planar": n // 128, "ql_panel_planar": n // BAND - 1,
+            "bulge_chase_planar_kernel": 1, "apply_q2_planar_kernel": 1}
+    for chunk in (None, 8):
+        solve = lambda: zhegvdx_planar_batched(*args, il=1, iu=iu, cfg=cfg, chunk=chunk)
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res, first_ms = _timed_once(torch, solve)
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        info = res.info.cpu().tolist()
+        resid = _device_residual(torch, args, res)
+        finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.zr).all()
+                      and torch.isfinite(res.zi).all())
+        shapes = (tuple(res.w.shape), tuple(res.zr.shape), tuple(res.zi.shape),
+                  tuple(res.info.shape))
+        # the chunked solve is timed by its first call only (8 batched solves in turn)
+        times = wall_ms(solve, iters=1) if chunk is None else [first_ms]
+        log(f"main (batched, two-stage) chunk={chunk}: {batch} x n={n} iu={iu} mp "
+            f"tridiag_mode=two: info all 0: {set(info) == {0}}, residual (max over items) "
+            f"{resid:.3e}, first {first_ms:.1f} ms, timed {[round(x, 1) for x in times]} ms = "
+            f"{min(times) / batch:.2f} ms a problem, launches K1={counts['pchol_block_planar']} "
+            f"K6={counts['ql_panel_planar']} K8={counts['bulge_chase_planar_kernel']} "
+            f"K10={counts['apply_q2_planar_kernel']}, peak memory {peak:.2f} GiB")
+        if set(info) != {0} or not finite or not resid <= 1e-13:
+            raise RuntimeError(f"batched two-stage path wrong: info={info} finite={finite} "
+                               f"residual={resid}")
+        if shapes != ((batch, iu), (batch, n, iu), (batch, n, iu), (batch,)):
+            raise RuntimeError(f"batched two-stage path shapes {shapes}")
+        chunks = 1 if chunk is None else batch // chunk
+        if counts != {k: v * chunks for k, v in want.items()}:
+            raise RuntimeError(f"launch counts {counts}, want {want} a (chunk of the) batch")
+        if chunk is None:
+            full, batched_ms = res, min(times)
+            _, totals = _breakdown(torch, solve, batched_ms,
+                                   kernels=("pchol_block_kernel", "ql_panel_planar_kernel",
+                                            "chase_planar_kernel", "replay_planar_kernel"))
+            _log_stedc("  stedc of the batched two-stage solve")
+            seen = {k: totals[k][1] for k in ("ql_panel_planar_kernel", "chase_planar_kernel",
+                                              "replay_planar_kernel")}
+            if seen != {"ql_panel_planar_kernel": n // BAND - 1, "chase_planar_kernel": 1,
+                        "replay_planar_kernel": 1}:
+                raise RuntimeError(f"one batched two-stage solve ran {seen} kernels (kineto)")
+        else:
+            for k in range(batch):
+                _held_items(torch, (res.w[k], torch.complex(res.zr[k], res.zi[k])),
+                            (full.w[k], torch.complex(full.zr[k], full.zi[k])),
+                            f"two-stage chunk=8 item {k}")
+    del res
+
+    for k in (0, batch // 3, 2 * batch // 3, batch - 1):  # 0, 21, 42, 63
+        single = zhegvdx_planar(*(x[k] for x in args), il=1, iu=iu, cfg=cfg)
+        werr, vdist = _held_items(torch, (full.w[k], torch.complex(full.zr[k], full.zi[k])),
+                                  (single.w, torch.complex(single.zr, single.zi)),
+                                  f"two-stage item {k}")
+        log(f"  two-stage item {k} against its unbatched two-stage solve: eigenvalues "
+            f"{werr:.2e} relative, vectors {vdist:.2e}, info {int(single.info)}")
+    del full
+
+    # the yardstick: the parent's route, the 64 problems one after the other
+    def in_turn():
+        return [zhegvdx_planar(*(x[k] for x in args), il=1, iu=iu, cfg=cfg)
+                for k in range(batch)]
+
+    for fn in wrappers:
+        fn.launches = 0
+    _, turn_ms = _timed_once(torch, in_turn)
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"main (batched, two-stage) item by item: the {batch} problems solved in turn by the "
+        f"unbatched two-stage driver in {turn_ms:.1f} ms ({turn_ms / batch:.2f} ms a problem; "
+        f"timed once), launches {counts}; the batched solve {batched_ms:.1f} ms "
+        f"({turn_ms / batched_ms:.2f}x)")
+    return {"launches": {k: v for k, v in want.items() if k != "pchol_block_planar"},
+            "batched_two_stage_ms": batched_ms, "item_by_item_ms": turn_ms}
 
 
 def _log_stedc(what):
@@ -2043,10 +2366,10 @@ def _check_main(torch, args, res, what):
 
 
 def phase_trinv(torch, args):
-    """The main problem with planar_solve_mode 'trinv' beside 'blockinv', on
-    the one-stage default path and with tridiag_mode='two': a first and a
-    timed solve, residual, info, K1 launches (32: the Cholesky's block
-    steps), peak memory; then the Cholesky, the three block-inverted solves
+    """The main problem with planar_solve_mode 'trinv' beside 'blockinv'
+    with tridiag_mode='two' (a first and a timed solve each), and 'trinv' on
+    the one-stage default path (a first solve): residual, info, K1 launches
+    (32: the Cholesky's block steps), peak memory; then the Cholesky, the three block-inverted solves
     and ptrinv_lower with its three planar gemms, each timed alone on the
     fp32 planes at the solve's shapes (all n x n: the inner solve is
     full-spectrum)."""
@@ -2063,24 +2386,25 @@ def phase_trinv(torch, args):
     from eigensolver_gpu_torch.utils.timer import wall_ms
 
     log(f"trinv phase on {_smi()}")
-    for tridiag in ("auto", "two"):
-        for mode in ("blockinv", "trinv"):
-            cfg = SolverConfig(compute_dtype="float32", planar_solve_mode=mode,
-                               tridiag_mode=tridiag)
-            solve = lambda: zhegvdx_planar(*args, il=1, iu=IU_MAIN, cfg=cfg)
-            pchol_block_planar.launches = 0
-            torch.cuda.reset_peak_memory_stats()
-            res, first_ms = _timed_once(torch, solve)
-            k1 = pchol_block_planar.launches
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            resid = _check_main(torch, args, res, f"{mode} tridiag_mode={tridiag}")
-            times = wall_ms(solve, iters=1)
-            log(f"trinv phase: planar_solve_mode={mode} tridiag_mode={tridiag}: n={N_MAIN} "
-                f"iu={IU_MAIN} info=0 residual={resid:.3e} first={first_ms:.1f} ms "
-                f"timed={[round(x, 1) for x in times]} ms K1 launches={k1} peak_mem={peak:.2f} GiB")
-            if k1 != N_MAIN // 128:
-                raise RuntimeError(f"{mode}: K1 launched {k1} times, want {N_MAIN // 128}")
-            del res
+    # the one-stage solve (10 s on the card) runs 'trinv' once: its 'blockinv'
+    # twin is phase 4's solve, and the solves differ only outside the reduction
+    for tridiag, mode in (("auto", "trinv"), ("two", "blockinv"), ("two", "trinv")):
+        cfg = SolverConfig(compute_dtype="float32", planar_solve_mode=mode,
+                           tridiag_mode=tridiag)
+        solve = lambda: zhegvdx_planar(*args, il=1, iu=IU_MAIN, cfg=cfg)
+        pchol_block_planar.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res, first_ms = _timed_once(torch, solve)
+        k1 = pchol_block_planar.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resid = _check_main(torch, args, res, f"{mode} tridiag_mode={tridiag}")
+        times = wall_ms(solve, iters=1) if tridiag == "two" else []
+        log(f"trinv phase: planar_solve_mode={mode} tridiag_mode={tridiag}: n={N_MAIN} "
+            f"iu={IU_MAIN} info=0 residual={resid:.3e} first={first_ms:.1f} ms "
+            f"timed={[round(x, 1) for x in times]} ms K1 launches={k1} peak_mem={peak:.2f} GiB")
+        if k1 != N_MAIN // 128:
+            raise RuntimeError(f"{mode}: K1 launched {k1} times, want {N_MAIN // 128}")
+        del res
     # the stages alone, on the fp32 planes of the inner solve
     a32 = tuple(x.float() for x in args[:2])
     b32 = tuple(x.float() for x in args[2:])
@@ -2277,6 +2601,12 @@ def phase_reference_real(torch):
             raise RuntimeError(f"real reference comparison failed (tridiag_mode={mode})")
 
 
+def _with(torch, check_batched, entry):
+    """The kernel's entry with its batched readings added by check_batched."""
+    check_batched(torch, entry)
+    return entry
+
+
 def _kernels_k1_k2(torch):
     kernels = [check_k1(torch), check_k2(torch)]
     check_k1_batched(torch, kernels[0])
@@ -2306,15 +2636,18 @@ def _new_routes(torch):
 GROUPS = {
     "K1, K2": _kernels_k1_k2,
     "K3, K4": lambda torch: {"kernels": [check_k3(torch), check_k4(torch)]},
-    "K5, K6": lambda torch: {"kernels": [check_k5(torch), check_k6(torch)]},
+    "K5, K6": lambda torch: {"kernels": [
+        check_k5(torch), _with(torch, check_k6_batched, check_k6(torch))]},
     "K7": lambda torch: {"kernels": [check_k7(torch)]},
-    "K8": lambda torch: {"kernels": [check_k8(torch)]},
-    "K9, K10": lambda torch: {"kernels": [check_k9(torch), check_k10(torch)]},
+    "K8": lambda torch: {"kernels": [_with(torch, check_k8_batched, check_k8(torch))]},
+    "K9, K10": lambda torch: {"kernels": [
+        check_k9(torch), _with(torch, check_k10_batched, check_k10(torch))]},
     "main": lambda torch: {"launches": phase_main(torch)},
     "main (real)": _main_real,
     "main (real, two-stage)": lambda torch: {"launches": phase_main_real_two(torch)},
     "main (planar, two-stage)": lambda torch: {"launches": phase_main_planar_two(torch)},
-    "main (batched)": lambda torch: {"k1_batched": phase_main_batched(torch)},
+    "main (batched)": phase_main_batched,
+    "main (batched, two-stage)": lambda torch: {"batched": phase_batched_two_stage(torch)},
     "trinv, ozaki, stedc": _new_routes,
 }
 RESULT_TAG = "chip_smoke group result: "
@@ -2376,7 +2709,7 @@ def main():
     except Exception:  # noqa: BLE001 -- report and fail the smoke run
         traceback.print_exc()
         return 1
-    kernels, launches, k1_batched = [], {}, None
+    kernels, launches, k1_batched, readings = [], {}, None, {}
     for name in GROUPS:
         t0 = time.perf_counter()
         code, result = _run_group(name)
@@ -2390,16 +2723,31 @@ def main():
         kernels += result.get("kernels", [])
         launches.update(result.get("launches", {}))
         k1_batched = result.get("k1_batched", k1_batched)
+        readings.update({k: v for k, v in result.items()
+                         if k in ("batched", "batched_one_stage_ms")})
     kernels[0]["batched"]["launches"] = k1_batched
+    two = readings["batched"]
+    for k in kernels:  # K6, K8, K10: launches a batched two-stage solve of the k-point batch
+        if k["name"] in two["launches"]:
+            k["batched"]["launches"] = two["launches"][k["name"]]
+    log(f"the k-point batch ({K1_BATCH} x n={N_BATCHED} iu={IU_BATCHED} mp), one solve each: "
+        f"one-stage batched {readings['batched_one_stage_ms']:.1f} ms, two-stage batched "
+        f"{two['batched_two_stage_ms']:.1f} ms, two-stage item by item "
+        f"{two['item_by_item_ms']:.1f} ms")
     for k in kernels:
         k.setdefault("launches", launches.get(k["name"]))
         if not k["launches"]:
             print(f"chip_smoke: {k['name']} was never launched on its path", file=sys.stderr)
             return 1
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
-            if k[key] is not None and not math.isfinite(k[key]):
-                print(f"chip_smoke: non-finite {key} for {k['name']}", file=sys.stderr)
+        for entry in (k, k.get("batched", {})):
+            if "batched" in k and not entry.get("launches", 1):
+                print(f"chip_smoke: batched {k['name']} was never launched on its path",
+                      file=sys.stderr)
                 return 1
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
+                if entry.get(key) is not None and not math.isfinite(entry[key]):
+                    print(f"chip_smoke: non-finite {key} for {k['name']}", file=sys.stderr)
+                    return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,14 @@
 //
 // Any m >= 1, 1 <= b <= 64, 0 <= rb <= m - b; the planes may be column slices
 // of row-major matrices with one common row stride ldp >= b.
+//
+// A batch of panels (the panels of a batch of problems at one psbrd step:
+// same m, b, rb, item k at batch stride sp from the first) is one launch of
+// gridDim (blocks, batch) with the cluster (blocks, 1, 1): a cluster an item,
+// each running the code above on its own panel and its own outputs (contiguous,
+// item after item). The clusters share nothing, so those that do not fit on
+// the card at once run after the others, and each item's outputs are the bits
+// of a launch on that item alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,9 +105,23 @@ Geometry geometry(int b, int rb, int itemsize) {
 template <typename T, bool kSmemSlab>
 __global__ void __launch_bounds__(kThreads)
 ql_panel_planar_kernel(const T* __restrict__ pr, const T* __restrict__ pi,
-                       int ldp, int m, int b, int rb, int slab_rows,
+                       int ldp, long long sp, int m, int b, int rb, int slab_rows,
                        T* rr, T* ri, T* vr, T* vi, T* taur, T* taui, T* tmr, T* tmi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // this cluster's item: its panel and its outputs
+    const long long item = blockIdx.y;
+    pr += item * sp;
+    pi += item * sp;
+    const long long mb = (long long)m * b, bb = (long long)b * b;
+    rr += item * mb;
+    ri += item * mb;
+    vr += item * mb;
+    vi += item * mb;
+    taur += item * b;
+    taui += item * b;
+    tmr += item * bb;
+    tmi += item * bb;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   T* slot = reinterpret_cast<T*>(smem_raw);  // published to the peers
   // element `off` of block g's copy of the slot array that `p` points into
@@ -397,11 +419,13 @@ ql_panel_planar_kernel(const T* __restrict__ pr, const T* __restrict__ pi,
 }
 
 template <typename T>
-int ql_panel_planar_launch(const T* pr, const T* pi, int ldp, int m, int b,
-                           int rb, T* rr, T* ri, T* vr, T* vi, T* taur,
+int ql_panel_planar_launch(const T* pr, const T* pi, int ldp, long long sp, int m, int b,
+                           int rb, int batch, T* rr, T* ri, T* vr, T* vi, T* taur,
                            T* taui, T* tmr, T* tmi, void* stream) {
-  if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m || ldp < b)
+  if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m || ldp < b || batch < 0 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
+  if (batch == 0) return (int)cudaSuccess;
   const Geometry geo = geometry(b, rb, (int)sizeof(T));
   auto kernel =
       geo.slab_in_smem ? ql_panel_planar_kernel<T, true> : ql_panel_planar_kernel<T, false>;
@@ -411,7 +435,7 @@ int ql_panel_planar_launch(const T* pr, const T* pi, int ldp, int m, int b,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(geo.blocks);
+  cfg.gridDim = dim3(geo.blocks, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = geo.smem_bytes;
   cfg.stream = (cudaStream_t)stream;
@@ -422,33 +446,35 @@ int ql_panel_planar_launch(const T* pr, const T* pi, int ldp, int m, int b,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // a cluster that cannot be co-resident would never run: refuse it
+  // a cluster that cannot be co-resident would never run: refuse it (the
+  // clusters of a batch need not all be resident at once)
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&cfg, kernel, pr, pi, ldp, m, b, rb, geo.slab_rows, rr, ri, vr, vi,
-                           taur, taui, tmr, tmi);
+  err = cudaLaunchKernelEx(&cfg, kernel, pr, pi, ldp, sp, m, b, rb, geo.slab_rows, rr, ri, vr,
+                           vi, taur, taui, tmr, tmi);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rr, ri, vr, vi: m * b elements each (row-major, contiguous); taur, taui:
-// b; tmr, tmi: b * b.
+// batch panels, item k at pr + k sp, pi + k sp (row stride ldp); rr, ri, vr,
+// vi: batch * m * b elements each (row-major, contiguous, item after item);
+// taur, taui: batch * b; tmr, tmi: batch * b * b.
 extern "C" int ql_panel_planar_f32_launch(
-    const float* pr, const float* pi, int ldp, int m, int b, int rb, float* rr,
-    float* ri, float* vr, float* vi, float* taur, float* taui, float* tmr,
-    float* tmi, void* stream) {
-  return ql_panel_planar_launch<float>(pr, pi, ldp, m, b, rb, rr, ri, vr, vi,
+    const float* pr, const float* pi, int ldp, long long sp, int m, int b, int rb,
+    int batch, float* rr, float* ri, float* vr, float* vi, float* taur, float* taui,
+    float* tmr, float* tmi, void* stream) {
+  return ql_panel_planar_launch<float>(pr, pi, ldp, sp, m, b, rb, batch, rr, ri, vr, vi,
                                        taur, taui, tmr, tmi, stream);
 }
 
 extern "C" int ql_panel_planar_f64_launch(
-    const double* pr, const double* pi, int ldp, int m, int b, int rb,
-    double* rr, double* ri, double* vr, double* vi, double* taur, double* taui,
+    const double* pr, const double* pi, int ldp, long long sp, int m, int b, int rb,
+    int batch, double* rr, double* ri, double* vr, double* vi, double* taur, double* taui,
     double* tmr, double* tmi, void* stream) {
-  return ql_panel_planar_launch<double>(pr, pi, ldp, m, b, rb, rr, ri, vr, vi,
+  return ql_panel_planar_launch<double>(pr, pi, ldp, sp, m, b, rb, batch, rr, ri, vr, vi,
                                         taur, taui, tmr, tmi, stream);
 }

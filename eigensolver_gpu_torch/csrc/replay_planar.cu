@@ -35,6 +35,17 @@
 // Every block reads every window from L2 (the blocks run in near lock
 // step, so a window comes from device memory about once).
 //
+// A batch of problems (one launch for the batch of a batched solve: one
+// n, m and window table, each item its own windows and its own y) is the
+// grid's second axis: block (x, k) replays item k's windows onto columns
+// 32 x .. 32 x + 31 of item k's y, exactly as above, so each item's result
+// is the bits of a launch on that item alone. y's tensor maps are 3-D with
+// the item outermost (one item: a third dimension of 1), so the zero fill
+// past row n stays inside the item (a 2-D map over the stacked items would
+// read the next item's first rows there); a window's box of the store is one whole window (128 rows at a
+// multiple of 128), which never crosses an item, so the store keeps its
+// 2-D map over the stacked items' windows.
+//
 // A window is a product of the 128 x 128 Q (rows and columns past l_win
 // are zero in the rows read) with the 128 x 32 y tile, in contraction
 // chunks of kKC = 128 bytes a row (32 fp32, 16 fp64). A ring of kStages
@@ -122,6 +133,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
                : "memory");
 }
 
+// box (x, y, z) of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                         uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+               ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+               : "memory");
+}
+
 // four consecutive elements, 16-byte aligned, from or to shared or global memory
 __device__ __forceinline__ void load4(const float* p, float* x) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -145,22 +165,25 @@ __device__ __forceinline__ void load16(const double* p, double (&x)[2]) {
   x[0] = v.x, x[1] = v.y;
 }
 
-// Thread 0 starts the copies of chunk c of window `win`, whose first row is
-// r0, into the ring stage `stage`, completing on `bar`: both planes of
-// Q[0 : 128, c kKC : (c + 1) kKC] (rows of 128 bytes, 16-byte pieces
-// swizzled: piece j of row r lands at j ^ (r % 8)) and of
+// Thread 0 starts the copies of chunk c of window `win` of item `item`,
+// whose first row is r0, into the ring stage `stage`, completing on `bar`:
+// both planes of Q[0 : 128, c kKC : (c + 1) kKC] (rows of 128 bytes, 16-byte
+// pieces swizzled: piece j of row r lands at j ^ (r % 8)) of the store's
+// window item n_win + win and of the item's
 // y[r0 + c kKC : r0 + (c + 1) kKC, col0 : col0 + kBN].
 template <typename T>
 __device__ __forceinline__ void issue_chunk(const CUtensorMap* maps, uint64_t* bar, int r0,
-                                            int col0, int win, int c, T* stage) {
+                                            int col0, int win, int c, int item, int n_win,
+                                            T* stage) {
   using S = Shape<T>;
+  const int qrow = (item * n_win + win) * kP;
   // the block's earlier accesses to this stage come before the TMA's writes
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   mbar_expect(bar, S::kStage * sizeof(T));
-  tma_load(stage, maps, c * S::kKC, win * kP, bar);
-  tma_load(stage + S::kQ, maps + 1, c * S::kKC, win * kP, bar);
-  tma_load(stage + 2 * S::kQ, maps + 2, col0, r0 + c * S::kKC, bar);
-  tma_load(stage + 2 * S::kQ + S::kY, maps + 3, col0, r0 + c * S::kKC, bar);
+  tma_load(stage, maps, c * S::kKC, qrow, bar);
+  tma_load(stage + S::kQ, maps + 1, c * S::kKC, qrow, bar);
+  tma_load(stage + 2 * S::kQ, maps + 2, col0, r0 + c * S::kKC, item, bar);
+  tma_load(stage + 2 * S::kQ + S::kY, maps + 3, col0, r0 + c * S::kKC, item, bar);
 }
 
 // acc += Q[rows, chunk] y[chunk, cols] for the thread's tile, k ascending
@@ -200,11 +223,12 @@ __device__ __forceinline__ void fma_chunk(const T* stage, int ty, int tx,
   }
 }
 
-// Windows 0 .. n_win - 1 in order, on the column tile at col0; maps are
-// the tensor maps of Q_r, Q_i (the window store) and y_r, y_i.
+// Windows 0 .. n_win - 1 of item `item` in order, on the column tile at
+// col0; maps are the tensor maps of Q_r, Q_i (the window store) and y_r,
+// y_i; y_r, y_i point at the item's y.
 template <typename T>
 __device__ void replay_windows(const CUtensorMap* maps, const int* row0, int n_win, T* y_r,
-                               T* y_i, int ldy, int n, int lwin, int col0, T* smem,
+                               T* y_i, int ldy, int n, int lwin, int col0, int item, T* smem,
                                uint64_t* bars) {
   using S = Shape<T>;
   const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
@@ -221,7 +245,7 @@ __device__ void replay_windows(const CUtensorMap* maps, const int* row0, int n_w
     const int win = next / nc, st = next % kStages;
     if (threadIdx.x == 0)
       issue_chunk<T>(maps, bars + st, win == v ? r_cur : r_next, col0, win, next - win * nc,
-                     smem + st * S::kStage);
+                     item, n_win, smem + st * S::kStage);
     ++next;
   };
   // the first chunks of window 0
@@ -300,6 +324,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 replay_planar_kernel(const __grid_constant__ Maps maps, const int* row0, int n_win, T* y_r,
                      T* y_i, int ldy, int n, int lwin) {
+  const int item = blockIdx.y;
+  const size_t sy = (size_t)n * ldy;  // the items' y, one after the other
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the ring on a 1024-byte boundary (the TMA's 128-byte swizzle), then
   // one transaction barrier a stage
@@ -310,8 +336,8 @@ replay_planar_kernel(const __grid_constant__ Maps maps, const int* row0, int n_w
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  replay_windows<T>(&maps.q_r, row0, n_win, y_r, y_i, ldy, n, lwin, blockIdx.x * kBN,
-                    reinterpret_cast<T*>(base), bars);
+  replay_windows<T>(&maps.q_r, row0, n_win, y_r + item * sy, y_i + item * sy, ldy, n, lwin,
+                    blockIdx.x * kBN, item, reinterpret_cast<T*>(base), bars);
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
@@ -320,11 +346,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the 2-D map of `rows` rows of `cols` elements at row stride ld, in boxes
-// of box_rows by box_cols; what lies past the rows or columns reads as zero
+// the map of `rows` rows of `cols` elements at row stride ld: 2-D, or 3-D
+// with `items` such blocks, a block every rows * ld elements and the block
+// outermost; boxes of box_rows by box_cols (of one block); what lies past a
+// block's rows or columns reads as zero
 template <typename T>
-cudaError_t map_2d(CUtensorMap* map, const T* base, int cols, long long rows, int ld,
-                   int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+cudaError_t map_tiles(CUtensorMap* map, const T* base, int cols, long long rows, int ld,
+                      int rank, int items, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -335,66 +364,76 @@ cudaError_t map_2d(CUtensorMap* map, const T* base, int cols, long long rows, in
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t steps[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(T),
+                                 (cuuint64_t)rows * ld * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
-      const_cast<T*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+      rank, const_cast<T*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T>
 int replay_planar_launch(const T* qc_r, const T* qc_i, const int* row0, int n_win, T* y_r,
-                         T* y_i, int ldy, int n, int m, int lwin, void* stream) {
+                         T* y_i, int ldy, int n, int m, int lwin, int batch, void* stream) {
   using S = Shape<T>;
-  if (n < 1 || m < 1 || ldy < m || ldy % 4 != 0 || lwin < 1 || lwin > kP || n_win < 0)
+  if (n < 1 || m < 1 || ldy < m || ldy % 4 != 0 || lwin < 1 || lwin > kP || n_win < 0 ||
+      batch < 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(qc_r) | reinterpret_cast<uintptr_t>(qc_i) |
        reinterpret_cast<uintptr_t>(y_r) | reinterpret_cast<uintptr_t>(y_i)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  if (n_win == 0) return (int)cudaSuccess;
-  // the store: n_win * 128 rows of 128, in 128-byte-wide boxes swizzled by
-  // 128 bytes; y: n rows of m, in boxes of kKC rows by kBN columns
+  if (n_win == 0 || batch == 0) return (int)cudaSuccess;
+  // the store: batch * n_win * 128 rows of 128, in 128-byte-wide boxes
+  // swizzled by 128 bytes; y: batch items of n rows of m, in boxes of kKC
+  // rows by kBN columns of one item
   Maps maps;
-  const long long store_rows = (long long)n_win * kP;
-  cudaError_t err = map_2d(&maps.q_r, qc_r, kP, store_rows, kP, S::kKC, kP,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
+  const long long store_rows = (long long)batch * n_win * kP;
+  cudaError_t err = map_tiles(&maps.q_r, qc_r, kP, store_rows, kP, 2, 1, S::kKC, kP,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = map_2d(&maps.q_i, qc_i, kP, store_rows, kP, S::kKC, kP, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = map_tiles(&maps.q_i, qc_i, kP, store_rows, kP, 2, 1, S::kKC, kP,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = map_2d(&maps.y_r, y_r, m, n, ldy, kBN, S::kKC, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = map_tiles(&maps.y_r, y_r, m, n, ldy, 3, batch, kBN, S::kKC,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == cudaSuccess)
-    err = map_2d(&maps.y_i, y_i, m, n, ldy, kBN, S::kKC, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = map_tiles(&maps.y_i, y_i, m, n, ldy, 3, batch, kBN, S::kKC,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return (int)err;
   auto kernel = replay_planar_kernel<T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S::kSmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(m + kBN - 1) / kBN, kThreads, S::kSmem, (cudaStream_t)stream>>>(
+  kernel<<<dim3((m + kBN - 1) / kBN, batch), kThreads, S::kSmem, (cudaStream_t)stream>>>(
       maps, row0, n_win, y_r, y_i, ldy, n, lwin);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// qc_r, qc_i: n_win windows of 128 x 128 elements each (16-byte aligned);
-// row0: n_win ints on the device, each window's first row of y, in replay
-// order; y_r, y_i: n rows of m elements at row stride ldy (a multiple of 4,
-// 16-byte aligned), updated in place.
+// A batch of problems, item after item: qc_r, qc_i: batch * n_win windows
+// of 128 x 128 elements each (16-byte aligned), item k's windows k n_win ..
+// (k + 1) n_win - 1; row0: n_win ints on the device, each window's first row
+// of y, in replay order, one table for every item; y_r, y_i: batch items of
+// n rows of m elements at row stride ldy (a multiple of 4, 16-byte aligned),
+// an item every n ldy elements, updated in place.
 extern "C" int apply_q2_planar_f32_launch(const float* qc_r, const float* qc_i,
                                           const int* row0, int n_win, float* y_r, float* y_i,
-                                          int ldy, int n, int m, int lwin, void* stream) {
+                                          int ldy, int n, int m, int lwin, int batch,
+                                          void* stream) {
   return replay_planar_launch<float>(qc_r, qc_i, row0, n_win, y_r, y_i, ldy, n, m, lwin,
-                                     stream);
+                                     batch, stream);
 }
 
 extern "C" int apply_q2_planar_f64_launch(const double* qc_r, const double* qc_i,
                                           const int* row0, int n_win, double* y_r,
                                           double* y_i, int ldy, int n, int m, int lwin,
-                                          void* stream) {
+                                          int batch, void* stream) {
   return replay_planar_launch<double>(qc_r, qc_i, row0, n_win, y_r, y_i, ldy, n, m, lwin,
-                                      stream);
+                                      batch, stream);
 }

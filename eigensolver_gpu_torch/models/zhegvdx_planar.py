@@ -36,7 +36,9 @@ g) is a ValueError under ``mosaic_kernels``: set ``replay_g`` to at most
 ``129 - band``, or take the plain route with ``mosaic_kernels=False``.
 
 ``zhegvdx_planar_batched`` solves a batch of problems (leading axis) with
-the batch axis through every stage of the one-stage pipeline.
+the batch axis through every stage of the one-stage pipeline and, with
+``tridiag_mode='two'``, of the two-stage pipeline (K6 once a panel, K8 and
+K10 once a solve, for the whole batch).
 
 The triangular solves of phases 2 and 4 follow ``cfg.planar_solve_mode``
 (default ``'blockinv'``), by the JAX rule: ``'trinv'`` forms the full
@@ -126,7 +128,9 @@ def _tri_eigh(d, e, cfg):
 
 def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
     """PHASE 3 by the two-stage reduction: returns (w, (yr, yi)) with the
-    eigenvector chain y = Q1 Q2 D z_tri (D from phase_normalize)."""
+    eigenvector chain y = Q1 Q2 D z_tri (D from phase_normalize). Leading
+    axes of the planes are a batch of problems, reduced together: one panel
+    call a panel step, one chase and one replay for the whole batch."""
     from eigensolver_gpu_torch.ops.sb2st import dense_to_band
     from eigensolver_gpu_torch.ops.sb2st_planar import (
         apply_q2_planar,
@@ -135,7 +139,7 @@ def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
     )
     from eigensolver_gpu_torch.ops.sbrd_planar import apply_q1_planar, psbrd
 
-    npad, band = cr_p.shape[0], cfg.band
+    npad, band = cr_p.shape[-1], cfg.band
     (abr, abi), vs, ts = psbrd(cr_p, ci_p, band=band, bucket=512,
                                panel_kernel=cfg.mosaic_kernels)
     band_r = dense_to_band(abr, band)
@@ -148,8 +152,8 @@ def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
         d, (e_r, e_i), vt, taut = bulge_chase_planar(band_r, band_i, band)
     (p_r, p_i), e_abs = phase_normalize(e_r, e_i)
     w_all, q_tri = _tri_eigh(d, e_abs, cfg)
-    z0 = q_tri[:, il - 1 : iu]
-    y0 = (z0 * p_r[:, None], z0 * p_i[:, None])
+    z0 = q_tri[..., il - 1 : iu]
+    y0 = (z0 * p_r[..., :, None], z0 * p_i[..., :, None])
     # replay group size: the JAX default, 3*band in fp32 (l_win = 127 at
     # band 32) and band in fp64
     g = cfg.replay_g or (3 * band if cr_p.dtype == torch.float32 else band)
@@ -159,7 +163,7 @@ def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
         y = apply_q2_planar_kernel(vt, taut, y0, npad, band, g=g)
     else:
         y = apply_q2_planar(vt, taut, y0, npad, band, g=g)
-    return w_all[il - 1 : iu], apply_q1_planar(vs, ts, y)
+    return w_all[..., il - 1 : iu], apply_q1_planar(vs, ts, y)
 
 
 def _two_stage_engaged(npad, cfg):
@@ -177,8 +181,9 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
     first non-positive pivot), as an int32 0-d tensor on the device.
 
     Leading axes of the four planes are a batch of problems, solved
-    together by the one-stage pipeline (``zhegvdx_planar_batched`` is the
-    entry point that also takes the other configurations)."""
+    together by the one-stage or the two-stage pipeline
+    (``zhegvdx_planar_batched`` is the entry point that also takes
+    ``use_pallas=True``)."""
     n = ar.shape[-1]
     if iu is None:
         iu = n
@@ -258,8 +263,6 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         npad = -(-n // nbt) * nbt
         cr_p, ci_p = _pad_planar(cr, ci, npad)
         if _two_stage_engaged(npad, cfg):
-            if cr_p.dim() > 2:
-                raise ValueError("the two-stage reduction takes one problem at a time")
             w, (yr, yi) = _two_stage_planar(cr_p, ci_p, il, iu, cfg)
         else:
             (pr, pi), d, e, (taur, taui) = hetrd_planar(
@@ -300,13 +303,14 @@ def zhegvdx_planar_batched(
     a leading batch axis out: w (batch, k), zr and zi (batch, n, k), info
     (batch,) int32. Each item is the solve of ``zhegvdx_planar`` on it.
 
-    The one-stage pipeline runs the whole batch at once: a batch axis runs
-    through every stage, so each column step of the reduction and each
-    block step of the Cholesky (one launch of kernel K1) serve every
-    problem. Configurations whose kernels take one problem at a time
-    (``use_pallas=True``: K2; the two-stage reduction, ``tridiag_mode='two'``
-    where it engages: K6, K8, K10) run the unbatched solve on each item in
-    turn, so the same kernels launch as for one problem.
+    The one-stage and the two-stage pipelines run the whole batch at once:
+    a batch axis runs through every stage, so each block step of the
+    Cholesky (one launch of kernel K1), each column step of the one-stage
+    reduction and, with ``tridiag_mode='two'`` where it engages, each panel
+    of psbrd (one launch of K6), the chase (one launch of K8) and the
+    replay (one launch of K10) serve every problem. ``use_pallas=True``,
+    whose kernel K2 takes one problem at a time, runs the unbatched solve
+    on each item in turn, so the same kernels launch as for one problem.
 
     ``chunk``: solve the batch in sequential chunks of this size, to bound
     the peak memory; ``batch % chunk`` must be 0.
@@ -318,8 +322,7 @@ def zhegvdx_planar_batched(
         )
     batch, n = ar.shape[0], ar.shape[-1]
     slices = _chunks(batch, chunk)
-    npad = -(-n // cfg.nb_tridiag) * cfg.nb_tridiag
-    by_item = cfg.use_pallas or _two_stage_engaged(npad, cfg)
+    by_item = cfg.use_pallas
     parts = []
     for sl in slices:
         args = (ar[sl], ai[sl], br[sl], bi[sl])

@@ -33,6 +33,14 @@ Both kernels are one persistent cooperative launch whose blocks order the
 timesteps through per-slot progress flags; the wrapper hands it those flags
 as a zeroed int32 scratch of ``s_slots`` words, and the launch raises if
 its blocks cannot all be resident at once.
+
+K8 also takes a batch of bands, ``(batch, n, 2b)`` planes (the batched
+two-stage solve of ``zhegvdx_planar_batched``): one launch chases them all,
+its blocks owning (item, slot) pairs, with a flag a pair (``(batch,
+s_slots)`` words), and the outputs gain the leading axis. Each item's
+outputs are the bits of a launch on that item alone. The grid is the pairs,
+capped at the blocks that fit on the card at once (``chase_planar_blocks``
+reports it).
 """
 
 from __future__ import annotations
@@ -88,14 +96,15 @@ bulge_chase_kernel.launches = 0
 
 
 def bulge_chase_planar_kernel(band_r, band_i, b):
-    """Kernel K8: the whole planar chase (see the module docstring)."""
+    """Kernel K8: the whole planar chase (see the module docstring). A
+    leading batch axis of the planes is one launch for the whole batch."""
     b = int(b)
-    if band_r.ndim != 2 or band_r.shape[1] != 2 * b or band_i.shape != band_r.shape:
-        raise ValueError(f"both band planes must be (n, 2b={2 * b}), got "
-                         f"{tuple(band_r.shape)} and {tuple(band_i.shape)}")
+    if band_r.ndim not in (2, 3) or band_r.shape[-1] != 2 * b or band_i.shape != band_r.shape:
+        raise ValueError(f"both band planes must be (n, 2b={2 * b}), with at most one batch "
+                         f"axis, got {tuple(band_r.shape)} and {tuple(band_i.shape)}")
     if band_i.dtype != band_r.dtype or band_i.device != band_r.device:
         raise ValueError("bulge_chase_planar_kernel: the planes differ in dtype or device")
-    n = band_r.shape[0]
+    n = band_r.shape[-2]
     if n < 3 or not 2 <= b <= B_MAX:
         raise ValueError(
             f"bulge_chase_planar_kernel needs n >= 3 and 2 <= b <= {B_MAX}; got n={n}, b={b}")
@@ -108,25 +117,40 @@ def bulge_chase_planar_kernel(band_r, band_i, b):
     else:
         raise TypeError(f"the planar chase kernel takes float32 or float64, got {band_r.dtype}")
     fn = getattr(kernel_guard.load("chase_planar"), name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     s_slots, _, t3 = chase_dims(n, b)
     dev = band_r.device
+    lead = band_r.shape[:-2]
+    batch = lead[0] if lead else 1
     work_r = band_r.clone(memory_format=torch.contiguous_format)  # chased in place
     work_i = band_i.clone(memory_format=torch.contiguous_format)
-    vt = torch.zeros((2, t3, s_slots, b), dtype=band_r.dtype, device=dev)
-    taut = torch.zeros((2, t3, s_slots), dtype=band_r.dtype, device=dev)
-    progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)  # the slots' flags
+    vt = torch.zeros((2,) + lead + (t3, s_slots, b), dtype=band_r.dtype, device=dev)
+    taut = torch.zeros((2,) + lead + (t3, s_slots), dtype=band_r.dtype, device=dev)
+    progress = torch.zeros(lead + (s_slots,), dtype=torch.int32, device=dev)  # the flags
     with trace_range("bulge_chase_planar"), torch.cuda.device(dev):
         status = fn(
-            work_r.data_ptr(), work_i.data_ptr(), n, b,
+            work_r.data_ptr(), work_i.data_ptr(), n, b, batch,
             vt[0].data_ptr(), vt[1].data_ptr(), taut[0].data_ptr(), taut[1].data_ptr(),
             progress.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "bulge_chase_planar launch")
         bulge_chase_planar_kernel.launches += 1
-    e = (work_r[: n - 1, 1].clone(), work_i[: n - 1, 1].clone())
-    return work_r[:, 0].clone(), e, (vt[0], vt[1]), (taut[0], taut[1])
+    e = (work_r[..., : n - 1, 1].clone(), work_i[..., : n - 1, 1].clone())
+    return work_r[..., 0].clone(), e, (vt[0], vt[1]), (taut[0], taut[1])
 
 
 bulge_chase_planar_kernel.launches = 0
+
+
+def chase_planar_blocks(b, pairs, dtype):
+    """The number of blocks G of K8's launch for ``pairs`` (item, slot)
+    pairs at half-width ``b`` in ``dtype`` (the pairs, capped at the blocks
+    that fit on the current card at once); it builds the kernel if needed."""
+    fn = kernel_guard.load("chase_planar").bulge_chase_planar_blocks
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    kernel_guard.check(fn(int(b), int(pairs), int(dtype == torch.float64), ctypes.byref(out)),
+                       "bulge_chase_planar_blocks")
+    return out.value

@@ -38,6 +38,12 @@ forward larft of the CONJUGATED taus, so that
 ``sbrd_planar._larft_forward_planar(v, tau_r, -tau_i)``. The kernel spreads
 the panel's active rows over the blocks of one thread-block cluster, a row
 slab each; the launch raises if the cluster cannot be co-resident.
+
+``ql_panel_planar`` also takes a batch of panels, ``(batch, m, b)`` planes
+that may be column slices of ``(batch, n, n)`` matrices (a batch stride of
+their own, no copy): one launch with a cluster an item (psbrd's panel step
+of a batched solve), the outputs with a leading batch axis, each item's the
+bits of a launch on that item alone.
 """
 
 from __future__ import annotations
@@ -109,14 +115,16 @@ def ql_panel_planar_plain(pr, pi, rows_below):
 
 def ql_panel_planar(pr, pi, rows_below):
     """Kernel K6: one fused planar QL panel with its conjugated-tau T (see
-    the module docstring)."""
+    the module docstring). A leading batch axis of the planes is one launch
+    for the whole batch, a cluster an item."""
     rows_below = int(rows_below)
-    if pr.ndim != 2 or pi.shape != pr.shape:
-        raise ValueError("ql_panel_planar takes two (m, b) planes, got shapes "
-                         f"{tuple(pr.shape)} and {tuple(pi.shape)}")
+    if pr.ndim not in (2, 3) or pi.shape != pr.shape:
+        raise ValueError("ql_panel_planar takes two (m, b) planes, with at most one batch "
+                         f"axis, got shapes {tuple(pr.shape)} and {tuple(pi.shape)}")
     if pi.dtype != pr.dtype or pi.device != pr.device:
         raise ValueError("ql_panel_planar: the planes differ in dtype or device")
-    m, b = pr.shape
+    m, b = pr.shape[-2:]
+    lead = pr.shape[:-2]
     if not (1 <= b <= B_MAX and 0 <= rows_below <= m - b):
         raise ValueError(
             f"ql_panel_planar needs 1 <= b <= {B_MAX} and 0 <= rows_below <= m - b; "
@@ -130,18 +138,23 @@ def ql_panel_planar(pr, pi, rows_below):
         name = "ql_panel_planar_f64_launch"
     else:
         raise TypeError(f"the ql_panel_planar kernel takes float32 or float64, got {pr.dtype}")
-    if pr.stride(1) != 1 or pi.stride(1) != 1 or pr.stride(0) < b or pi.stride(0) != pr.stride(0):
+    if pr.stride(-1) != 1 or pi.stride(-1) != 1 or pr.stride(-2) < b \
+            or pi.stride(-2) != pr.stride(-2):
         raise ValueError("ql_panel_planar: the planes need unit column stride and one common "
                          "row stride >= b")
+    batch = lead[0] if lead else 1
+    if batch > 1 and pi.stride(0) != pr.stride(0):
+        raise ValueError("ql_panel_planar: the planes need one common batch stride")
     fn = getattr(kernel_guard.load("ql_panel_planar"), name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
-    new = lambda *shape: torch.empty(shape, dtype=pr.dtype, device=pr.device)
+    new = lambda *shape: torch.empty(lead + shape, dtype=pr.dtype, device=pr.device)
     outs = (new(m, b), new(m, b), new(m, b), new(m, b), new(b), new(b), new(b, b), new(b, b))
     with torch.cuda.device(pr.device):
         status = fn(
-            pr.data_ptr(), pi.data_ptr(), pr.stride(0), m, b, rows_below,
-            *(x.data_ptr() for x in outs),
+            pr.data_ptr(), pi.data_ptr(), pr.stride(-2), pr.stride(0) if lead else 0, m, b,
+            rows_below, batch, *(x.data_ptr() for x in outs),
             torch.cuda.current_stream(pr.device).cuda_stream,
         )
     kernel_guard.check(status, "ql_panel_planar launch")

@@ -48,11 +48,20 @@ block ``[Q_r | Q_i]``; ``torch.cat([qw[0], qw[1]], dim=-1)`` gives that
 block): the compact store scattered into identity-filled slots, so an
 invalid slot holds ``Q_r = I``, ``Q_i = 0``. vt, taut and y are
 ``(re, im)`` pairs; the plain version is ``ops/sb2st_planar.apply_q2_planar``.
+
+K10 also takes a batch of problems (the batched two-stage solve of
+``zhegvdx_planar_batched``): vt, taut and y with a leading batch axis, one
+window table for the batch, the store ``(2, batch, n_valid, 128, 128)``
+(about 1.6 GB in fp32 for 64 items at n = 1024) and one launch whose
+blocks each replay one item's 32 columns. ``replay_planar_store`` is that
+launch on a formed store; each item's result is the bits of the launch on
+its windows alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -200,23 +209,27 @@ def window_store_planar(vt, taut, n, b, g):
     order: ``(store, table)`` with ``table = window_table(n, b, g)`` and
     store (2, n_valid, 128, 128), plane 0 real and plane 1 imaginary,
     store[:, v] = [[Q, 0], [0, I]] for window v of the table, Q its
-    (l_win, l_win) compact-WY unitary. ``_WINDOWS`` windows are formed at
-    a time to bound the temporaries."""
+    (l_win, l_win) compact-WY unitary. Leading (batch) axes of vt and taut
+    come after the plane axis: store (2, ..., n_valid, 128, 128), one
+    table for the batch. About ``_WINDOWS`` windows (of all items) are
+    formed at a time to bound the temporaries."""
     table = window_table(n, b, g)
     geo = table["geo"]
     l_win = geo["l_win"]
     if l_win > P:
         raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
     dev = vt[0].device
+    lead = taut[0].shape[:-2]
     v2f, t2f, _, _ = _padded_pack_planar(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
     ridx = torch.from_numpy(table["ridx"]).to(dev)
-    store = torch.zeros((2, ridx.shape[0], P, P), dtype=vt[0].dtype, device=dev)
+    store = torch.zeros((2,) + lead + (ridx.shape[0], P, P), dtype=vt[0].dtype, device=dev)
     tail = torch.arange(l_win, P, device=dev)
-    store[0, :, tail, tail] = 1.0
-    for v0 in range(0, ridx.shape[0], _WINDOWS):
-        q_r, q_i = window_q_planar(*_planar_staircase(v2f, t2f, ridx[v0 : v0 + _WINDOWS], g, b))
-        store[0, v0 : v0 + _WINDOWS, :l_win, :l_win] = q_r
-        store[1, v0 : v0 + _WINDOWS, :l_win, :l_win] = q_i
+    store[0, ..., tail, tail] = 1.0
+    step = max(1, _WINDOWS // max(1, math.prod(lead)))
+    for v0 in range(0, ridx.shape[0], step):
+        q_r, q_i = window_q_planar(*_planar_staircase(v2f, t2f, ridx[v0 : v0 + step], g, b))
+        store[0, ..., v0 : v0 + step, :l_win, :l_win] = q_r
+        store[1, ..., v0 : v0 + step, :l_win, :l_win] = q_i
     return store, table
 
 
@@ -226,20 +239,26 @@ def window_qs_planar(vt, taut, n, b, g):
     with qw[:, tau, i] = [[Q, 0], [0, I]], Q the (l_win, l_win) compact-WY
     unitary of the window that ``window_qs`` puts in this slot, or the
     identity for an invalid slot: the compact store of
-    ``window_store_planar`` scattered into an identity-filled layout."""
+    ``window_store_planar`` scattered into an identity-filled layout.
+    Leading (batch) axes of vt and taut come after the plane axis."""
     store, table = window_store_planar(vt, taut, n, b, g)
     geo = table["geo"]
     dev = store.device
-    qw = torch.zeros((2, geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype, device=dev)
+    lead = store.shape[1:-3]
+    qw = torch.zeros((2,) + lead + (geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype,
+                     device=dev)
     diag = torch.arange(P, device=dev)
-    qw[0, :, :, diag, diag] = 1.0
-    qw[:, torch.from_numpy(table["wave"]).to(dev), torch.from_numpy(table["slot"]).to(dev)] = store
+    qw[0, ..., diag, diag] = 1.0
+    wave = torch.from_numpy(table["wave"]).to(dev)
+    slot = torch.from_numpy(table["slot"]).to(dev)
+    qw[:, ..., wave, slot, :, :] = store
     return qw
 
 
 def apply_q2_planar_kernel(vt, taut, y, n, b, g=None):
     """Kernel K10: planar y <- Q2 y (see the module docstring). ``g``
-    defaults to 3b, as in the Pallas function."""
+    defaults to 3b, as in the Pallas function. A leading batch axis of the
+    reflectors and of y is one launch for the whole batch."""
     if g is None:
         g = 3 * b
     n, b, g = int(n), int(b), int(g)
@@ -249,13 +268,42 @@ def apply_q2_planar_kernel(vt, taut, y, n, b, g=None):
                          f"take g <= {P + 1 - b}, or the plain apply_q2_planar")
     if b < 2 or g < 1 or n < 3:
         raise ValueError(f"apply_q2_planar_kernel needs n >= 3, b >= 2, g >= 1; got {n}, {b}, {g}")
-    if y_r.ndim != 2 or y_r.shape[0] != n or y_r.shape[1] < 1 or y_i.shape != y_r.shape:
-        raise ValueError(f"both planes of y must be (n={n}, m >= 1), got "
-                         f"{tuple(y_r.shape)} and {tuple(y_i.shape)}")
+    if y_r.ndim not in (2, 3) or y_r.shape[-2] != n or y_r.shape[-1] < 1 \
+            or y_i.shape != y_r.shape:
+        raise ValueError(f"both planes of y must be (n={n}, m >= 1), with at most one batch "
+                         f"axis, got {tuple(y_r.shape)} and {tuple(y_i.shape)}")
+    lead = y_r.shape[:-2]
+    if any(x.shape[: len(lead)] != lead or x.ndim != len(lead) + k
+           for x, k in ((vt[0], 3), (vt[1], 3), (taut[0], 2), (taut[1], 2))):
+        raise ValueError("apply_q2_planar_kernel: the reflectors' batch axes differ from y's")
     if any(x.dtype != y_r.dtype or x.device != y_r.device for x in (y_i, *vt, *taut)):
         raise ValueError("apply_q2_planar_kernel: y and the reflectors differ in dtype or device")
     if y_r.device.type == "cpu":
         return apply_q2_planar(vt, taut, y, n, b, g=g)
+    if y_r.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the planar replay kernel takes float32 or float64, got {y_r.dtype}")
+    with trace_range("apply_q2_planar_qs"):
+        store, table = window_store_planar(vt, taut, n, b, g)
+        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(y_r.device)
+    return replay_planar_store(store, row0, y, table["geo"]["l_win"])
+
+
+def replay_planar_store(store, row0, y, l_win):
+    """The launch of kernel K10 on a formed window store: y <- Q2 y with
+    the windows of ``store`` (2, [batch,] n_valid, 128, 128) applied in
+    order at the rows ``row0`` (n_valid int32 on the card, one table for the
+    batch) to the planes y = (y_r, y_i), ([batch,] n, m); returns the new
+    planes. ``apply_q2_planar_kernel`` is the window pass followed by this."""
+    y_r, y_i = y
+    lead = y_r.shape[:-2]
+    n, m = y_r.shape[-2:]
+    if store.shape[1 : 1 + len(lead)] != lead or store.dim() != 4 + len(lead) \
+            or store.shape[-2:] != (P, P) or store.shape[-3] != row0.numel():
+        raise ValueError(f"replay_planar_store: store {tuple(store.shape)} does not fit y "
+                         f"{tuple(y_r.shape)} and {row0.numel()} windows")
+    if any(x.device.type != "cuda" for x in (store, row0, y_r, y_i)):
+        raise ValueError("replay_planar_store launches kernel K10: its tensors must be on "
+                         "the card")
     if y_r.dtype == torch.float32:
         name = "apply_q2_planar_f32_launch"
     elif y_r.dtype == torch.float64:
@@ -264,27 +312,26 @@ def apply_q2_planar_kernel(vt, taut, y, n, b, g=None):
         raise TypeError(f"the planar replay kernel takes float32 or float64, got {y_r.dtype}")
     fn = getattr(kernel_guard.load("replay_planar"), name)
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = y_r.device
-    with trace_range("apply_q2_planar_qs"):
-        store, table = window_store_planar(vt, taut, n, b, g)
-        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
-    m = y_r.shape[1]
+    store = store.contiguous()
+    batch = lead[0] if lead else 1
     ldy = -(-m // 4) * 4  # 16-byte rows for the kernel's copies
-    out = (torch.empty if ldy == m else torch.zeros)((2, n, ldy), dtype=y_r.dtype, device=dev)
-    out[0, :, :m], out[1, :, :m] = y_r, y_i  # updated in place
+    out = (torch.empty if ldy == m else torch.zeros)((2,) + lead + (n, ldy), dtype=y_r.dtype,
+                                                     device=dev)
+    out[0, ..., :m], out[1, ..., :m] = y_r, y_i  # updated in place
     with trace_range("apply_q2_planar"), torch.cuda.device(dev):
         status = fn(
             store[0].data_ptr(), store[1].data_ptr(), row0.data_ptr(), row0.numel(),
-            out[0].data_ptr(), out[1].data_ptr(), ldy, n, m, table["geo"]["l_win"],
+            out[0].data_ptr(), out[1].data_ptr(), ldy, n, m, l_win, batch,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "apply_q2_planar launch")
         apply_q2_planar_kernel.launches += 1
     if ldy == m:
         return out[0], out[1]
-    return out[0, :, :m].contiguous(), out[1, :, :m].contiguous()
+    return out[0, ..., :m].contiguous(), out[1, ..., :m].contiguous()
 
 
 apply_q2_planar_kernel.launches = 0

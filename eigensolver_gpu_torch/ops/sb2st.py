@@ -37,11 +37,12 @@ from eigensolver_gpu_torch.utils.tracing import trace_range
 
 def dense_to_band(a, b):
     """Lower band storage with 2b diagonals: ``B[j, d] = A[j+d, j]`` (zero
-    where j+d >= n). ``a`` symmetric (n, n); returns (n, 2b)."""
-    n = a.shape[0]
+    where j+d >= n). ``a`` symmetric (..., n, n), leading axes a batch;
+    returns (..., n, 2b)."""
+    n = a.shape[-1]
     cols = torch.arange(n, device=a.device)[:, None]
     rows = cols + torch.arange(2 * b, device=a.device)[None, :]  # j + d
-    vals = a[rows.clamp_max(n - 1), cols]
+    vals = a[..., rows.clamp_max(n - 1), cols]
     return torch.where(rows < n, vals, torch.zeros_like(vals))
 
 
@@ -158,8 +159,8 @@ def repack_sweep_major(vt, taut, b, n):
     Reflector (v, k) of the chase lives at t = 3v+k, s = k//3; for
     k = 3s+c, V2[3s+c, v] = vt[3(v+s)+c, s] (zero past the store). Returns
     (v2 (3*s_slots, nv, b), t2 (3*s_slots, nv)) with nv = max(n-2, 1)
-    (sweeps v in [0, n-3])."""
-    t3, s_slots, _ = vt.shape
+    (sweeps v in [0, n-3]). Leading axes of vt and taut are a batch."""
+    t3, s_slots, _ = vt.shape[-3:]
     dev = vt.device
     nv = max(n - 2, 1)
     k = torch.arange(3 * s_slots, device=dev)[:, None]
@@ -168,8 +169,9 @@ def repack_sweep_major(vt, taut, b, n):
     ok = t < t3
     t = t.clamp_max(t3 - 1)
     s = s.expand_as(t)
-    v2 = torch.where(ok[:, :, None], vt[t, s], torch.zeros((), dtype=vt.dtype, device=dev))
-    t2 = torch.where(ok, taut[t, s], torch.zeros((), dtype=taut.dtype, device=dev))
+    zero = torch.zeros((), dtype=vt.dtype, device=dev)
+    v2 = torch.where(ok[:, :, None], vt[..., t, s, :], zero)
+    t2 = torch.where(ok, taut[..., t, s], zero)
     return v2, t2
 
 
@@ -177,16 +179,18 @@ def _padded_pack(vt, taut, b, n, g, n_groups, kmax):
     """Sweep-major reflector pack, flattened and padded so that an
     out-of-range (k, sweep) index lands in zeros: k rows up to kp-1 (the
     last one all zero), sweeps up to nvp = n_groups*g + g. Returns
-    (v2f (kp*nvp, b), t2f (kp*nvp,), nvp, kp)."""
+    (v2f (kp*nvp, b), t2f (kp*nvp,), nvp, kp), behind the leading (batch)
+    axes of vt and taut."""
     v2, t2 = repack_sweep_major(vt, taut, b, n)
-    kcap, nv = t2.shape
+    lead = t2.shape[:-2]
+    kcap, nv = t2.shape[-2:]
     nvp = n_groups * g + g
     kp = max(kmax + 2, kcap)
-    v2p = torch.zeros((kp, nvp, b), dtype=vt.dtype, device=vt.device)
-    t2p = torch.zeros((kp, nvp), dtype=taut.dtype, device=vt.device)
-    v2p[:kcap, :nv] = v2
-    t2p[:kcap, :nv] = t2
-    return v2p.reshape(kp * nvp, b), t2p.reshape(kp * nvp), nvp, kp
+    v2p = torch.zeros(lead + (kp, nvp, b), dtype=vt.dtype, device=vt.device)
+    t2p = torch.zeros(lead + (kp, nvp), dtype=taut.dtype, device=vt.device)
+    v2p[..., :kcap, :nv, :] = v2
+    t2p[..., :kcap, :nv] = t2
+    return v2p.reshape(lead + (kp * nvp, b)), t2p.reshape(lead + (kp * nvp,)), nvp, kp
 
 
 def _staircase(vblk, taus, g, b):

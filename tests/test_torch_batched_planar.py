@@ -4,8 +4,9 @@ the CPU: a batch of 3 at n = 32, il = 1 .. iu = 8, in the modes ``mp``
 (fp32 pipeline + fp64 refinement) and fp64, with ``chunk`` None and 1;
 each item also against the port's unbatched solve of it, and the edge
 cases: a non-positive-definite B in one item, ``chunk`` that does not
-divide the batch, batch 1, and the configurations that run item by item
-(``use_pallas=True``, ``tridiag_mode='two'``). The bars are JAX's own
+divide the batch, batch 1, the configuration that runs item by item
+(``use_pallas=True``) and the batched two-stage solve
+(``tridiag_mode='two'``). The bars are JAX's own
 (tests/test_batched.py): eigenvalues within 1e-10 n of JAX and of scipy,
 ``ge_residual`` < 1e-12, ``info`` exact."""
 
@@ -112,10 +113,15 @@ def test_batch_of_one_equals_the_unbatched_solve(mode):
 
 @pytest.mark.parametrize("kw", [dict(MIXED, use_pallas=True), dict(tridiag_mode="two", band=8)])
 def test_item_by_item_configurations_equal_the_unbatched_solves(monkeypatch, kw):
-    """use_pallas=True (K2) and the two-stage reduction (K6, K8, K10) take
-    one problem at a time: the batched entry solves each item with the
-    unbatched driver, so each item is that solve exactly."""
+    """use_pallas=True (K2) takes one problem at a time: the batched entry
+    solves each item with the unbatched driver, so each item is that solve
+    exactly. The two-stage reduction runs one batched solve: no unbatched
+    zhegvdx_planar call, one call of the K6 wrapper a psbrd panel and one
+    of the K8 and the K10 wrappers, each on the whole batch; each item
+    equals its unbatched solve to the module's tolerance
+    (check_against_single)."""
     import eigensolver_gpu_torch.models.zhegvdx_planar as zp
+    from eigensolver_gpu_torch.ops import chase, ql_panel, replay
 
     a, b = _batches()["pd"]
     cfg = eig.SolverConfig(stedc_leaf=LEAF, **kw)
@@ -123,12 +129,33 @@ def test_item_by_item_configurations_equal_the_unbatched_solves(monkeypatch, kw)
     real = zp.zhegvdx_planar
     monkeypatch.setattr(zp, "zhegvdx_planar",
                         lambda *args, **k: calls.append(args[0].dim()) or real(*args, **k))
+    wrapped = {}
+
+    def logged(mod, name, shape_of):
+        """Wrap mod.name to log the shape it is given (shape_of(args))."""
+        fn, log = getattr(mod, name), wrapped.setdefault(name, [])
+        monkeypatch.setattr(mod, name, lambda *args, **k: log.append(shape_of(args))
+                            or fn(*args, **k))
+
+    logged(ql_panel, "ql_panel_planar", lambda args: tuple(args[0].shape))
+    logged(chase, "bulge_chase_planar_kernel", lambda args: tuple(args[0].shape))
+    logged(replay, "apply_q2_planar_kernel", lambda args: tuple(args[2][0].shape))
     res = eig.zhegvdx_planar_batched(*planes(a, b), il=1, iu=IU, cfg=cfg)
-    assert len(calls) >= BATCH and set(calls) == {2}  # only unbatched solves
     monkeypatch.undo()
+    if kw.get("use_pallas"):
+        assert len(calls) >= BATCH and set(calls) == {2}  # only unbatched solves
+        assert not any(wrapped.values())
+    else:
+        assert calls == [3]  # one batched solve
+        assert [s[0] for s in wrapped["ql_panel_planar"]] == [BATCH] * (N // 8 - 1)
+        assert wrapped["bulge_chase_planar_kernel"] == [(BATCH, N, 16)]
+        assert wrapped["apply_q2_planar_kernel"] == [(BATCH, N, IU)]
     for k in range(BATCH):
         sw, sz, sinfo = planar_single(a[k], b[k], IU, cfg)
-        assert np.array_equal(res.w[k].numpy(), sw) and sinfo == int(res.info[k]) == 0
-        assert np.array_equal(as_complex(res.zr[k], res.zi[k]), sz)
+        assert sinfo == int(res.info[k]) == 0
+        if kw.get("use_pallas"):
+            assert np.array_equal(res.w[k].numpy(), sw)
+            assert np.array_equal(as_complex(res.zr[k], res.zi[k]), sz)
+        else:
+            check_against_single(res.w[k].numpy(), as_complex(res.zr[k], res.zi[k]), (sw, sz), N)
     check_items(a, b, res.w.numpy(), as_complex(res.zr, res.zi), res.info.numpy(), IU)
-

@@ -9,6 +9,13 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 (``--noconftest`` skips tests/conftest.py, which sets JAX up.)
 """
 
+import functools
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +52,62 @@ def _planes(x, dev):
     return torch.tensor(x.real, dtype=torch.float32, device=dev), torch.tensor(
         x.imag, dtype=torch.float32, device=dev
     )
+
+
+def _device_launches(fn, key):
+    """The result of ``fn()``, the number of kernels whose name holds
+    ``key`` that it launched, from the profiler's device records, and the
+    number of calls of ``fn`` made: a profile that caught no record of such
+    a kernel (the profiler dropped records now and then on the card, for a
+    cause not established) is taken again, a second later, up to four
+    calls; the callers check the wrappers' launch counters against the
+    calls made. As chip_smoke.py's profiles of one wrapper's call do, each
+    profile takes the CPU activity too and starts fn a tenth of a second
+    into its session: CUDA-only profiles lost every record in a long
+    process on the card, these did not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for calls in range(1, 5):
+        if calls > 1:
+            time.sleep(1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            out = fn()
+            torch.cuda.synchronize()
+        launched = sum(key in e.name() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+        if launched:
+            return out, launched, calls
+    raise ProfilerDropped(f"{calls} profiles caught no device record of {key!r}")
+
+
+class ProfilerDropped(AssertionError):
+    """No profile of a call caught a record of the kernel it counts."""
+
+
+def _fresh_process_on_drop(test):
+    """Run the test; if its profiles caught no record of the kernel it
+    counts (ProfilerDropped: in a long process on the card the profiler has
+    stopped catching records, while a new process caught them), run the
+    same test once more in a new pytest process, as chip_smoke.py runs a
+    group again, and pass or fail with it."""
+    @functools.wraps(test)
+    def run(*args, **kwargs):
+        try:
+            return test(*args, **kwargs)
+        except ProfilerDropped:
+            if os.environ.get("CARD_TEST_FRESH_PROCESS"):
+                raise
+        node = os.environ["PYTEST_CURRENT_TEST"].rsplit(" ", 1)[0]
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", node, "--noconftest", "-m", "cuda", "-q",
+             "-p", "no:cacheprovider"],
+            cwd=pathlib.Path(__file__).resolve().parent.parent, capture_output=True, text=True,
+            env={**os.environ, "CARD_TEST_FRESH_PROCESS": "1"})
+        assert proc.returncode == 0, f"{node} in a new process:\n{proc.stdout[-4000:]}"
+
+    return run
 
 
 @pytest.mark.cuda
@@ -88,6 +151,7 @@ def test_pchol_block_kernel_matches_plain(cuda_device, nb):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb", [128, 100])
+@_fresh_process_on_drop
 def test_pchol_block_kernel_batched(cuda_device, nb):
     """K1 on a batch of 64 blocks in one launch (profiler), read through
     the batched Cholesky's panel view (the leading nb rows of (64, 2 nb, nb)
@@ -139,29 +203,9 @@ def test_latrd_panel_kernel_matches_plain(cuda_device, pe_off):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-3)
 
 
-def _device_launches(fn, key):
-    """The result of ``fn()``, the number of kernels whose name holds
-    ``key`` that it launched, from the profiler's device records, and the
-    number of calls of ``fn`` made: a profile that caught no record of such
-    a kernel (the profiler dropped records now and then on the card, for a
-    cause not established) is taken again, up to three calls; the callers
-    check the wrappers' launch counters against the calls made."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for calls in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        launched = sum(key in e.name() for e in prof.profiler.kineto_results.events()
-                       if e.device_type() == torch.autograd.DeviceType.CUDA)
-        if launched:
-            break
-    return out, launched, calls
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("mb,view", [(256, False), (256, True), (2048, False), (2048, True)])
+@_fresh_process_on_drop
 def test_latrd_panel_kernel_launches_once_and_is_bit_reproducible(cuda_device, mb, view):
     """K2 is one kernel launch a panel (profiler), two calls give the same
     bits (its grid-wide sums run in block order), and it stays within rtol
@@ -266,6 +310,7 @@ def test_symv_kernels_on_unaligned_rows(cuda_device, n, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,dtype", [("symv", torch.float32), ("symv", torch.float64),
                                           ("hemv_planar", torch.float32)])
+@_fresh_process_on_drop
 def test_symv_kernels_launch_once_and_repeat_their_bits(cuda_device, kernel, dtype):
     """At most one kernel launch a call at n = 4096: five calls in one
     profile record between one and five launches of the kernel (the
@@ -411,6 +456,102 @@ def test_chase_kernel_launches_once_per_real_two_stage_solve(cuda_device):
     assert sum("chase_kernel" in x for x in names) == 1
 
 
+def _random_hbands(batch, n, b, dtype, dev, seed):
+    """Both lower band planes (batch, n, 2b) of a batch of random Hermitian
+    band matrices of half-width b (real diagonals)."""
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((2, batch, n, 2 * b))
+    planes[0, :, :, : b + 1] = rng.standard_normal((batch, n, b + 1))
+    planes[1, :, :, 1 : b + 1] = rng.standard_normal((batch, n, b))
+    planes[:, :, np.arange(n)[:, None] + np.arange(2 * b)[None, :] >= n] = 0.0
+    t = torch.tensor(planes, dtype=dtype, device=dev)
+    return t[0], t[1]
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_ql_panel_planar_kernel_batched(cuda_device):
+    """K6 on a batch of 5 panels in one launch (profiler; a cluster an
+    item), the panels column slices of (5, 1100, 64) planes (a batch stride
+    and a row stride of their own), m = 1100, b = 16, rb = 1000: four blocks
+    an item, so the slabs cross blocks. Each item's eight outputs are
+    bit-identical to the unbatched launch on that item, and within 1e-4
+    relative of the plain version."""
+    batch, m, b, rb = 5, 1100, 16, 1000
+    rng = np.random.default_rng(61)
+    wide = torch.tensor(rng.standard_normal((2, batch, m, 64)), dtype=torch.float32,
+                        device=cuda_device)
+    pr, pi = wide[0, :, :, 7 : 7 + b], wide[1, :, :, 7 : 7 + b]
+    assert pr.stride() == (m * 64, 64, 1)
+    before = ql_panel_planar.launches
+    got, launched, calls = _device_launches(lambda: ql_panel_planar(pr, pi, rb), "ql_panel")
+    assert ql_panel_planar.launches == before + calls and launched == 1
+    want = ql_panel_planar_plain(pr, pi, rb)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.shape[0] == batch
+        assert _rel(x, y) <= 1e-4
+    for k in range(batch):
+        one = ql_panel_planar(pr[k], pi[k], rb)
+        assert all(torch.equal(x[k], y) for x, y in zip(got, one))
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_chase_planar_kernel_batched(cuda_device):
+    """K8 on a batch of 64 bands at n = 1024, b = 32, fp32 in one launch
+    (profiler): 704 (item, slot) pairs, more than the blocks that fit on the
+    card at once, so blocks own several pairs. Each item's d, e, reflectors
+    and taus are bit-identical to the unbatched launch on that item."""
+    from eigensolver_gpu_torch.ops.chase import chase_planar_blocks
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
+
+    batch, n, b = 64, 1024, 32
+    band_r, band_i = _random_hbands(batch, n, b, torch.float32, cuda_device, 81)
+    pairs = batch * chase_dims(n, b)[0]
+    assert pairs == 704 and chase_planar_blocks(b, pairs, torch.float32) < pairs
+    before = bulge_chase_planar_kernel.launches
+    got, launched, calls = _device_launches(
+        lambda: bulge_chase_planar_kernel(band_r, band_i, b), "chase_planar")
+    assert bulge_chase_planar_kernel.launches == before + calls and launched == 1
+    for k in range(batch):
+        one = bulge_chase_planar_kernel(band_r[k], band_i[k], b)
+        assert all(x.shape[0] == batch and torch.equal(x[k], y)
+                   for x, y in zip(_flat(got), _flat(one)))
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_replay_planar_kernel_batched(cuda_device):
+    """K10 on a batch of 3 problems in one launch (profiler), n = 300,
+    b = 8, g = 24, m = 70, fp32: within 1e-4 relative of the plain version;
+    and on the batch's window store, each item's result is bit-identical to
+    the launch on that item's windows alone (the zero fill past row n stays
+    inside the item)."""
+    from eigensolver_gpu_torch.ops.replay import replay_planar_store, window_store_planar
+
+    batch, n, b, g, m = 3, 300, 8, 24, 70
+    band_r, band_i = _random_hbands(batch, n, b, torch.float32, cuda_device, 101)
+    _, _, vt, taut = bulge_chase_planar_kernel(band_r, band_i, b)
+    rng = np.random.default_rng(102)
+    y = tuple(torch.tensor(rng.standard_normal((batch, n, m)), dtype=torch.float32,
+                           device=cuda_device) for _ in range(2))
+    before = apply_q2_planar_kernel.launches
+    got, launched, calls = _device_launches(
+        lambda: apply_q2_planar_kernel(vt, taut, y, n, b, g=g), "replay_planar")
+    assert apply_q2_planar_kernel.launches == before + calls and launched == 1
+    want = apply_q2_planar(vt, taut, y, n, b, g=g)
+    for x, w, y0 in zip(got, want, y):
+        assert x.shape == w.shape == (batch, n, m)
+        assert _rel(x, w) <= 1e-4 and _rel(w, y0) > 0.1
+    store, table = window_store_planar(vt, taut, n, b, g)
+    row0 = torch.tensor(table["row0"], dtype=torch.int32, device=cuda_device)
+    l_win = table["geo"]["l_win"]
+    got = replay_planar_store(store, row0, y, l_win)
+    for k in range(batch):
+        one = replay_planar_store(store[:, k], row0, (y[0][k], y[1][k]), l_win)
+        assert torch.equal(got[0][k], one[0]) and torch.equal(got[1][k], one[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,b,g,m,dtype", [(512, 32, 96, 100, torch.float32),
                                            (300, 8, 24, 70, torch.float32),
@@ -436,6 +577,7 @@ def test_replay_kernel_matches_plain(cuda_device, n, b, g, m, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m", [1, 100, 4096])
+@_fresh_process_on_drop
 def test_replay_kernel_across_widths(cuda_device, m, dtype):
     """K9 at the main path's n = 4096, b = 32 (g = 96 in fp32, the
     pure-fp64 path's g = b in fp64) at m = 1, 100 and 4096 columns: within
@@ -460,6 +602,7 @@ def test_replay_kernel_across_widths(cuda_device, m, dtype):
 
 
 @pytest.mark.cuda
+@_fresh_process_on_drop
 def test_replay_kernel_launches_once_per_real_two_stage_solve(cuda_device):
     """A real two-stage solve launches K9's kernel once, counted by the
     profiler's device records and by the wrapper."""
@@ -547,7 +690,8 @@ def test_chase_planar_kernel_matches_plain(cuda_device, n, b, dtype):
     steps), 1e-9 in fp64 (1e-7 at n = 2400, chip_smoke.py's fp64 bound: the
     drift grows with the 7192 steps); the spectrum of (d, |e|) kept; two
     calls bit-identical. At n = 2400, b = 6 the 134 slots outnumber the
-    H100's 132 SMs, so two blocks of the persistent kernel own two slots."""
+    H100's 132 SMs; the kernel runs as many blocks as fit on the card at
+    once, up to one a slot."""
     a, (band_r, band_i) = _hband(n, b, dtype, cuda_device, n)
     before = bulge_chase_planar_kernel.launches
     got = bulge_chase_planar_kernel(band_r, band_i, b)

@@ -12,7 +12,8 @@ reads clock64() after every block, cluster or grid barrier, runs K1 at
 nb = 128, K2 at mb = pe = 4096, K5 and K6 at the main paths' largest panel
 ((4096, 32), rb = 4032, fp32), K7 and K8 at n = 4096, b = 32, fp32, and K9
 and K10 at n = m = 4096, b = 32, g = 96, fp32, K4 (fp32) and K3 at n = 4096
-(marked by block 100), and prints, for each mark of
+(marked by block 100), the kernels that take a batch (K1, K6, K8, K10) on
+one problem, and prints, for each mark of
 the source, the SM cycles spent before it summed over the run and how often
 it was reached. The committed kernels carry no instrumentation; the marks
 cost the marking thread a few dozen cycles each. Needs a CUDA device and
@@ -173,7 +174,8 @@ def main():
 
     lib, lines, to_source = build("ql_panel_planar", "const int tid = threadIdx.x;")
     fn = lib.ql_panel_planar_f32_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     m, b, rb = 4096, 32, 4032
     planes = torch.tensor(rng.standard_normal((2, m, m)), dtype=torch.float32, device=dev)
@@ -182,7 +184,7 @@ def main():
     outs = (new(m, b), new(m, b), new(m, b), new(m, b), new(b), new(b), new(b, b), new(b, b))
     for _ in range(2):
         lib.marks_reset()
-        status = fn(pr.data_ptr(), pi.data_ptr(), pr.stride(0), m, b, rb,
+        status = fn(pr.data_ptr(), pi.data_ptr(), pr.stride(0), 0, m, b, rb, 1,
                     *(x.data_ptr() for x in outs), torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented ql_panel_planar launch")
         torch.cuda.synchronize()
@@ -205,9 +207,9 @@ def main():
 
     lib, lines, to_source = build(
         "chase_planar", "T* smem = reinterpret_cast<T*>(smem_raw);",
-        "if (threadIdx.x == 0) publish(progress + s, t + 1);")
+        "if (threadIdx.x == 0) publish(progress + p, t + 1);")
     fn = lib.bulge_chase_planar_f32_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     n, b = 4096, 32
     band = np.zeros((2, n, 2 * b))
@@ -223,7 +225,7 @@ def main():
         taut = torch.zeros((2, t3, s_slots), device=dev)
         progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)
         lib.marks_reset()
-        status = fn(work[0].data_ptr(), work[1].data_ptr(), n, b, vt[0].data_ptr(),
+        status = fn(work[0].data_ptr(), work[1].data_ptr(), n, b, 1, vt[0].data_ptr(),
                     vt[1].data_ptr(), taut[0].data_ptr(), taut[1].data_ptr(), progress.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented chase_planar launch")
@@ -258,7 +260,7 @@ def main():
         "fma_chunk<T>(stage, ty, tx, acc_r, acc_i);")
     fn = lib.apply_q2_planar_f32_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     g, m = 96, 4096
     hb = np.zeros((2, n, 2 * b))
@@ -273,7 +275,7 @@ def main():
     for _ in range(2):
         lib.marks_reset()
         status = fn(store[0].data_ptr(), store[1].data_ptr(), row0.data_ptr(), row0.numel(),
-                    y[0].data_ptr(), y[1].data_ptr(), m, n, m, table["geo"]["l_win"],
+                    y[0].data_ptr(), y[1].data_ptr(), m, n, m, table["geo"]["l_win"], 1,
                     torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented replay_planar launch")
         torch.cuda.synchronize()
