@@ -35,13 +35,19 @@
 // Design, the planar chase's (csrc/chase_planar.cu, whose header derives the
 // dependency rule and the deadlock freedom; tests/test_torch_chase_schedule.py
 // checks the rule against this chase's footprint): one cooperative launch
-// per call of G = min(s_slots, SMs) blocks, block g owning the slots
-// s = g (mod G) and looping over all timesteps; at each it runs its slots in
-// ascending s. Slot s at t waits for slots s - 1 and s + 1 to have finished
-// t - 1, and every slot, active or not, publishes after it waits.
+// per call of G blocks, block g owning the (item, slot) pairs
+// p = item s_slots + s with p = g (mod G) and looping over all timesteps; at
+// each it runs its pairs in ascending p. Slot s at t waits for slots s - 1
+// and s + 1 of its item to have finished t - 1, and every slot, active or
+// not, publishes after it waits. One band (batch 1) is the plain case; a
+// batch of bands (one launch for the batch of a batched solve) chases each
+// item exactly so, with pairs of different items never waiting on each
+// other, so each item's outputs are the bits of a launch on that item alone.
+// G = min(batch s_slots, the blocks that fit on the card at once: resident
+// blocks an SM times SMs).
 //
-// Flags: progress[s] = t + 1 once slot s has finished t (an int scratch of
-// s_slots words, zeroed by the caller on the stream). Publishing is
+// Flags: progress[p] = t + 1 once pair p has finished t (an int scratch of
+// batch s_slots words, zeroed by the caller on the stream). Publishing is
 // __syncthreads(), then thread 0's fence.acq_rel.gpu and a relaxed
 // device-scope store (a release); waiting is thread 0 spinning on
 // device-scope acquire loads, then __syncthreads(). Band tiles are read
@@ -50,11 +56,14 @@
 // marked const __restrict__, which would allow non-coherent loads.
 //
 // Co-residency: a spinning block needs its neighbours to run, so all G
-// blocks must be resident at once. G <= the number of SMs and a block takes
-// at most 101 KB of shared memory (fp64, b = 64), so one block per SM always
-// fits; the cooperative launch checks it and fails with an error
-// (cudaErrorCooperativeLaunchTooLarge) rather than run what could hang, and
-// the wrapper raises. There is no fallback.
+// blocks must be resident at once. G is at most what the occupancy
+// calculator says fits (one block an SM at least: a block takes at most
+// 101 KB of shared memory, fp64, b = 64); the cooperative launch checks it
+// and fails with an error (cudaErrorCooperativeLaunchTooLarge) rather than
+// run what could hang, and the wrapper raises. There is no fallback.
+// Deadlock-free: block g runs (t, p) only after its own (t, p - G) and
+// (t - 1, *), and every wait is on a (t - 1, *) of another block, so the
+// least unfinished (t, p) in lexicographic order can always run.
 //
 // A block of 512 threads stages its three b x b tiles in shared memory
 // straight from band storage (out-of-matrix columns are guarded; thread
@@ -219,51 +228,82 @@ __device__ void chase_window(T* band, int n, int b, int t, int s, int s_slots, T
   if (tid == 0) taut[(size_t)t * s_slots + s] = tau;
 }
 
-// All timesteps: block g owns the slots s = g (mod G).
+// All timesteps: block g owns the (item, slot) pairs p = g (mod G); item k's
+// band starts k n 2b elements in, its reflectors k t3 s_slots b (vt) and
+// k t3 s_slots (taut) elements in.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chase_kernel(T* band, int n, int b, int t_total, int s_slots, T* vt, T* taut, int* progress) {
+chase_kernel(T* band, int n, int b, int t_total, int t3, int s_slots, int pairs, T* vt,
+             T* taut, int* progress) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int qs = kThreads / b, pt = threadIdx.x % b;
   const int q0 = threadIdx.x / b < qs ? threadIdx.x / b : b;  // b: no entries
+  const size_t band_len = (size_t)n * 2 * b, tau_len = (size_t)t3 * s_slots;
   for (int t = 0; t < t_total; ++t) {
     const int vmax = t / 3, k0 = t % 3;
-    for (int s = blockIdx.x; s < s_slots; s += gridDim.x) {
-      // wait for slots s - 1 and s + 1 to have finished t - 1
+    for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+      const int item = p / s_slots, s = p - item * s_slots;
+      // wait for slots s - 1 and s + 1 of this item to have finished t - 1
       if (threadIdx.x == 0 && t > 0) {
-        const int* lo = progress + (s > 0 ? s - 1 : s);
-        const int* hi = progress + (s + 1 < s_slots ? s + 1 : s);
+        const int* lo = progress + (s > 0 ? p - 1 : p);
+        const int* hi = progress + (s + 1 < s_slots ? p + 1 : p);
         while (load_acquire(lo) < t || load_acquire(hi) < t) {
         }
       }
       __syncthreads();
       const int v = vmax - s;
       if (v >= 0 && v <= n - 3 && v + 1 + (k0 + 3 * s) * b <= n - 2)
-        chase_window<T>(band, n, b, t, s, s_slots, vt, taut, smem, pt, q0, qs);
+        chase_window<T>(band + item * band_len, n, b, t, s, s_slots, vt + item * tau_len * b,
+                        taut + item * tau_len, smem, pt, q0, qs);
       __syncthreads();
-      if (threadIdx.x == 0) publish(progress + s, t + 1);
+      if (threadIdx.x == 0) publish(progress + p, t + 1);
     }
   }
 }
 
 template <typename T>
-int chase_launch(T* band, int n, int b, T* vt, T* taut, int* progress, void* stream) {
-  if (n < 3 || b < 2 || b > kMaxB) return (int)cudaErrorInvalidValue;
-  int s_slots = ((n - 3) / b) / 3 + 1;
-  int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
-  const size_t smem = (size_t)(3 * b * (b + 1) + 5 * b + 1) * sizeof(T);
+size_t smem_bytes(int b) {
+  return (size_t)(3 * b * (b + 1) + 5 * b + 1) * sizeof(T);
+}
+
+// G: the pairs, at most as many blocks as fit on the card at once
+template <typename T>
+cudaError_t grid_blocks(int b, int pairs, int* blocks) {
+  const size_t smem = smem_bytes<T>(b);
   auto kernel = chase_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const long long resident = (long long)per_sm * sms;
+  *blocks = pairs < resident ? pairs : (int)resident;
+  return cudaSuccess;
+}
+
+template <typename T>
+int chase_launch(T* band, int n, int b, int batch, T* vt, T* taut, int* progress,
+                 void* stream) {
+  if (n < 3 || b < 2 || b > kMaxB || batch < 0) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return (int)cudaSuccess;
+  int s_slots = ((n - 3) / b) / 3 + 1;
+  int t_total = n > 3 ? 3 * (n - 3) + 1 : 1;
+  int t3 = 3 * ((t_total + 2) / 3);
+  if ((long long)batch * s_slots > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  int pairs = batch * s_slots;
+  const size_t smem = smem_bytes<T>(b);
+  auto kernel = chase_kernel<T>;
+  int blocks = 0;
+  cudaError_t err = grid_blocks<T>(b, pairs, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = s_slots < sms ? s_slots : sms;
-  void* args[] = {&band, &n, &b, &t_total, &s_slots, &vt, &taut, &progress};
+  void* args[] = {&band, &n, &b, &t_total, &t3, &s_slots, &pairs, &vt, &taut, &progress};
   // fails, and launches nothing, if the blocks cannot all be resident
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args,
                                     smem, (cudaStream_t)stream);
@@ -273,17 +313,25 @@ int chase_launch(T* band, int n, int b, T* vt, T* taut, int* progress, void* str
 
 }  // namespace
 
-// band: n * 2b elements, chased in place (its first two columns are d and
-// e on return); vt: t3 * s_slots * b and taut: t3 * s_slots elements, zeroed
-// by the caller, with s_slots = ((n - 3) / b) / 3 + 1,
-// t3 = 3 * ceil((3 (n - 3) + 1) / 3); progress: s_slots ints, zeroed by the
-// caller.
-extern "C" int bulge_chase_f32_launch(float* band, int n, int b, float* vt, float* taut,
-                                      int* progress, void* stream) {
-  return chase_launch<float>(band, n, b, vt, taut, progress, stream);
+// A batch of bands, item after item: band: batch * n * 2b elements, chased
+// in place (an item's first two columns are its d and e on return); vt:
+// batch * t3 * s_slots * b and taut: batch * t3 * s_slots elements, zeroed by
+// the caller, with s_slots = ((n - 3) / b) / 3 + 1,
+// t3 = 3 * ceil((3 (n - 3) + 1) / 3); progress: batch * s_slots ints, zeroed
+// by the caller.
+extern "C" int bulge_chase_f32_launch(float* band, int n, int b, int batch, float* vt,
+                                      float* taut, int* progress, void* stream) {
+  return chase_launch<float>(band, n, b, batch, vt, taut, progress, stream);
 }
 
-extern "C" int bulge_chase_f64_launch(double* band, int n, int b, double* vt, double* taut,
-                                      int* progress, void* stream) {
-  return chase_launch<double>(band, n, b, vt, taut, progress, stream);
+extern "C" int bulge_chase_f64_launch(double* band, int n, int b, int batch, double* vt,
+                                      double* taut, int* progress, void* stream) {
+  return chase_launch<double>(band, n, b, batch, vt, taut, progress, stream);
+}
+
+// The number of blocks G a launch of `pairs` (item, slot) pairs at half-width
+// b runs (f64: the double instance), in *blocks; for the logs and checks.
+extern "C" int bulge_chase_blocks(int b, int pairs, int f64, int* blocks) {
+  if (b < 2 || b > kMaxB || pairs < 1) return (int)cudaErrorInvalidValue;
+  return (int)(f64 ? grid_blocks<double>(b, pairs, blocks) : grid_blocks<float>(b, pairs, blocks));
 }

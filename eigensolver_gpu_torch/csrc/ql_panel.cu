@@ -47,6 +47,14 @@
 //
 // Any m >= 1, 1 <= b <= 64, 0 <= rb <= m - b; the panel may be a column
 // slice of a row-major matrix (row stride ldp >= b).
+//
+// A batch of panels (the panels of a batch of problems at one sbrd step:
+// same m, b, rb, item k at batch stride sp from the first) is one launch of
+// gridDim (blocks, batch) with the cluster (blocks, 1, 1): a cluster an item,
+// each running the code above on its own panel and its own outputs (contiguous,
+// item after item). The clusters share nothing, so those that do not fit on
+// the card at once run after the others, and each item's outputs are the bits
+// of a launch on that item alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,9 +100,18 @@ Geometry geometry(int b, int rb, int itemsize) {
 // accesses compile to shared-memory instructions), else in r.
 template <typename T, bool kSmemSlab>
 __global__ void __launch_bounds__(kThreads)
-ql_panel_kernel(const T* __restrict__ p, int ldp, int m, int b, int rb, int slab_rows,
-                T* r, T* v, T* tau, T* tmat) {
+ql_panel_kernel(const T* __restrict__ p, int ldp, long long sp, int m, int b, int rb,
+                int slab_rows, T* r, T* v, T* tau, T* tmat) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // this cluster's item: its panel and its outputs
+    const long long item = blockIdx.y;
+    p += item * sp;
+    const long long mb = (long long)m * b;
+    r += item * mb;
+    v += item * mb;
+    tau += item * b;
+    tmat += item * (long long)b * b;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   T* slot = reinterpret_cast<T*>(smem_raw);  // published to the peers
   // element `off` of block g's copy of the slot array that `q` points into
@@ -319,10 +336,12 @@ ql_panel_kernel(const T* __restrict__ p, int ldp, int m, int b, int rb, int slab
 }
 
 template <typename T>
-int ql_panel_launch(const T* p, int ldp, int m, int b, int rb, T* r, T* v,
-                    T* tau, T* tmat, void* stream) {
-  if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m || ldp < b)
+int ql_panel_launch(const T* p, int ldp, long long sp, int m, int b, int rb, int batch,
+                    T* r, T* v, T* tau, T* tmat, void* stream) {
+  if (b < 1 || b > kMaxB || m < b || rb < 0 || rb + b > m || ldp < b || batch < 0 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
+  if (batch == 0) return (int)cudaSuccess;
   const Geometry geo = geometry(b, rb, (int)sizeof(T));
   auto kernel = geo.slab_in_smem ? ql_panel_kernel<T, true> : ql_panel_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -331,7 +350,7 @@ int ql_panel_launch(const T* p, int ldp, int m, int b, int rb, T* r, T* v,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(geo.blocks);
+  cfg.gridDim = dim3(geo.blocks, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = geo.smem_bytes;
   cfg.stream = (cudaStream_t)stream;
@@ -342,27 +361,31 @@ int ql_panel_launch(const T* p, int ldp, int m, int b, int rb, T* r, T* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // a cluster that cannot be co-resident would never run: refuse it
+  // a cluster that cannot be co-resident would never run: refuse it (the
+  // clusters of a batch need not all be resident at once)
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&cfg, kernel, p, ldp, m, b, rb, geo.slab_rows, r, v, tau, tmat);
+  err = cudaLaunchKernelEx(&cfg, kernel, p, ldp, sp, m, b, rb, geo.slab_rows, r, v, tau,
+                           tmat);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// r, v: m * b elements (row-major, contiguous); tau: b; tmat: b * b.
-extern "C" int ql_panel_f32_launch(const float* p, int ldp, int m, int b,
-                                   int rb, float* r, float* v, float* tau,
+// batch panels, item k at p + k sp (row stride ldp); r, v: batch * m * b
+// elements (row-major, contiguous, item after item); tau: batch * b; tmat:
+// batch * b * b.
+extern "C" int ql_panel_f32_launch(const float* p, int ldp, long long sp, int m, int b,
+                                   int rb, int batch, float* r, float* v, float* tau,
                                    float* tmat, void* stream) {
-  return ql_panel_launch<float>(p, ldp, m, b, rb, r, v, tau, tmat, stream);
+  return ql_panel_launch<float>(p, ldp, sp, m, b, rb, batch, r, v, tau, tmat, stream);
 }
 
-extern "C" int ql_panel_f64_launch(const double* p, int ldp, int m, int b,
-                                   int rb, double* r, double* v, double* tau,
+extern "C" int ql_panel_f64_launch(const double* p, int ldp, long long sp, int m, int b,
+                                   int rb, int batch, double* r, double* v, double* tau,
                                    double* tmat, void* stream) {
-  return ql_panel_launch<double>(p, ldp, m, b, rb, r, v, tau, tmat, stream);
+  return ql_panel_launch<double>(p, ldp, sp, m, b, rb, batch, r, v, tau, tmat, stream);
 }

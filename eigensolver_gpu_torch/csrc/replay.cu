@@ -56,6 +56,16 @@
 // so the stores have drained. Fixed summation order: two calls give the
 // same bits. Plain FMA arithmetic, no tensor cores; float and double
 // instances.
+//
+// A batch of problems (one launch for the batch of a batched solve: one
+// n, m and window table, each item its own windows and its own y) is the
+// grid's second axis, as in K10: block (x, k) replays item k's windows onto
+// columns 32 x .. 32 x + 31 of item k's y, exactly as above, so each item's
+// result is the bits of a launch on that item alone. y's tensor map is 3-D
+// with the item outermost (one item: a third dimension of 1), so the zero
+// fill past row n stays inside the item; a window's box of the store is one
+// whole window, which never crosses an item, so the store keeps its 2-D map
+// over the stacked items' windows.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -125,6 +135,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
                : "memory");
 }
 
+// box (x, y, z) of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                         uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+               ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+               : "memory");
+}
+
 // the consumers alone (the producer warp is not in it). A named barrier
 // counts whole warps, so the warp is reconverged first (lane 0 alone
 // releases a stage).
@@ -185,11 +204,12 @@ struct Maps {
   CUtensorMap q, y;
 };
 
-// The producer: chunk after chunk of every window into the ring, each
-// window's first chunk only after the consumers' signal for it.
+// The producer: chunk after chunk of every window of item `item` (the
+// store's windows item n_win ..) into the ring, each window's first chunk
+// only after the consumers' signal for it.
 template <typename T>
-__device__ void produce(const Maps& maps, const int* row0, int n_win, int nc, int col0, T* ring,
-                        uint64_t* full, uint64_t* empty, uint64_t* sig) {
+__device__ void produce(const Maps& maps, const int* row0, int n_win, int nc, int col0,
+                        int item, T* ring, uint64_t* full, uint64_t* empty, uint64_t* sig) {
   using S = Shape<T>;
   int r_cur = 0, r_next = row0[0];
   for (int w = 0, f = 0; w < n_win; ++w) {
@@ -201,13 +221,14 @@ __device__ void produce(const Maps& maps, const int* row0, int n_win, int nc, in
       if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
       T* stage = ring + st * S::kStage;
       mbar_expect(full + st, S::kStage * sizeof(T));
-      tma_load(stage, &maps.q, c * S::kKC, w * kP, full + st);
-      tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, full + st);
+      tma_load(stage, &maps.q, c * S::kKC, (item * n_win + w) * kP, full + st);
+      tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, item, full + st);
     }
   }
 }
 
-// The consumers: windows 0 .. n_win - 1 in order on the column tile at col0.
+// The consumers: windows 0 .. n_win - 1 in order on the column tile at col0
+// of y, the item's.
 template <typename T>
 __device__ void consume(const int* row0, int n_win, int nc, T* y, int ldy, int n, int lwin,
                         int col0, const T* ring, uint64_t* full, uint64_t* empty,
@@ -298,11 +319,15 @@ replay_kernel(const __grid_constant__ Maps maps, const int* row0, int n_win, T* 
   __syncthreads();
   const int nc = (lwin + S::kKC - 1) / S::kKC;  // chunks a window
   const int col0 = blockIdx.x * kBN;
+  const int item = blockIdx.y;
   if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) produce<T>(maps, row0, n_win, nc, col0, ring, full, empty, sig);
+    if (threadIdx.x == kConsumers)
+      produce<T>(maps, row0, n_win, nc, col0, item, ring, full, empty, sig);
     return;
   }
-  consume<T>(row0, n_win, nc, y, ldy, n, lwin, col0, ring, full, empty, sig);
+  // the items' y, one after the other
+  consume<T>(row0, n_win, nc, y + (size_t)item * n * ldy, ldy, n, lwin, col0, ring, full, empty,
+             sig);
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
@@ -311,11 +336,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the 2-D map of `rows` rows of `cols` elements at row stride ld, in boxes
-// of box_rows by box_cols; what lies past the rows or columns reads as zero
+// the map of `rows` rows of `cols` elements at row stride ld: 2-D, or 3-D
+// with `items` such blocks, a block every rows * ld elements and the block
+// outermost; boxes of box_rows by box_cols (of one block); what lies past a
+// block's rows or columns reads as zero
 template <typename T>
-cudaError_t map_2d(CUtensorMap* map, const T* base, int cols, long long rows, int ld,
-                   int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+cudaError_t map_tiles(CUtensorMap* map, const T* base, int cols, long long rows, int ld,
+                      int rank, int items, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -326,55 +354,61 @@ cudaError_t map_2d(CUtensorMap* map, const T* base, int cols, long long rows, in
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t steps[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(T),
+                                 (cuuint64_t)rows * ld * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
-      const_cast<T*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+      rank, const_cast<T*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T>
 int replay_launch(const T* qc, const int* row0, int n_win, T* y, int ldy, int n, int m, int lwin,
-                  void* stream) {
+                  int batch, void* stream) {
   using S = Shape<T>;
-  if (n < 1 || m < 1 || ldy < m || ldy % 4 != 0 || lwin < 1 || lwin > kP || n_win < 0)
+  if (n < 1 || m < 1 || ldy < m || ldy % 4 != 0 || lwin < 1 || lwin > kP || n_win < 0 ||
+      batch < 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(qc) | reinterpret_cast<uintptr_t>(y)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  if (n_win == 0) return (int)cudaSuccess;
-  // the store: n_win * 128 rows of 128, in 128-byte-wide boxes swizzled by
-  // 128 bytes; y: n rows of m, in boxes of kKC rows by kBN columns
+  if (n_win == 0 || batch == 0) return (int)cudaSuccess;
+  // the store: batch * n_win * 128 rows of 128, in 128-byte-wide boxes
+  // swizzled by 128 bytes; y: batch items of n rows of m, in boxes of kKC
+  // rows by kBN columns of one item
   Maps maps;
-  cudaError_t err = map_2d(&maps.q, qc, kP, (long long)n_win * kP, kP, S::kKC, kP,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = map_tiles(&maps.q, qc, kP, (long long)batch * n_win * kP, kP, 2, 1, S::kKC,
+                              kP, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = map_2d(&maps.y, y, m, n, ldy, kBN, S::kKC, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = map_tiles(&maps.y, y, m, n, ldy, 3, batch, kBN, S::kKC, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return (int)err;
   auto kernel = replay_kernel<T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S::kSmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(m + kBN - 1) / kBN, kThreads, S::kSmem, (cudaStream_t)stream>>>(
+  kernel<<<dim3((m + kBN - 1) / kBN, batch), kThreads, S::kSmem, (cudaStream_t)stream>>>(
       maps, row0, n_win, y, ldy, n, lwin);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// qc: n_win windows of 128 x 128 elements (16-byte aligned); row0: n_win
-// ints on the device, each window's first row of y, in replay order; y: n
-// rows of m elements at row stride ldy (a multiple of 4, 16-byte aligned),
-// updated in place.
+// A batch of problems, item after item: qc: batch * n_win windows of
+// 128 x 128 elements (16-byte aligned), item k's windows k n_win ..
+// (k + 1) n_win - 1; row0: n_win ints on the device, each window's first row
+// of y, in replay order, one table for every item; y: batch items of n rows
+// of m elements at row stride ldy (a multiple of 4, 16-byte aligned), an
+// item every n ldy elements, updated in place.
 extern "C" int apply_q2_f32_launch(const float* qc, const int* row0, int n_win, float* y,
-                                   int ldy, int n, int m, int lwin, void* stream) {
-  return replay_launch<float>(qc, row0, n_win, y, ldy, n, m, lwin, stream);
+                                   int ldy, int n, int m, int lwin, int batch, void* stream) {
+  return replay_launch<float>(qc, row0, n_win, y, ldy, n, m, lwin, batch, stream);
 }
 
 extern "C" int apply_q2_f64_launch(const double* qc, const int* row0, int n_win, double* y,
-                                   int ldy, int n, int m, int lwin, void* stream) {
-  return replay_launch<double>(qc, row0, n_win, y, ldy, n, m, lwin, stream);
+                                   int ldy, int n, int m, int lwin, int batch, void* stream) {
+  return replay_launch<double>(qc, row0, n_win, y, ldy, n, m, lwin, batch, stream);
 }

@@ -20,7 +20,10 @@ With ``cfg.mosaic_kernels`` (the default) the panel, the chase and the
 replay go through their kernel wrappers (K5, K7, K9 on CUDA tensors,
 the plain versions on CPU tensors); without it they take the plain torch
 functions. There is no probe and no fallback: a kernel that cannot take
-its arguments raises. ``mesh`` (row sharding) is not carried.
+its arguments raises. ``mesh`` (row sharding) is not carried. Both routes
+take a leading batch axis (``sygvdx_batched``): on the two-stage route
+each panel, the chase and the Q2 replay are one kernel launch for the
+whole batch.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def _reduction(n, cfg, iscomplex, compute_is_f64):
 def takes_two_stage(n, dtype, cfg):
     """Whether a solve of size n on ``dtype`` operands (mixed mode
     included) reduces by the two-stage route (the kernels K5, K7, K9,
-    which take one problem at a time)."""
+    each one launch for a whole batch) rather than the one-stage one."""
     rdt = dtype.to_real()
     mixed = cfg.compute_dtype == "float32" and rdt == torch.float64
     if cfg.stedc_backend == "xla":
@@ -94,14 +97,14 @@ def takes_two_stage(n, dtype, cfg):
 def _tridiag_reduce(a_p, cfg, two_stage):
     """Reduce symmetric/Hermitian ``a_p`` (padded) to tridiagonal (d, e);
     returns (d, e, back) with ``back(z)`` applying the accumulated
-    orthogonal transform Q to tridiagonal eigenvector columns z."""
+    orthogonal transform Q to tridiagonal eigenvector columns z. A leading
+    axis of ``a_p`` is a batch of problems, reduced together on either
+    route."""
     if two_stage:
-        if a_p.dim() > 2:
-            raise ValueError("the two-stage reduction takes one problem at a time")
         from eigensolver_gpu_torch.ops.sb2st import apply_q2, bulge_chase, dense_to_band
         from eigensolver_gpu_torch.ops.sbrd import apply_q1, sbrd
 
-        npad = a_p.shape[0]
+        npad = a_p.shape[-1]
         ab, vs, ts = sbrd(a_p, band=cfg.band, bucket=512, panel_kernel=cfg.mosaic_kernels)
         band = dense_to_band(ab, cfg.band)
         if cfg.mosaic_kernels:
@@ -148,8 +151,7 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
     """Eigenpairs il..iu (1-based, ascending, LAPACK RANGE='I') of dense
     symmetric/Hermitian ``a``. Returns (w (m,) real, z (n, m)), on the
     device of ``a``. Leading axes of ``a`` are a batch of problems, solved
-    together on the one-stage route (the two-stage route takes one
-    problem at a time: see ``takes_two_stage``)."""
+    together (on the two-stage route the kernels take one batch axis)."""
     n = a.shape[-1]
     if iu is None:
         iu = n

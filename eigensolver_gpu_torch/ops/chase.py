@@ -34,13 +34,13 @@ timesteps through per-slot progress flags; the wrapper hands it those flags
 as a zeroed int32 scratch of ``s_slots`` words, and the launch raises if
 its blocks cannot all be resident at once.
 
-K8 also takes a batch of bands, ``(batch, n, 2b)`` planes (the batched
-two-stage solve of ``zhegvdx_planar_batched``): one launch chases them all,
-its blocks owning (item, slot) pairs, with a flag a pair (``(batch,
-s_slots)`` words), and the outputs gain the leading axis. Each item's
-outputs are the bits of a launch on that item alone. The grid is the pairs,
-capped at the blocks that fit on the card at once (``chase_planar_blocks``
-reports it).
+Both also take a batch of bands, a ``(batch, n, 2b)`` band or pair of
+planes (the batched two-stage solves of ``sygvdx_batched`` and
+``zhegvdx_planar_batched``): one launch chases them all, its blocks owning
+(item, slot) pairs, with a flag a pair (``(batch, s_slots)`` words), and the
+outputs gain the leading axis. Each item's outputs are the bits of a launch
+on that item alone. The grid is the pairs, capped at the blocks that fit on
+the card at once (``chase_blocks`` and ``chase_planar_blocks`` report it).
 """
 
 from __future__ import annotations
@@ -58,11 +58,13 @@ B_MAX = 64  # kMaxB of csrc/chase.cu
 
 
 def bulge_chase_kernel(band, b):
-    """Kernel K7: the whole chase (see the module docstring)."""
+    """Kernel K7: the whole chase (see the module docstring). A leading
+    batch axis of the band is one launch for the whole batch."""
     b = int(b)
-    if band.ndim != 2 or band.shape[1] != 2 * b:
-        raise ValueError(f"band must be (n, 2b={2 * b}), got {tuple(band.shape)}")
-    n = band.shape[0]
+    if band.ndim not in (2, 3) or band.shape[-1] != 2 * b:
+        raise ValueError(f"band must be (n, 2b={2 * b}), with at most one batch axis, got "
+                         f"{tuple(band.shape)}")
+    n = band.shape[-2]
     if n < 3 or not 2 <= b <= B_MAX:
         raise ValueError(f"bulge_chase_kernel needs n >= 3 and 2 <= b <= {B_MAX}; got n={n}, b={b}")
     if band.device.type == "cpu":
@@ -74,22 +76,24 @@ def bulge_chase_kernel(band, b):
     else:
         raise TypeError(f"the chase kernel takes float32 or float64, got {band.dtype}")
     fn = getattr(kernel_guard.load("chase"), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     s_slots, _, t3 = chase_dims(n, b)
     dev = band.device
+    lead = band.shape[:-2]
+    batch = lead[0] if lead else 1
     work = band.clone(memory_format=torch.contiguous_format)  # chased in place
-    vt = torch.zeros((t3, s_slots, b), dtype=band.dtype, device=dev)
-    taut = torch.zeros((t3, s_slots), dtype=band.dtype, device=dev)
-    progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)  # the slots' flags
+    vt = torch.zeros(lead + (t3, s_slots, b), dtype=band.dtype, device=dev)
+    taut = torch.zeros(lead + (t3, s_slots), dtype=band.dtype, device=dev)
+    progress = torch.zeros(lead + (s_slots,), dtype=torch.int32, device=dev)  # the flags
     with trace_range("bulge_chase"), torch.cuda.device(dev):
         status = fn(
-            work.data_ptr(), n, b, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
+            work.data_ptr(), n, b, batch, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "bulge_chase launch")
         bulge_chase_kernel.launches += 1
-    return work[:, 0].clone(), work[: n - 1, 1].clone(), vt, taut
+    return work[..., 0].clone(), work[..., : n - 1, 1].clone(), vt, taut
 
 
 bulge_chase_kernel.launches = 0
@@ -143,14 +147,23 @@ def bulge_chase_planar_kernel(band_r, band_i, b):
 bulge_chase_planar_kernel.launches = 0
 
 
-def chase_planar_blocks(b, pairs, dtype):
-    """The number of blocks G of K8's launch for ``pairs`` (item, slot)
-    pairs at half-width ``b`` in ``dtype`` (the pairs, capped at the blocks
-    that fit on the current card at once); it builds the kernel if needed."""
-    fn = kernel_guard.load("chase_planar").bulge_chase_planar_blocks
+def _grid_blocks(source, entry, b, pairs, dtype):
+    fn = getattr(kernel_guard.load(source), entry)
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
     kernel_guard.check(fn(int(b), int(pairs), int(dtype == torch.float64), ctypes.byref(out)),
-                       "bulge_chase_planar_blocks")
+                       entry)
     return out.value
+
+
+def chase_blocks(b, pairs, dtype):
+    """The number of blocks G of K7's launch for ``pairs`` (item, slot)
+    pairs at half-width ``b`` in ``dtype`` (the pairs, capped at the blocks
+    that fit on the current card at once); it builds the kernel if needed."""
+    return _grid_blocks("chase", "bulge_chase_blocks", b, pairs, dtype)
+
+
+def chase_planar_blocks(b, pairs, dtype):
+    """``chase_blocks`` for K8."""
+    return _grid_blocks("chase_planar", "bulge_chase_planar_blocks", b, pairs, dtype)

@@ -23,6 +23,12 @@ kernel takes float32 and float64. It spreads the panel's active rows over
 the blocks of one thread-block cluster, a row slab each; the launch raises
 if the cluster cannot be co-resident.
 
+``ql_panel`` also takes a batch of panels, a ``(batch, m, b)`` panel that
+may be a column slice of ``(batch, n, n)`` matrices (a batch stride of its
+own, no copy): one launch with a cluster an item (sbrd's panel step of a
+batched solve), the outputs with a leading batch axis, each item's the bits
+of a launch on that item alone.
+
 ``ql_panel_planar`` (kernel K6) is the planar complex twin. It replaces
 ``ql_panel_planar_pallas`` (ql_panel_pallas.py:251; ``pallas_call`` :263,
 ``_ql_panel_planar_kernel`` :129); the CUDA source is
@@ -65,11 +71,15 @@ def ql_panel_plain(p, rows_below):
 
 
 def ql_panel(p, rows_below):
-    """Kernel K5: one fused QL panel with its T (see the module docstring)."""
+    """Kernel K5: one fused QL panel with its T (see the module docstring).
+    A leading batch axis of the panel is one launch for the whole batch, a
+    cluster an item."""
     rows_below = int(rows_below)
-    if p.ndim != 2:
-        raise ValueError(f"ql_panel takes an (m, b) panel, got shape {tuple(p.shape)}")
-    m, b = p.shape
+    if p.ndim not in (2, 3):
+        raise ValueError("ql_panel takes an (m, b) panel, with at most one batch axis, got "
+                         f"shape {tuple(p.shape)}")
+    m, b = p.shape[-2:]
+    lead = p.shape[:-2]
     if not (1 <= b <= B_MAX and 0 <= rows_below <= m - b):
         raise ValueError(
             f"ql_panel needs 1 <= b <= {B_MAX} and 0 <= rows_below <= m - b; "
@@ -83,18 +93,18 @@ def ql_panel(p, rows_below):
         name = "ql_panel_f64_launch"
     else:
         raise TypeError(f"the ql_panel kernel takes float32 or float64, got {p.dtype}")
-    if p.stride(1) != 1 or p.stride(0) < b:
+    if p.stride(-1) != 1 or p.stride(-2) < b:
         raise ValueError("ql_panel: the panel needs unit column stride and row stride >= b")
+    batch = lead[0] if lead else 1
     fn = getattr(kernel_guard.load("ql_panel"), name)
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
-    r_panel = torch.empty((m, b), dtype=p.dtype, device=p.device)
-    v = torch.empty_like(r_panel)
-    tau = torch.empty((b,), dtype=p.dtype, device=p.device)
-    t = torch.empty((b, b), dtype=p.dtype, device=p.device)
+    new = lambda *shape: torch.empty(lead + shape, dtype=p.dtype, device=p.device)
+    r_panel, v, tau, t = new(m, b), new(m, b), new(b), new(b, b)
     with torch.cuda.device(p.device):
         status = fn(
-            p.data_ptr(), p.stride(0), m, b, rows_below,
+            p.data_ptr(), p.stride(-2), p.stride(0) if lead else 0, m, b, rows_below, batch,
             r_panel.data_ptr(), v.data_ptr(), tau.data_ptr(), t.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,
         )

@@ -49,13 +49,14 @@ block): the compact store scattered into identity-filled slots, so an
 invalid slot holds ``Q_r = I``, ``Q_i = 0``. vt, taut and y are
 ``(re, im)`` pairs; the plain version is ``ops/sb2st_planar.apply_q2_planar``.
 
-K10 also takes a batch of problems (the batched two-stage solve of
-``zhegvdx_planar_batched``): vt, taut and y with a leading batch axis, one
-window table for the batch, the store ``(2, batch, n_valid, 128, 128)``
-(about 1.6 GB in fp32 for 64 items at n = 1024) and one launch whose
-blocks each replay one item's 32 columns. ``replay_planar_store`` is that
-launch on a formed store; each item's result is the bits of the launch on
-its windows alone.
+K9 and K10 also take a batch of problems (the batched two-stage solves of
+``sygvdx_batched`` and ``zhegvdx_planar_batched``): vt, taut and y with a
+leading batch axis, one window table for the batch, the store ``(batch,
+n_valid, 128, 128)`` (K10: ``(2, batch, n_valid, 128, 128)``, about 1.6 GB
+in fp32 for 64 items at n = 1024) and one launch whose blocks each replay
+one item's 32 columns. ``replay_store`` and ``replay_planar_store`` are
+those launches on a formed store; each item's result is the bits of the
+launch on its windows alone.
 """
 
 from __future__ import annotations
@@ -119,23 +120,28 @@ def window_store(vt, taut, n, b, g):
     """The window orthogonals of the valid windows only, in replay order:
     ``(store, table)`` with ``table = window_table(n, b, g)`` and store
     (n_valid, 128, 128), store[v] = [[Q, 0], [0, I]] for window v of the
-    table, Q its (l_win, l_win) compact-WY orthogonal. ``_WINDOWS`` windows
-    are formed at a time to bound the temporaries."""
+    table, Q its (l_win, l_win) compact-WY orthogonal. Leading (batch) axes
+    of vt and taut lead the store: (..., n_valid, 128, 128), one table for
+    the batch. About ``_WINDOWS`` windows (of all items) are formed at a
+    time to bound the temporaries."""
     table = window_table(n, b, g)
     geo = table["geo"]
     l_win = geo["l_win"]
     if l_win > P:
         raise ValueError(f"l_win = b + g - 1 = {l_win} exceeds the stored window size {P}")
     dev = vt.device
+    lead = taut.shape[:-2]
     v2f, t2f, _, _ = _padded_pack(vt, taut, b, n, g, geo["n_groups"], geo["kmax"])
     ridx = torch.from_numpy(table["ridx"]).to(dev)
-    store = torch.zeros((ridx.shape[0], P, P), dtype=vt.dtype, device=dev)
+    store = torch.zeros(lead + (ridx.shape[0], P, P), dtype=vt.dtype, device=dev)
     tail = torch.arange(l_win, P, device=dev)
-    store[:, tail, tail] = 1.0
-    for v0 in range(0, ridx.shape[0], _WINDOWS):
-        idx = ridx[v0 : v0 + _WINDOWS]
-        taus = t2f[idx]
-        store[v0 : v0 + _WINDOWS, :l_win, :l_win] = window_q(_staircase(v2f[idx], taus, g, b), taus)
+    store[..., tail, tail] = 1.0
+    step = max(1, _WINDOWS // max(1, math.prod(lead)))
+    for v0 in range(0, ridx.shape[0], step):
+        idx = ridx[v0 : v0 + step]
+        taus = t2f[..., idx]
+        store[..., v0 : v0 + step, :l_win, :l_win] = window_q(
+            _staircase(v2f[..., idx, :], taus, g, b), taus)
     return store, table
 
 
@@ -145,20 +151,25 @@ def window_qs(vt, taut, n, b, g):
     (l_win, l_win) compact-WY orthogonal of window
     (j = c0+u_lo+i, k = par+2(u_lo+i)), or the identity for an invalid slot:
     the compact store of ``window_store`` scattered into an identity-filled
-    layout."""
+    layout. Leading (batch) axes of vt and taut lead qw."""
     store, table = window_store(vt, taut, n, b, g)
     geo = table["geo"]
     dev = store.device
-    qw = torch.zeros((geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype, device=dev)
+    lead = store.shape[:-3]
+    qw = torch.zeros(lead + (geo["n_waves"], geo["n_slots"], P, P), dtype=store.dtype,
+                     device=dev)
     diag = torch.arange(P, device=dev)
-    qw[:, :, diag, diag] = 1.0
-    qw[torch.from_numpy(table["wave"]).to(dev), torch.from_numpy(table["slot"]).to(dev)] = store
+    qw[..., diag, diag] = 1.0
+    wave = torch.from_numpy(table["wave"]).to(dev)
+    slot = torch.from_numpy(table["slot"]).to(dev)
+    qw[..., wave, slot, :, :] = store
     return qw
 
 
 def apply_q2_kernel(vt, taut, y, n, b, g=None):
     """Kernel K9: y <- Q2 y (see the module docstring). ``g`` defaults to
-    3b, as in the Pallas function."""
+    3b, as in the Pallas function. A leading batch axis of the reflectors
+    and of y is one launch for the whole batch."""
     if g is None:
         g = 3 * b
     n, b, g = int(n), int(b), int(g)
@@ -166,12 +177,39 @@ def apply_q2_kernel(vt, taut, y, n, b, g=None):
         raise ValueError(f"l_win = b + g - 1 = {b + g - 1} exceeds the window size {P}")
     if b < 2 or g < 1 or n < 3:
         raise ValueError(f"apply_q2_kernel needs n >= 3, b >= 2, g >= 1; got {n}, {b}, {g}")
-    if y.ndim != 2 or y.shape[0] != n or y.shape[1] < 1:
-        raise ValueError(f"y must be (n={n}, m >= 1), got {tuple(y.shape)}")
+    if y.ndim not in (2, 3) or y.shape[-2] != n or y.shape[-1] < 1:
+        raise ValueError(f"y must be (n={n}, m >= 1), with at most one batch axis, got "
+                         f"{tuple(y.shape)}")
+    lead = y.shape[:-2]
+    if vt.shape[: len(lead)] != lead or vt.ndim != len(lead) + 3 \
+            or taut.shape[: len(lead)] != lead or taut.ndim != len(lead) + 2:
+        raise ValueError("apply_q2_kernel: the reflectors' batch axes differ from y's")
     if y.dtype != vt.dtype or y.device != vt.device:
         raise ValueError("apply_q2_kernel: y and the reflectors differ in dtype or device")
     if y.device.type == "cpu":
         return apply_q2(vt, taut, y, n, b, g=g, tsolve="qform")
+    if y.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the replay kernel takes float32 or float64, got {y.dtype}")
+    with trace_range("apply_q2_qs"):
+        store, table = window_store(vt, taut, n, b, g)
+        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(y.device)
+    return replay_store(store, row0, y, table["geo"]["l_win"])
+
+
+def replay_store(store, row0, y, l_win):
+    """The launch of kernel K9 on a formed window store: y <- Q2 y with the
+    windows of ``store`` ([batch,] n_valid, 128, 128) applied in order at
+    the rows ``row0`` (n_valid int32 on the card, one table for the batch)
+    to y ([batch,] n, m); returns the new y. ``apply_q2_kernel`` is the
+    window pass followed by this."""
+    lead = y.shape[:-2]
+    n, m = y.shape[-2:]
+    if store.shape[: len(lead)] != lead or store.dim() != 3 + len(lead) \
+            or store.shape[-2:] != (P, P) or store.shape[-3] != row0.numel():
+        raise ValueError(f"replay_store: store {tuple(store.shape)} does not fit y "
+                         f"{tuple(y.shape)} and {row0.numel()} windows")
+    if any(x.device.type != "cuda" for x in (store, row0, y)):
+        raise ValueError("replay_store launches kernel K9: its tensors must be on the card")
     if y.dtype == torch.float32:
         name = "apply_q2_f32_launch"
     elif y.dtype == torch.float64:
@@ -180,24 +218,22 @@ def apply_q2_kernel(vt, taut, y, n, b, g=None):
         raise TypeError(f"the replay kernel takes float32 or float64, got {y.dtype}")
     fn = getattr(kernel_guard.load("replay"), name)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = y.device
-    with trace_range("apply_q2_qs"):
-        store, table = window_store(vt, taut, n, b, g)
-        row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
-    m = y.shape[1]
+    store = store.contiguous()
+    batch = lead[0] if lead else 1
     ldy = -(-m // 4) * 4  # 16-byte rows for the kernel's copies
-    out = (torch.empty if ldy == m else torch.zeros)((n, ldy), dtype=y.dtype, device=dev)
-    out[:, :m] = y  # updated in place
+    out = (torch.empty if ldy == m else torch.zeros)(lead + (n, ldy), dtype=y.dtype, device=dev)
+    out[..., :m] = y  # updated in place
     with trace_range("apply_q2"), torch.cuda.device(dev):
         status = fn(
             store.data_ptr(), row0.data_ptr(), row0.numel(), out.data_ptr(), ldy, n, m,
-            table["geo"]["l_win"], torch.cuda.current_stream(dev).cuda_stream,
+            l_win, batch, torch.cuda.current_stream(dev).cuda_stream,
         )
         kernel_guard.check(status, "apply_q2 launch")
         apply_q2_kernel.launches += 1
-    return out if ldy == m else out[:, :m].contiguous()
+    return out if ldy == m else out[..., :m].contiguous()
 
 
 apply_q2_kernel.launches = 0

@@ -23,7 +23,10 @@ Storage contracts, the JAX package's to the letter:
 ``apply_q2(tsolve='qform')`` of kernel K9 (ops/replay.py): they serve CPU
 tensors and ``SolverConfig(mosaic_kernels=False)``. The JAX module builds
 its windows with pad/flatten/reshape tricks because gathers are slow on a
-TPU; here plain index tensors do the same moves.
+TPU; here plain index tensors do the same moves. ``bulge_chase`` and
+``apply_q2`` take leading batch axes (a batch of problems of one size),
+carried through their tensors: one set of ops a timestep or a wave for the
+whole batch.
 """
 
 from __future__ import annotations
@@ -56,20 +59,20 @@ def band_to_dense(band, b):
 
 
 def _larfg_vec(x):
-    """Batched real Householder: zero x[:, 1:], pivot x[:, 0].
+    """Batched real Householder: zero x[..., 1:], pivot x[..., 0].
 
-    Returns (v, tau, beta) with v[:, 0] = 1 (or 0 for trivial columns),
+    Returns (v, tau, beta) with v[..., 0] = 1 (or 0 for trivial columns),
     H = I - tau v v^T, H x = beta e1. LAPACK dlarfg conventions,
     branch-free."""
-    alpha = x[:, 0]
-    xnormsq = torch.sum(x[:, 1:] * x[:, 1:], dim=1)
+    alpha = x[..., 0]
+    xnormsq = torch.sum(x[..., 1:] * x[..., 1:], dim=-1)
     norm = torch.sqrt(alpha * alpha + xnormsq)
     beta = torch.where(alpha >= 0, -norm, norm)
     trivial = xnormsq == 0
     one, zero = torch.ones_like(alpha), torch.zeros_like(alpha)
     tau = torch.where(trivial, zero, (beta - alpha) / torch.where(trivial, one, beta))
-    v = x / torch.where(trivial, one, alpha - beta)[:, None]
-    v[:, 0] = torch.where(trivial, zero, one)
+    v = x / torch.where(trivial, one, alpha - beta)[..., None]
+    v[..., 0] = torch.where(trivial, zero, one)
     return v, tau, torch.where(trivial, alpha, beta)
 
 
@@ -85,21 +88,28 @@ def bulge_chase(band, b):
     """Chase a symmetric band matrix (lower storage, 2b diagonals, see
     dense_to_band) to tridiagonal. Returns (d, e, vt, taut): the
     tridiagonal, plus the chase reflectors in timestep storage for
-    apply_q2. Requires n >= 3 and b >= 2."""
-    n = band.shape[0]
+    apply_q2. Requires n >= 3 and b >= 2.
+
+    Leading axes of the band are a batch of bands, carried through every
+    tensor of the chase: each timestep is one set of ops for every item, and
+    the outputs gain the leading axes (d (..., n), e (..., n - 1), vt (...,
+    t3, s_slots, b), taut (..., t3, s_slots))."""
+    n = band.shape[-2]
+    lead = band.shape[:-2]
     dtype, dev = band.dtype, band.device
     w = 2 * b
-    if band.shape[1] != w:
-        raise ValueError(f"band must have 2b={w} diagonals, got {band.shape[1]}")
+    if band.dim() < 2 or band.shape[-1] != w:
+        raise ValueError(f"band must be (..., n, 2b={w}), got {tuple(band.shape)}")
     s_slots, t_total, t3 = chase_dims(n, b)
     stride = 3 * b - 1
 
     # padded band: front pad 2b, back pad covers the largest strip read
     pad_f = 2 * b
-    band_p = torch.zeros((n + pad_f + 2 * b + s_slots * stride + w, w), dtype=dtype, device=dev)
-    band_p[pad_f : pad_f + n] = band
-    vt = torch.zeros((t3, s_slots, b), dtype=dtype, device=dev)
-    taut = torch.zeros((t3, s_slots), dtype=dtype, device=dev)
+    band_p = torch.zeros(lead + (n + pad_f + 2 * b + s_slots * stride + w, w), dtype=dtype,
+                         device=dev)
+    band_p[..., pad_f : pad_f + n, :] = band
+    vt = torch.zeros(lead + (t3, s_slots, b), dtype=dtype, device=dev)
+    taut = torch.zeros(lead + (t3, s_slots), dtype=dtype, device=dev)
 
     svec = torch.arange(s_slots, device=dev)
     # strip rows of slot s, relative to the timestep's start row
@@ -124,33 +134,33 @@ def bulge_chase(band, b):
             active = (v_s >= 0) & (v_s <= n - 3) & (r0_s <= n - 2)
 
             rows = (vmax + 1 + k0 * b - b + pad_f) + rel_rows  # (S, 2b)
-            strip = band_p[rows]  # (S, 2b, 2b)
+            strip = band_p[..., rows, :]  # (..., S, 2b, 2b)
             zero = torch.zeros((), dtype=dtype, device=dev)
-            wlow = torch.where(in_band, strip[:, q_i, d_i], zero)
+            wlow = torch.where(in_band, strip[..., q_i, d_i], zero)
             # dense symmetric 3b x 3b windows (the [2b:, 2b:] corner unused)
-            wd = torch.zeros((s_slots, 3 * b, 3 * b), dtype=dtype, device=dev)
-            wd[:, :, :w] = wlow
-            wd = wd + wd.transpose(1, 2) - torch.diag_embed(torch.diagonal(wd, dim1=1, dim2=2))
+            wd = torch.zeros(lead + (s_slots, 3 * b, 3 * b), dtype=dtype, device=dev)
+            wd[..., :, :w] = wlow
+            wd = wd + wd.mT - torch.diag_embed(torch.diagonal(wd, dim1=-2, dim2=-1))
 
             # reflector source: rows [r0, r0+b) of column r0-1 (sweep start,
             # k == 0) or r0-b (in-chase); window rows [b, 2b)
-            x = torch.where((k_s == 0)[:, None], wd[:, b:w, b - 1], wd[:, b:w, 0])
+            x = torch.where((k_s == 0)[:, None], wd[..., b:w, b - 1], wd[..., b:w, 0])
             v, tau, _ = _larfg_vec(x)
             tau = torch.where(active, tau, torch.zeros_like(tau))
 
             # H A H on the window, H = I - tau v v^T on rows/cols [b, 2b)
-            rws = wd[:, b:w, :]
-            vtr = torch.einsum("sp,spq->sq", v, rws)
-            wd[:, b:w, :] = rws - tau[:, None, None] * v[:, :, None] * vtr[:, None, :]
-            cols = wd[:, :, b:w]
-            cv = torch.einsum("spq,sq->sp", cols, v)
-            wd[:, :, b:w] = cols - tau[:, None, None] * cv[:, :, None] * v[:, None, :]
+            rws = wd[..., b:w, :]
+            vtr = torch.einsum("...sp,...spq->...sq", v, rws)
+            wd[..., b:w, :] = rws - tau[..., None, None] * v[..., :, None] * vtr[..., None, :]
+            cols = wd[..., :, b:w]
+            cv = torch.einsum("...spq,...sq->...sp", cols, v)
+            wd[..., :, b:w] = cols - tau[..., None, None] * cv[..., :, None] * v[..., None, :]
 
-            band_p[rows] = torch.where(in_win, wd[:, pq, qq], strip)
-            vt[t] = v
-            taut[t] = tau
-    out = band_p[pad_f : pad_f + n]
-    return out[:, 0].clone(), out[: n - 1, 1].clone(), vt, taut
+            band_p[..., rows, :] = torch.where(in_win, wd[..., pq, qq], strip)
+            vt[..., t, :, :] = v
+            taut[..., t, :] = tau
+    out = band_p[..., pad_f : pad_f + n, :]
+    return out[..., 0].clone(), out[..., : n - 1, 1].clone(), vt, taut
 
 
 def repack_sweep_major(vt, taut, b, n):
@@ -306,7 +316,10 @@ def apply_q2(vt, taut, y, n, b, g=None, tsolve="qform"):
 
     tsolve: 'qform' applies each window as one (l_win x l_win) product
     with its explicit orthogonal; 'inv' and 'solve' apply the WY factors
-    with the inverted, respectively solved, T^-1."""
+    with the inverted, respectively solved, T^-1.
+
+    Leading axes of the reflectors and of y are a batch of problems,
+    replayed together wave by wave."""
     if g is None:
         g = b
     if tsolve not in ("qform", "inv", "solve"):
@@ -315,24 +328,25 @@ def apply_q2(vt, taut, y, n, b, g=None, tsolve="qform"):
     with trace_range("apply_q2_repack"):
         v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
     fy = plan["fy"]
-    y_p = torch.zeros((plan["rows_p"], y.shape[1]), dtype=y.dtype, device=y.device)
-    y_p[fy : fy + n] = y
+    y_p = torch.zeros(y.shape[:-2] + (plan["rows_p"], y.shape[-1]), dtype=y.dtype,
+                      device=y.device)
+    y_p[..., fy : fy + n, :] = y
 
     with trace_range("apply_q2"):
         ridx_all, rows_all = _wave_indices(plan, n, b, g, nvp, kp, y.device)
         for ridx, rows in zip(ridx_all, rows_all):
-            taus = t2f[ridx]
-            vw = _staircase(v2f[ridx], taus, g, b)  # (n_slots, l_win, g)
-            yw = y_p[rows]  # (n_slots, l_win, m)
+            taus = t2f[..., ridx]
+            vw = _staircase(v2f[..., ridx, :], taus, g, b)  # (..., n_slots, l_win, g)
+            yw = y_p[..., rows, :]  # (..., n_slots, l_win, m)
             if tsolve == "qform":
                 yw = window_q(vw, taus) @ yw
             else:
                 tinv = _tinv(vw, taus)
-                u_m = vw.transpose(1, 2) @ yw
+                u_m = vw.mT @ yw
                 if tsolve == "inv":
                     x = _triu_inv(tinv) @ u_m
                 else:
                     x = torch.linalg.solve_triangular(tinv, u_m, upper=True)
                 yw = yw - vw @ x
-            y_p[rows] = yw
-    return y_p[fy : fy + n].clone()
+            y_p[..., rows, :] = yw
+    return y_p[..., fy : fy + n, :].clone()

@@ -4,19 +4,20 @@ eigensolver_gpu_tpu/parallel/sharded.py).
 ``sygvdx_batched`` is the JAX package's ``vmap`` of ``sygvdx`` over a
 leading batch axis (BASELINE.md config 4, Quantum ESPRESSO k-points),
 for real and complex dtypes. The batch axis runs through every stage of
-the one-stage pipeline (Cholesky, reduction to standard form, sytrd,
-stedc, unmtr, phase-4 solve, refinement), so each column step of the
-reduction serves the whole batch. The configurations whose kernels take
-one problem at a time (``use_pallas=True``: K4; the two-stage reduction
-where it engages: K5, K7, K9) solve each item in turn with ``sygvdx``.
-The mesh-sharded solves are not ported yet.
+the pipeline (Cholesky, reduction to standard form, sytrd or the
+two-stage reduction, stedc, the back-transforms, phase-4 solve,
+refinement), so each column step of the reduction serves the whole batch;
+where the two-stage reduction engages, each sbrd panel, the chase and the
+Q2 replay are one launch of K5, K7 and K9 for the batch. Only
+``use_pallas=True``, whose kernel K4 takes one problem at a time, solves
+each item in turn with ``sygvdx``. The mesh-sharded solves are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eigensolver_gpu_torch.models.syevdx import takes_two_stage
 from eigensolver_gpu_torch.models.sygvdx import SygvdxResult, _sygvdx, sygvdx
 from eigensolver_gpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
 from eigensolver_gpu_torch.utils.precision import highest_precision
@@ -35,7 +36,7 @@ def sygvdx_batched(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             f"sygvdx_batched takes (batch, n, n) pairs of one shape, got "
             f"{tuple(a.shape)}, {tuple(b.shape)}"
         )
-    if cfg.use_pallas or takes_two_stage(a.shape[-1], a.dtype, cfg):
+    if cfg.use_pallas:
         items = [sygvdx(a[k], b[k], il=il, iu=iu, cfg=cfg) for k in range(a.shape[0])]
         return SygvdxResult(*(torch.stack(f) for f in zip(*items)))
     return _sygvdx(a, b, il, iu, cfg)

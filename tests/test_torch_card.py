@@ -402,9 +402,9 @@ def test_chase_kernel_with_more_slots_than_sms(cuda_device, dtype):
     so narrow a band are ill-conditioned functions of it (a perturbation of
     the band in its last bits moves the plain chase's own by about 1e-6 in
     fp64, whole arrays, and by 1e-2 and more in fp32, already on its first
-    sweeps; chip_smoke.py logs both beside the kernel's), so, as
-    chip_smoke.py holds it: fp64 d and e whole and the reflectors on the
-    first 64 sweeps (1e-7); fp32 d and |e| on the first 64 sweeps (1e-3);
+    sweeps; both measured on the card), so, as chip_smoke.py holds the
+    fp64 instance: fp64 d and e whole and the reflectors on the first 64
+    sweeps (1e-7); fp32 d and |e| on the first 64 sweeps (1e-3);
     and the whole output through what it must satisfy, the spectrum of
     (d, e) and Q2 T Q2^T = A (Q2 the plain replay of the kernel's
     reflectors), both to 1e-4 relative. Two calls bit-identical."""
@@ -839,3 +839,152 @@ def test_trinv_matches_blockinv_on_the_card(cuda_device):
     (w0, z0), (w1, z1) = out["blockinv"], out["trinv"]
     assert np.abs(w1 - w0).max() < 1e-12 * np.abs(w0).max()
     assert compare_vectors(z1, z0) < 1e-8
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_ql_panel_kernel_batched(cuda_device):
+    """K5 on a batch of 5 panels in one launch (profiler; a cluster an
+    item), the panels column slices of (5, 1100, 64) matrices (a batch
+    stride and a row stride of their own), m = 1100, b = 16, rb = 1000: five
+    blocks an item, so the slabs cross blocks. Each item's four outputs are
+    bit-identical to the unbatched launch on that item, and within 1e-4
+    relative of the plain version."""
+    batch, m, b, rb = 5, 1100, 16, 1000
+    rng = np.random.default_rng(51)
+    wide = torch.tensor(rng.standard_normal((batch, m, 64)), dtype=torch.float32,
+                        device=cuda_device)
+    p = wide[:, :, 7 : 7 + b]
+    assert p.stride() == (m * 64, 64, 1)
+    before = ql_panel.launches
+    got, launched, calls = _device_launches(lambda: ql_panel(p, rb), "ql_panel_kernel")
+    assert ql_panel.launches == before + calls and launched == 1
+    want = ql_panel_plain(p, rb)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.shape[0] == batch
+        assert _rel(x, y) <= 1e-4
+    for k in range(batch):
+        one = ql_panel(p[k], rb)
+        assert all(torch.equal(x[k], y) for x, y in zip(got, one))
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_chase_kernel_batched(cuda_device):
+    """K7 on a batch of 64 bands at n = 1024, b = 32, fp32 in one launch
+    (profiler): 704 (item, slot) pairs, more than the blocks that fit on the
+    card at once, so blocks own several pairs. Each item's d, e, reflectors
+    and taus are bit-identical to the unbatched launch on that item."""
+    from eigensolver_gpu_torch.ops.chase import chase_blocks
+    from eigensolver_gpu_torch.ops.sb2st import chase_dims
+
+    batch, n, b = 64, 1024, 32
+    band = torch.stack([_band(n, b, torch.float32, cuda_device, 70 + k)[1]
+                        for k in range(batch)])
+    pairs = batch * chase_dims(n, b)[0]
+    assert pairs == 704 and chase_blocks(b, pairs, torch.float32) < pairs
+    before = bulge_chase_kernel.launches
+    got, launched, calls = _device_launches(lambda: bulge_chase_kernel(band, b), "chase_kernel")
+    assert bulge_chase_kernel.launches == before + calls and launched == 1
+    for k in range(batch):
+        one = bulge_chase_kernel(band[k], b)
+        assert all(x.shape[0] == batch and torch.equal(x[k], y) for x, y in zip(got, one))
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_replay_kernel_batched(cuda_device):
+    """K9 on a batch of 3 problems in one launch (profiler), n = 300,
+    b = 8, g = 24, m = 70, fp32: within 1e-4 relative of the plain version;
+    and on the batch's window store, each item's result is bit-identical to
+    the launch on that item's windows alone (the zero fill past row n stays
+    inside the item)."""
+    from eigensolver_gpu_torch.ops.replay import replay_store, window_store
+
+    batch, n, b, g, m = 3, 300, 8, 24, 70
+    band = torch.stack([_band(n, b, torch.float32, cuda_device, 90 + k)[1]
+                        for k in range(batch)])
+    _, _, vt, taut = bulge_chase_kernel(band, b)
+    y = torch.tensor(np.random.default_rng(92).standard_normal((batch, n, m)),
+                     dtype=torch.float32, device=cuda_device)
+    before = apply_q2_kernel.launches
+    got, launched, calls = _device_launches(lambda: apply_q2_kernel(vt, taut, y, n, b, g=g),
+                                            "replay_kernel")
+    assert apply_q2_kernel.launches == before + calls and launched == 1
+    want = apply_q2(vt, taut, y, n, b, g=g)
+    assert got.shape == want.shape == (batch, n, m)
+    assert _rel(got, want) <= 1e-4 and _rel(want, y) > 0.1
+    store, table = window_store(vt, taut, n, b, g)
+    row0 = torch.tensor(table["row0"], dtype=torch.int32, device=cuda_device)
+    l_win = table["geo"]["l_win"]
+    got = replay_store(store, row0, y, l_win)
+    for k in range(batch):
+        assert torch.equal(got[k], replay_store(store[k], row0, y[k], l_win))
+
+
+@pytest.mark.cuda
+@_fresh_process_on_drop
+def test_batched_real_two_stage_solve_launches_each_kernel_once_a_panel(cuda_device):
+    """sygvdx_batched with tridiag_mode='two' on 4 x n = 512 real pairs,
+    iu = 16, fp64: one batched solve, K5 15 launches (one a panel for the
+    batch), K7 1 and K9 1 by the wrappers and the profiler; each item
+    within 1e-12 n of its unbatched two-stage solve, info 0, ge_residual at
+    the fp64 contract."""
+    from eigensolver_gpu_torch import SolverConfig, sygvdx, sygvdx_batched
+    from eigensolver_gpu_torch.utils.testing import ge_residual, random_spd_pair
+
+    batch, n, iu = 4, 512, 16
+    pairs = [random_spd_pair(n, seed=20 + k) for k in range(batch)]
+    a = torch.tensor(np.stack([p[0] for p in pairs]), device=cuda_device)
+    b = torch.tensor(np.stack([p[1] for p in pairs]), device=cuda_device)
+    cfg = SolverConfig(tridiag_mode="two")
+    sygvdx_batched(a, b, il=1, iu=iu, cfg=cfg)  # builds the kernels
+    before = (ql_panel.launches, bulge_chase_kernel.launches, apply_q2_kernel.launches)
+    res, launched, calls = _device_launches(lambda: sygvdx_batched(a, b, il=1, iu=iu, cfg=cfg),
+                                            "chase_kernel")
+    assert launched == 1
+    assert (ql_panel.launches, bulge_chase_kernel.launches, apply_q2_kernel.launches) == (
+        before[0] + 15 * calls, before[1] + calls, before[2] + calls)
+    assert res.info.tolist() == [0] * batch
+    for k in range(batch):
+        one = sygvdx(a[k], b[k], il=1, iu=iu, cfg=cfg)
+        assert (res.w[k] - one.w).abs().max() < 1e-12 * n
+        w, z = res.w[k].cpu().numpy(), res.z[k].cpu().numpy()
+        assert ge_residual(pairs[k][0], pairs[k][1], w, z) < 1e-12
+
+
+@pytest.mark.cuda
+def test_embedded_solve_on_the_card(cuda_device):
+    """zhegvdx_via_embedding at n = 256, iu = 32, fp64 against
+    scipy.linalg.eigh on the card (eigenvalues within 1e-10 n, ge_residual <
+    1e-12), and the batched embedded solve of 2 items with
+    two_stage_min_n = 256 (one batched real two-stage solve, K7 once) against
+    the unbatched one of each item."""
+    import scipy.linalg
+
+    from eigensolver_gpu_torch import SolverConfig
+    from eigensolver_gpu_torch.ops.complex_embed import (
+        zhegvdx_embedded,
+        zhegvdx_embedded_batched,
+        zhegvdx_via_embedding,
+    )
+    from eigensolver_gpu_torch.utils.testing import ge_residual, random_hpd_pair
+
+    n, iu = 256, 32
+    a, b = random_hpd_pair(n, seed=11)
+    res = zhegvdx_via_embedding(a, b, il=1, iu=iu)
+    assert res.zr.device.type == "cuda" and int(res.info) == 0
+    w, z = res.w.cpu().numpy(), res.zr.cpu().numpy() + 1j * res.zi.cpu().numpy()
+    w_ref = scipy.linalg.eigh(a, b, eigvals_only=True)[:iu]
+    assert np.abs(w - w_ref).max() < 1e-10 * n and ge_residual(a, b, w, z) < 1e-12
+    pairs = [random_hpd_pair(128, seed=12 + k) for k in range(2)]
+    t = lambda x: torch.tensor(np.stack(x), device=cuda_device)
+    args = (t([p[0].real for p in pairs]), t([p[0].imag for p in pairs]),
+            t([p[1].real for p in pairs]), t([p[1].imag for p in pairs]))
+    cfg = SolverConfig(two_stage_min_n=256)
+    before = bulge_chase_kernel.launches
+    res = zhegvdx_embedded_batched(*args, il=1, iu=16, cfg=cfg)
+    assert bulge_chase_kernel.launches == before + 1 and res.info.tolist() == [0, 0]
+    for k in range(2):
+        one = zhegvdx_embedded(*(x[k] for x in args), il=1, iu=16, cfg=cfg)
+        assert (res.w[k] - one.w).abs().max() < 1e-12 * 128

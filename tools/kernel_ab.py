@@ -218,13 +218,13 @@ def k9(parent_dir, parent_lib, new_lib, dev):
 
     fn = new_lib.apply_q2_f32_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def new():
         y.copy_(y0)
         kernel_guard.check(fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(),
-                              m, n, m, l_win, stream), "K9")
+                              m, n, m, l_win, 1, stream), "K9")
         return y
 
     want = parent().clone()
@@ -263,13 +263,13 @@ def k9_repeat(lib, dev, calls=20):
         row0 = torch.from_numpy(table["row0"].astype(np.int32)).to(dev)
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         outs = []
         for _ in range(calls):
             y = torch.tensor(y0, dtype=dtype, device=dev)
             kernel_guard.check(fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(),
-                                  m, n, m, table["geo"]["l_win"],
+                                  m, n, m, table["geo"]["l_win"], 1,
                                   torch.cuda.current_stream().cuda_stream), "K9")
             outs.append(y)
         torch.cuda.synchronize()

@@ -192,13 +192,14 @@ def main():
 
     lib, lines, to_source = build("ql_panel", "const int tid = threadIdx.x;")
     fn = lib.ql_panel_f32_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     p = planes[0, :, m - 64 : m - 32]
     outs = (new(m, b), new(m, b), new(b), new(b, b))
     for _ in range(2):
         lib.marks_reset()
-        status = fn(p.data_ptr(), p.stride(0), m, b, rb, *(x.data_ptr() for x in outs),
+        status = fn(p.data_ptr(), p.stride(0), 0, m, b, rb, 1, *(x.data_ptr() for x in outs),
                     torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented ql_panel launch")
         torch.cuda.synchronize()
@@ -234,9 +235,9 @@ def main():
 
     lib, lines, to_source = build(
         "chase", "T* smem = reinterpret_cast<T*>(smem_raw);",
-        "if (threadIdx.x == 0) publish(progress + s, t + 1);")
+        "if (threadIdx.x == 0) publish(progress + p, t + 1);")
     fn = lib.bulge_chase_f32_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     band = band[0].clone()  # the real part: a symmetric band
     for _ in range(2):
@@ -245,7 +246,7 @@ def main():
         taut = torch.zeros((t3, s_slots), device=dev)
         progress = torch.zeros((s_slots,), dtype=torch.int32, device=dev)
         lib.marks_reset()
-        status = fn(work.data_ptr(), n, b, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
+        status = fn(work.data_ptr(), n, b, 1, vt.data_ptr(), taut.data_ptr(), progress.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented chase launch")
         torch.cuda.synchronize()
@@ -295,7 +296,7 @@ def main():
                 "r_after = v + 2 < n_win ? row0[v + 2] : 0;")
     producer = ("if (w > 0) mbar_wait(sig, (w - 1) & 1);",
                 "if (use > 0) mbar_wait(empty + st, (use - 1) & 1);",
-                "tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, full + st);")
+                "tma_load(stage + S::kQ, &maps.y, col0, r_cur + c * S::kKC, item, full + st);")
     for thread, after, who in (("0", consumer, "consumer thread 0"),
                                ("kConsumers", producer, "the producer thread")):
         lib, lines, to_source = build(
@@ -303,12 +304,12 @@ def main():
             thread=thread)
         fn = lib.apply_q2_f32_launch
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for _ in range(2):
             lib.marks_reset()
             status = fn(store.data_ptr(), row0.data_ptr(), row0.numel(), y.data_ptr(), m, n, m,
-                        table["geo"]["l_win"], torch.cuda.current_stream().cuda_stream)
+                        table["geo"]["l_win"], 1, torch.cuda.current_stream().cuda_stream)
             kernel_guard.check(status, "instrumented replay launch")
             torch.cuda.synchronize()
         report(lib, lines, to_source,
