@@ -114,6 +114,31 @@ non-zero without printing a result:
                 the complex pairs, launches, wall ms, stage ms (the
                 extraction on its own line), busy ms, peak memory.
 
+ 17. sharded (tp, one rank) -- sygvdx_sharded over make_mesh(1), a world of
+                one NCCL rank (the group's process, a fresh TCP store), at full
+                width: BASELINE config 5, random_spd_pair(16384, seed=0) (its
+                draws, products formed on the card), iu=2048, mp, two-stage:
+                info, residual, wall ms of one solve with synchronizing ranges
+                (no warm-up), stage ms, peak memory, launches (K5 511, K7 1, K9
+                1; counters zeroed just before, read just after) and the
+                collectives by name and stage; then config 2 (n=4096, iu=512)
+                sharded beside the unsharded dsygvdx (eigenvalues within 1e-12
+                relative), its eigenvalues kept for phase 18.
+ 18. sharded (two ranks) -- two ranks sharing the card: what NCCL does with
+                two ranks on one device (expected: it refuses, "Duplicate GPU
+                detected"), then a gloo world of two spawned ranks whose
+                collectives parallel/comm.py stages through host buffers:
+                sygvdx_sharded n=4096 iu=512 mp two-stage over make_mesh(2)
+                (within 1e-12 of phase 17's one-rank solve),
+                zhegvdx_planar_batched_sharded on phase 14's 64 x
+                random_hpd_pair(1024) (iu=128, mp, two-stage) and
+                sygvdx_batched_sharded on phase 15's real batch (iu=64) over
+                make_mesh(2, dp=2), 32 items a rank (launches counted on each
+                rank: K1 8, K6 31, K8 1, K10 1; K5 31, K7 1, K9 1): info,
+                residual over every item, items 0 and 63 against their
+                unbatched solves, wall ms of two processes time-sharing one
+                card through host-staged collectives (no scaling figure).
+
 Phase 7 also holds zhegvdx_via_embedding (n=1024, iu=256, fp64) against
 scipy.linalg.eigh, and on an exactly degenerate spectrum (96- and 64-fold
 clusters, iu=512) for B-orthonormality and rank. Phase 3 also runs K5, K7
@@ -123,7 +148,7 @@ and K5 3 x (1100, 16) rb=1000 fp64, K7 2 x n=2400 b=6 fp64 (268 pairs),
 K9 3 x n=1000 m=1 fp64, each item bit-identical to its unbatched launch
 (K9 on one window store), one kernel a call.
 
-Phases 1 and 2 run in this process; the checks and phases 3 to 16 run in
+Phases 1 and 2 run in this process; the checks and phases 3 to 18 run in
 groups (GROUPS), each in a child process of its own, one after the other;
 each group's process is started (it imports) while the group before it
 runs, and touches the card only when its turn comes. The run has 1200 s,
@@ -2430,13 +2455,15 @@ _HOST_PAIRS = {}  # (fixture name, n, seed) -> the pair, made once in this proce
 
 
 def _pair(make, n, seed):
-    """utils.testing's fixture ``make`` (its name) at (n, seed), made once
-    in this process (see _prepare)."""
+    """utils.testing's fixture ``make`` (its name; "draws": the normal draws
+    of random_spd_pair, _spd_draws) at (n, seed), made once in this process
+    (see _prepare)."""
     import eigensolver_gpu_torch.utils.testing as fixtures
 
     key = (make, n, seed)
     if key not in _HOST_PAIRS:
-        _HOST_PAIRS[key] = getattr(fixtures, make)(n, seed=seed)
+        fixture = _spd_draws if make == "draws" else getattr(fixtures, make)
+        _HOST_PAIRS[key] = fixture(n, seed=seed)
     return _HOST_PAIRS[key]
 
 
@@ -3072,6 +3099,353 @@ def phase_reference_real(torch):
             raise RuntimeError(f"real reference comparison failed (tridiag_mode={mode})")
 
 
+N_TP, IU_TP = 16384, 2048  # BASELINE config 5: the tensor-parallel cell
+SHARED_W = "tp_one_rank_w4096.npy"  # phase 17's n = 4096 eigenvalues, read by phase 18
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spd_draws(n, seed):
+    """The two normal draws of random_spd_pair(n, seed) (numpy's generator,
+    the same stream), on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, n)), rng.standard_normal((n, n))
+
+
+def _spd_on_card(torch, n, seed, draws=None):
+    """random_spd_pair(n, seed) with its products formed on the card in fp64
+    (the same draws; B's rounding may differ from the host's product in the
+    last bit): a, b on the card."""
+    t, t2 = draws if draws is not None else _spd_draws(n, seed)
+    t = torch.from_numpy(t).cuda()
+    a = (t + t.T) / 2
+    del t
+    t2 = torch.from_numpy(t2).cuda()
+    b = t2 @ t2.T / n + torch.eye(n, dtype=torch.float64, device="cuda")
+    return a, b
+
+
+def _draw_batch(make, n, batch):
+    """The normal draws of ``batch`` pairs of utils.testing's fixture ``make``
+    at seeds 0 .. batch-1, drawn on the host's cores at once."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(k):
+        rng = np.random.default_rng(k)
+        if make == "random_spd_pair":
+            return rng.standard_normal((n, n)), rng.standard_normal((n, n))
+        t = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+        return t, rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+
+    with ThreadPoolExecutor(4) as pool:
+        return list(pool.map(one, range(batch)))
+
+
+def _batch_on_card(torch, make, n, batch):
+    """``batch`` pairs of ``make`` (random_spd_pair or random_hpd_pair) at
+    seeds 0 .. batch-1 with their products formed on the card: (a, b) real,
+    or the four fp64 planes (ar, ai, br, bi) of the complex pairs."""
+    import numpy as np
+
+    draws = _draw_batch(make, n, batch)
+    t = torch.from_numpy(np.stack([d[0] for d in draws])).cuda()
+    a = (t + t.mH) / 2
+    t = torch.from_numpy(np.stack([d[1] for d in draws])).cuda()
+    del draws
+    b = t @ t.mH / n + torch.eye(n, dtype=t.dtype, device="cuda")
+    del t
+    if make == "random_spd_pair":
+        return a, b
+    return tuple(x.contiguous() for x in (a.real, a.imag, b.real, b.imag))
+
+
+def _real_check(torch, res, a, b, n, iu, what):
+    """info 0, finite outputs of the right shapes and dtype, residual <= 1e-13;
+    returns the residual."""
+    resid = _real_residual(torch, a, b, res)
+    finite = bool(torch.isfinite(res.w).all() and torch.isfinite(res.z).all())
+    shapes = (tuple(res.w.shape), tuple(res.z.shape), res.w.dtype, res.info.dtype)
+    if int(res.info) != 0 or not finite or not resid <= 1e-13:
+        raise RuntimeError(f"{what} wrong: info={int(res.info)} finite={finite} residual={resid}")
+    if shapes != ((iu,), (n, iu), torch.float64, torch.int32):
+        raise RuntimeError(f"{what} shapes and dtypes {shapes}")
+    return resid
+
+
+def phase_sharded_tp(torch):
+    """Phase 17: sygvdx_sharded over make_mesh(1), a world of one NCCL rank
+    (this process, a fresh TCP store), at full width: BASELINE config 5,
+    random_spd_pair(16384, seed=0) (products formed on the card), il=1,
+    iu=2048, mp, tridiag_mode='two'. One solve with synchronizing ranges:
+    info, residual, wall ms, stage ms, peak memory, the launches of K5, K7,
+    K9 (counters zeroed just before it, read just after) and the
+    collectives by name and stage. Then config 2 (n=4096, iu=512, mp,
+    two-stage) sharded beside the unsharded dsygvdx: eigenvalues within
+    1e-12 relative; its eigenvalues are kept for phase 18."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eigensolver_gpu_torch import SolverConfig, dsygvdx
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel
+    from eigensolver_gpu_torch.parallel import comm, make_mesh, sygvdx_sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        cfg = SolverConfig(compute_dtype="float32", tridiag_mode="two")
+        n, iu = N_TP, IU_TP
+        t0 = time.perf_counter()
+        a, b = _spd_on_card(torch, n, 0, _pair("draws", n, 0))
+        log(f"sharded (tp, one rank): random_spd_pair({n}, seed=0) on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        wrappers = (ql_panel, bulge_chase_kernel, apply_q2_kernel)
+        for fn in wrappers:
+            fn.launches = 0
+        comm.reset()
+        torch.cuda.reset_peak_memory_stats()
+        res, stages, ms = _synced(torch, lambda: sygvdx_sharded(a, b, mesh, il=1, iu=iu, cfg=cfg))
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        calls, by_stage = dict(comm.calls), dict(comm.stages)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resid5 = _real_check(torch, res, a, b, n, iu, "sharded tp config 5")
+        log(f"sharded (tp, one rank): sygvdx_sharded n={n} iu={iu} mp two-stage make_mesh(1) "
+            f"(NCCL): info=0 residual={resid5:.3e} wall {ms:.1f} ms (one solve, synchronizing "
+            f"ranges, no warm-up) launches K5={counts['ql_panel']} "
+            f"K7={counts['bulge_chase_kernel']} K9={counts['apply_q2_kernel']} peak memory "
+            f"{peak:.2f} GiB")
+        log("  stages (ms, synchronized): " + " ".join(f"{k}={v:.1f}" for k, v in stages.items()))
+        log(f"  collectives by name {calls}, by stage {by_stage}")
+        want = {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}
+        if counts != want:
+            raise RuntimeError(f"launch counts {counts}, want {want}")
+        del a, b, res
+        torch.cuda.empty_cache()
+
+        n, iu = N_REAL, IU_REAL
+        a, b = _spd_on_card(torch, n, 0, _pair("draws", n, 0))
+        sh, sh_ms = _timed_once(torch, lambda: sygvdx_sharded(a, b, mesh, il=1, iu=iu, cfg=cfg))
+        un, un_ms = _timed_once(torch, lambda: dsygvdx(a, b, il=1, iu=iu, cfg=cfg))
+        resid = _real_check(torch, sh, a, b, n, iu, "sharded tp config 2")
+        werr = float((sh.w - un.w).abs().max() / un.w.abs().max())
+        log(f"sharded (tp, one rank): n={n} iu={iu} mp two-stage: info=0 residual={resid:.3e}, "
+            f"{sh_ms:.1f} ms (first call) beside the unsharded dsygvdx {un_ms:.1f} ms; "
+            f"eigenvalues {werr:.2e} relative from it")
+        if not werr <= 1e-12:
+            raise RuntimeError(f"sharded n={n} eigenvalues {werr:.3e} from the unsharded solve")
+        np.save(os.path.join(os.environ["CHIP_SMOKE_TMP"], SHARED_W), sh.w.cpu().numpy())
+        return {"tp": {"launches": want, "ms": ms, "residual": resid5, "peak_gib": peak,
+                       "collectives": calls}}
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_probe_rank(rank, port):
+    """One rank of a two-rank NCCL world on card 0: one all_reduce."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    try:
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_two_ranks_one_card():
+    """What NCCL does with two ranks on one card: the line of the error it
+    raised (expected: "Duplicate GPU detected"), or what else happened.
+    The ranks are killed after 120 s."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_nccl_probe_rank, args=(_free_port(),), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.time() + 120
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                return "no answer in 120 s (ranks killed)"
+    except Exception as exc:  # noqa: BLE001 -- the refusal is the reading
+        lines = [ln.strip() for ln in str(exc).splitlines() if ln.strip()]
+        hits = [ln for ln in lines if "Duplicate GPU" in ln] or lines[-1:]
+        return f"refused: {hits[0][:300]}" if hits else f"refused: {type(exc).__name__}"
+    return "ran: the all_reduce completed"
+
+
+def _two_rank_work(tmp):
+    """Phase 18 on each of two gloo ranks sharing card 0 (see
+    phase_sharded_two_ranks); rank 0 returns the readings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from eigensolver_gpu_torch import (SolverConfig, sygvdx, sygvdx_batched,
+                                       zhegvdx_planar)
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel, bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel, ql_panel_planar
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel, apply_q2_planar_kernel
+    from eigensolver_gpu_torch.parallel import (comm, make_mesh, sygvdx_batched_sharded,
+                                                sygvdx_sharded, zhegvdx_planar_batched_sharded)
+
+    rank = dist.get_rank()
+    out = {}
+    cfg = SolverConfig(compute_dtype="float32", tridiag_mode="two")
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def launches(wrappers, reset=False):
+        if reset:
+            for fn in wrappers:
+                fn.launches = 0
+            return None
+        return {fn.__name__: fn.launches for fn in wrappers}
+
+    # tensor parallel, make_mesh(2): config 2 against phase 17's one-rank solve
+    n, iu = N_REAL, IU_REAL
+    a, b = _spd_on_card(torch, n, 0)
+    real = (ql_panel, bulge_chase_kernel, apply_q2_kernel)
+    launches(real, reset=True)
+    comm.reset()
+    res, ms = timed(lambda: sygvdx_sharded(a, b, make_mesh(2), il=1, iu=iu, cfg=cfg))
+    got = launches(real)
+    if got != {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}:
+        raise RuntimeError(f"rank {rank}: tp launches {got}")
+    if rank == 0:
+        resid = _real_check(torch, res, a, b, n, iu, "two-rank tp config 2")
+        one = torch.from_numpy(np.load(os.path.join(tmp, SHARED_W))).cuda()
+        werr = float((res.w - one).abs().max() / one.abs().max())
+        if not werr <= 1e-12:
+            raise RuntimeError(f"two-rank tp eigenvalues {werr:.3e} from phase 17's")
+        out["tp"] = {"ms": ms, "residual": resid, "werr": werr, "launches": got,
+                     "collectives": dict(comm.calls), "by_stage": dict(comm.stages)}
+    del a, b, res
+
+    # data parallel, make_mesh(2, dp=2): phase 14's planar k-point batch
+    mesh_dp = make_mesh(2, dp=2)
+    batch, n, iu = K1_BATCH, N_BATCHED, IU_BATCHED
+    planes = _batch_on_card(torch, "random_hpd_pair", n, batch)
+    planar = (pchol_block_planar, ql_panel_planar, bulge_chase_planar_kernel,
+              apply_q2_planar_kernel)
+    launches(planar, reset=True)
+    comm.reset()
+    res, ms = timed(lambda: zhegvdx_planar_batched_sharded(*planes, mesh_dp, il=1, iu=iu,
+                                                           cfg=cfg))
+    got = launches(planar)
+    want = {"pchol_block_planar": n // 128, "ql_panel_planar": n // BAND - 1,
+            "bulge_chase_planar_kernel": 1, "apply_q2_planar_kernel": 1}
+    if got != want:
+        raise RuntimeError(f"rank {rank}: planar dp launches {got}, want {want}")
+    if rank == 0:
+        info = res.info.cpu().tolist()
+        resid = _device_residual(torch, planes, res)
+        if set(info) != {0} or not resid <= 1e-13 or tuple(res.zr.shape) != (batch, n, iu):
+            raise RuntimeError(f"two-rank planar dp: info={info} residual={resid}")
+        held = []
+        for k in (0, batch - 1):
+            single = zhegvdx_planar(*(x[k] for x in planes), il=1, iu=iu, cfg=cfg)
+            held.append(_held_items(torch, (res.w[k], torch.complex(res.zr[k], res.zi[k])),
+                                    (single.w, torch.complex(single.zr, single.zi)),
+                                    f"two-rank planar dp item {k}"))
+        out["planar_dp"] = {"ms": ms, "residual": resid, "held": held, "launches": got,
+                            "collectives": dict(comm.calls)}
+    del planes, res
+
+    # data parallel: phase 15's real k-point batch
+    a, b = _batch_on_card(torch, "random_spd_pair", n, batch)
+    iu = IU_BATCHED_REAL
+    launches(real, reset=True)
+    comm.reset()
+    res, ms = timed(lambda: sygvdx_batched_sharded(a, b, mesh_dp, il=1, iu=iu, cfg=cfg))
+    got = launches(real)
+    if got != {"ql_panel": n // BAND - 1, "bulge_chase_kernel": 1, "apply_q2_kernel": 1}:
+        raise RuntimeError(f"rank {rank}: real dp launches {got}")
+    if rank == 0:
+        info = res.info.cpu().tolist()
+        resid = _real_residual(torch, a, b, res)
+        if set(info) != {0} or not resid <= 1e-13 or tuple(res.z.shape) != (batch, n, iu):
+            raise RuntimeError(f"two-rank real dp: info={info} residual={resid}")
+        held = []
+        for k in (0, batch - 1):
+            single = sygvdx(a[k], b[k], il=1, iu=iu, cfg=cfg)
+            held.append(_held_items(torch, (res.w[k], res.z[k]), (single.w, single.z),
+                                    f"two-rank real dp item {k}"))
+        out["real_dp"] = {"ms": ms, "residual": resid, "held": held, "launches": got,
+                          "collectives": dict(comm.calls)}
+    dist.barrier()
+    return out
+
+
+def phase_sharded_two_ranks(torch):
+    """Phase 18: two ranks sharing the card. First what NCCL does with two
+    ranks on one device (expected to refuse). Then a gloo world of two
+    ranks (torch.multiprocessing spawn, a fresh store), their collectives
+    staged through host buffers by parallel/comm.py: sygvdx_sharded at
+    n=4096, iu=512, mp, two-stage over make_mesh(2) (eigenvalues within
+    1e-12 relative of phase 17's one-rank solve, residual <= 1e-13);
+    zhegvdx_planar_batched_sharded on phase 14's 64 x random_hpd_pair(1024)
+    (iu=128, mp, two-stage) over make_mesh(2, dp=2), 32 items a rank with
+    one K1, K6, K8, K10 launch a step of its share (counted on each rank);
+    sygvdx_batched_sharded on phase 15's real batch (iu=64). Each: info,
+    residual over every item, items 0 and 63 against their unbatched
+    solves (1e-12), wall ms of two processes time-sharing one card through
+    host-staged collectives (no scaling figure)."""
+    from eigensolver_gpu_torch.parallel.dryrun import run_world
+
+    t0 = time.perf_counter()
+    nccl = _nccl_two_ranks_one_card()
+    log(f"sharded (two ranks): NCCL with two ranks on one card: {nccl} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out = run_world(2, _two_rank_work, (os.environ["CHIP_SMOKE_TMP"],), device_type="cuda",
+                    backend="gloo")
+    log(f"sharded (two ranks): gloo world of two ranks on one card in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, data on the card, the solves below); "
+        "times are two processes time-sharing one card through host-staged collectives, "
+        "not a scaling figure")
+    tp = out["tp"]
+    log(f"  sygvdx_sharded n={N_REAL} iu={IU_REAL} mp two-stage make_mesh(2): info=0 residual "
+        f"{tp['residual']:.3e}, eigenvalues {tp['werr']:.2e} relative from phase 17's one-rank "
+        f"solve, wall {tp['ms']:.1f} ms, launches a rank {tp['launches']}, collectives "
+        f"{tp['collectives']} by stage {tp['by_stage']}")
+    for key, what in (("planar_dp", f"zhegvdx_planar_batched_sharded {K1_BATCH} x "
+                                    f"n={N_BATCHED} iu={IU_BATCHED}"),
+                      ("real_dp", f"sygvdx_batched_sharded {K1_BATCH} x n={N_BATCHED} "
+                                  f"iu={IU_BATCHED_REAL}")):
+        r = out[key]
+        log(f"  {what} mp two-stage make_mesh(2, dp=2): info all 0, residual (max over items) "
+            f"{r['residual']:.3e}, items 0 and {K1_BATCH - 1} within "
+            f"{max(h[0] for h in r['held']):.2e} (w) and {max(h[1] for h in r['held']):.2e} "
+            f"(vectors) of their unbatched solves, wall {r['ms']:.1f} ms, launches a rank "
+            f"{r['launches']}, collectives {r['collectives']}")
+    out["nccl_two_ranks_one_card"] = nccl
+    return out
+
+
 def _with(torch, check_batched, entry):
     """The kernel's entry with its batched readings added by check_batched."""
     check_batched(torch, entry)
@@ -3127,6 +3501,8 @@ GROUPS = {
         "batched_real": phase_batched_real_two_stage(torch)},
     "main (embedded)": lambda torch: {"embedded": phase_embedded(torch)},
     "trinv, ozaki, stedc": _new_routes,
+    "sharded (tp, one rank)": phase_sharded_tp,
+    "sharded (two ranks)": lambda torch: {"two_ranks": phase_sharded_two_ranks(torch)},
 }
 # the host data each group reads, made in its process before its turn (_prepare):
 # (fixture name, n, number of seeds from 0, or a tuple of seeds)
@@ -3145,6 +3521,7 @@ PREPARE = {
     "main (embedded)": [("random_hpd_pair", N_MAIN, (0,)),
                         ("random_hpd_pair", N_EMBED_BATCHED, EMBED_BATCH)],
     "trinv, ozaki, stedc": [("random_hpd_pair", N_MAIN, (0,)), ("qe_style_pair", N_MAIN, (0,))],
+    "sharded (tp, one rank)": [("draws", N_TP, (0,)), ("draws", N_REAL, (0,))],
 }
 # BLAS threads of a group's process: while it prepares, the group before it
 # runs and is timed, and keeps the host's other cores
@@ -3198,7 +3575,7 @@ def _merge_result(result, kernels, launches, readings):
     launches.update(result.get("launches", {}))
     readings.update({k: v for k, v in result.items()
                      if k in ("batched", "batched_real", "embedded", "batched_one_stage_ms",
-                              "batched_real_one_stage_ms")})
+                              "batched_real_one_stage_ms", "tp", "two_ranks")})
 
 
 def _prepare(name):
@@ -3250,6 +3627,19 @@ def main():
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})", file=sys.stderr)
         return 1
+    import shutil
+    import tempfile
+
+    # files one group leaves for a later one (phase 17's eigenvalues for phase 18)
+    os.environ["CHIP_SMOKE_TMP"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _main_groups(torch)
+    finally:
+        shutil.rmtree(os.environ["CHIP_SMOKE_TMP"], ignore_errors=True)
+
+
+def _main_groups(torch):
+    """main's work once its temporary directory is made."""
     kernels, launches, k1_batched, readings = [], {}, None, {}
     names = list(GROUPS)
     waiting = None
@@ -3307,6 +3697,20 @@ def main():
     log(f"the complex embedding (fp64): n={N_MAIN} iu={IU_MAIN} {emb['embedded_ms']:.1f} ms, "
         f"{EMBED_BATCH} x n={N_EMBED_BATCHED} iu={IU_EMBED_BATCHED} batched "
         f"{emb['embedded_batched_ms']:.1f} ms")
+    tp, two = readings["tp"], readings["two_ranks"]
+    log(f"sharded: config 5 (n={N_TP} iu={IU_TP} mp two-stage) on make_mesh(1) "
+        f"{tp['ms']:.1f} ms, residual {tp['residual']:.3e}, peak {tp['peak_gib']:.2f} GiB; two "
+        f"ranks time-sharing the card (gloo, host-staged): tp n={N_REAL} "
+        f"{two['tp']['ms']:.1f} ms, planar dp batch {two['planar_dp']['ms']:.1f} ms, real dp "
+        f"batch {two['real_dp']['ms']:.1f} ms; NCCL, two ranks on one card: "
+        f"{two['nccl_two_ranks_one_card']}")
+    for k in kernels:  # K5, K7, K9: launches on the tensor-parallel path (phase 17)
+        if k["name"] in tp["launches"]:
+            k["tp"] = {"launches": tp["launches"][k["name"]]}
+            if not k["tp"]["launches"]:
+                print(f"chip_smoke: {k['name']} was never launched on the tp path",
+                      file=sys.stderr)
+                return 1
     for k in kernels:
         k.setdefault("launches", launches.get(k["name"]))
         if not k["launches"]:

@@ -20,10 +20,20 @@ With ``cfg.mosaic_kernels`` (the default) the panel, the chase and the
 replay go through their kernel wrappers (K5, K7, K9 on CUDA tensors,
 the plain versions on CPU tensors); without it they take the plain torch
 functions. There is no probe and no fallback: a kernel that cannot take
-its arguments raises. ``mesh`` (row sharding) is not carried. Both routes
-take a leading batch axis (``sygvdx_batched``): on the two-stage route
-each panel, the chase and the Q2 replay are one kernel launch for the
-whole batch.
+its arguments raises. Both routes take a leading batch axis
+(``sygvdx_batched``): on the two-stage route each panel, the chase and the
+Q2 replay are one kernel launch for the whole batch.
+
+``mesh`` (a ('dp', 'tp') DeviceMesh, parallel/mesh.py; one problem) splits
+the dominant stages over its 'tp' ranks, each stage taking and returning
+whole tensors on every rank: the reduction's rows (ops/sytrd.py,
+ops/sbrd.py), stedc's top merges, the back-transform's columns (each rank
+replays Q2 with K9 and Q1, or unmtr, on its block of the columns of Z,
+then one all_gather) and the refinement's rows. The chase (K7) runs whole
+on every rank, as JAX keeps it replicated. JAX turns its QL panel and
+replay kernels off under a mesh because a Pallas call cannot be
+SPMD-partitioned; each rank here calls K5 and K9 on its own tensors, so
+they stay on (ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from eigensolver_gpu_torch.ops.refine import refine_eigh
 from eigensolver_gpu_torch.ops.stedc import eigh_or_nan, stedc
 from eigensolver_gpu_torch.ops.sytrd import sytrd
 from eigensolver_gpu_torch.ops.unmtr import unmtr
+from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
@@ -58,6 +69,24 @@ def _pad_decoupled(a, npad):
     idx = torch.arange(n, npad, device=a.device)
     out[..., idx, idx] = padvals.to(a.dtype)
     return out
+
+
+def _maybe_row_shard(x, mesh):
+    """The mesh whose 'tp' ranks split the rows of x's stage, or None when
+    there is no mesh or the rows do not split evenly (JAX's
+    ``_maybe_row_shard`` constrains x to 'tp' row sharding, or does
+    nothing then)."""
+    return None if comm.row_range(x.shape[-2], mesh) is None else mesh
+
+
+def _by_columns(fn, z, mesh, what):
+    """fn(z) with z's columns split over the mesh's 'tp' ranks: each rank
+    applies fn to its block of columns, then one all_gather; fn(z) whole
+    where there is no mesh or the columns do not split evenly."""
+    cols = comm.row_range(z.shape[-1], mesh)
+    if cols is None:
+        return fn(z)
+    return comm.all_gather(fn(z[..., cols[0] : cols[1]]), mesh, axis=-1, what=what)
 
 
 def _use_two_stage(n, cfg, iscomplex, compute_is_f64):
@@ -94,18 +123,24 @@ def takes_two_stage(n, dtype, cfg):
     return _reduction(n, cfg, dtype.is_complex, rdt == torch.float64 and not mixed)[0]
 
 
-def _tridiag_reduce(a_p, cfg, two_stage):
+def _tridiag_reduce(a_p, cfg, two_stage, mesh=None):
     """Reduce symmetric/Hermitian ``a_p`` (padded) to tridiagonal (d, e);
     returns (d, e, back) with ``back(z)`` applying the accumulated
     orthogonal transform Q to tridiagonal eigenvector columns z. A leading
     axis of ``a_p`` is a batch of problems, reduced together on either
-    route."""
+    route. ``mesh``: the reduction's rows (where they split evenly) and
+    the back-transform's columns (where they do) split over its 'tp' ranks
+    (module docstring)."""
     if two_stage:
         from eigensolver_gpu_torch.ops.sb2st import apply_q2, bulge_chase, dense_to_band
         from eigensolver_gpu_torch.ops.sbrd import apply_q1, sbrd
 
         npad = a_p.shape[-1]
-        ab, vs, ts = sbrd(a_p, band=cfg.band, bucket=512, panel_kernel=cfg.mosaic_kernels)
+        # JAX passes panel_kernel=mesh is None and cfg.mosaic_kernels: its
+        # Pallas panel cannot be SPMD-partitioned; K5 runs on every rank's
+        # own gathered panel, so it stays on under a mesh
+        ab, vs, ts = sbrd(a_p, band=cfg.band, bucket=512, panel_kernel=cfg.mosaic_kernels,
+                          mesh=_maybe_row_shard(a_p, mesh))
         band = dense_to_band(ab, cfg.band)
         if cfg.mosaic_kernels:
             from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel
@@ -117,7 +152,7 @@ def _tridiag_reduce(a_p, cfg, two_stage):
         # at band 32) and band in fp64
         g = cfg.replay_g or (3 * cfg.band if ab.dtype == torch.float32 else cfg.band)
 
-        def back(z):
+        def replay(z):
             if cfg.mosaic_kernels:
                 from eigensolver_gpu_torch.ops.replay import apply_q2_kernel
 
@@ -126,14 +161,15 @@ def _tridiag_reduce(a_p, cfg, two_stage):
                 z2 = apply_q2(vt, taut, z, npad, cfg.band, g=g)
             return apply_q1(vs, ts, z2)
 
-        return d, e, back
+        return d, e, lambda z: _by_columns(replay, z, mesh, "back")
 
     a_packed, d, e, tau = sytrd(
-        a_p, nb=cfg.nb_tridiag, bucket=256, use_pallas=cfg.use_pallas
+        a_p, nb=cfg.nb_tridiag, bucket=256, use_pallas=cfg.use_pallas,
+        mesh=_maybe_row_shard(a_p, mesh),
     )
 
     def back(z):
-        return unmtr(a_packed, tau, z, nb=cfg.nb_back)
+        return _by_columns(lambda zc: unmtr(a_packed, tau, zc, nb=cfg.nb_back), z, mesh, "back")
 
     return d, e, back
 
@@ -147,16 +183,22 @@ def sort_pairs(w, *vecs):
 
 
 @highest_precision
-def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
+def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG, mesh=None):
     """Eigenpairs il..iu (1-based, ascending, LAPACK RANGE='I') of dense
     symmetric/Hermitian ``a``. Returns (w (m,) real, z (n, m)), on the
     device of ``a``. Leading axes of ``a`` are a batch of problems, solved
-    together (on the two-stage route the kernels take one batch axis)."""
+    together (on the two-stage route the kernels take one batch axis).
+
+    mesh: a ('dp', 'tp') DeviceMesh; every rank passes the whole ``a`` of
+    one problem and gets the whole result, the dominant stages split over
+    'tp' (module docstring)."""
     n = a.shape[-1]
     if iu is None:
         iu = n
     if not (1 <= il <= iu <= n):
         raise ValueError(f"need 1 <= il <= iu <= n, got il={il}, iu={iu}, n={n}")
+    if mesh is not None and a.dim() != 2:
+        raise ValueError(f"syevdx with a mesh takes one problem, got {tuple(a.shape)}")
     iscomplex = a.is_complex()
 
     if cfg.stedc_backend == "xla":
@@ -176,8 +218,8 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
         lo_dt = torch.complex64 if iscomplex else torch.float32
         a_p = _pad_decoupled(a.to(lo_dt), npad)
         with trace_range("syevdx_fp32"):
-            d, e, back = _tridiag_reduce(a_p, cfg, two_stage)
-            w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
+            d, e, back = _tridiag_reduce(a_p, cfg, two_stage, mesh=mesh)
+            w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf, mesh=mesh)
             z_tri = q_tri.to(lo_dt) if iscomplex else q_tri
             x32 = back(z_tri[..., :n])[..., :n, :]
         sel0 = max(0, il - 1 - cfg.refine_margin)
@@ -186,7 +228,7 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             a, x32.to(a.dtype), sweeps=cfg.refine_iters,
             chunk=2048 if n >= 8192 else None,
             sel=(sel0, sel1 - sel0), w0=w_all[..., :n].to(rdt),
-            extra_max=cfg.refine_extra_max,
+            extra_max=cfg.refine_extra_max, mesh=mesh,
         )
         w, x = sort_pairs(w, x)
         lo = il - 1 - sel0
@@ -194,8 +236,8 @@ def syevdx(a, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
 
     a_p = _pad_decoupled(a, npad)
     with trace_range("syevdx"):
-        d, e, back = _tridiag_reduce(a_p, cfg, two_stage)
-        w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf)
+        d, e, back = _tridiag_reduce(a_p, cfg, two_stage, mesh=mesh)
+        w_all, q_tri = stedc(d, e, leaf=cfg.stedc_leaf, mesh=mesh)
         # the decoupled padding sorts above the true spectrum, so indices
         # il..iu of the first n entries are the requested pairs
         w = w_all[..., il - 1 : iu]

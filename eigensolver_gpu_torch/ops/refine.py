@@ -35,7 +35,15 @@ Port differences:
     (leading axes) it sweeps while any item's defect exceeds that item's
     tolerance, and the items that stopped keep their state
     (:func:`escalate`);
-  * ``mesh`` (row sharding) is not carried: sharding is not ported yet.
+  * ``mesh`` (JAX: row sharding of a, b and x over 'tp', the partitioner
+    owning the contraction sums) splits each sweep's products over the
+    rows: A X_blk and B X_blk are the rank's rows of A and B times the
+    whole block, the Gram products X^H (B X_blk) and X^H (A X_blk) the
+    rank's partial sums over its rows, added by one all_reduce, and the
+    correction X E the rank's rows, gathered by one all_gather; every rank
+    holds the whole x between sweeps, and the reduced grams are the same
+    on every rank, so each takes the same escalation sweeps. As in JAX,
+    ``gemm='ozaki'`` takes the plain product under a mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import functools
 import torch
 
 from eigensolver_gpu_torch.ops.ozaki import ozaki_matmul_chunked
+from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -119,30 +128,45 @@ def _correct_block(gram, s, sel0, ms, w_rows):
     return e, sc, lam, w_rows, defect
 
 
-def _sweep(a, b, x, sel, w_rows, chunk=None, mm=_mm_chunked, mm_dx=None):
+def _sweep(a, b, x, sel, w_rows, chunk=None, mm=_mm_chunked, mm_dx=None, mesh=None):
     """One sweep on the selected block (the JAX package's _sweep_eigh and
     _sweep_gevp in one); updates only columns sel0..sel0+ms of the full
     basis x (n, n_all). ``b`` None is the standard problem
     (R = I - X^H X_blk), else R = I - X^H B X_blk. ``mm(x, y, chunk)`` is
     the product, ``mm_dx`` (default ``mm``) the correction's X @ E.
-    Returns (x', lam, w_rows', defect)."""
+    ``mesh``: the products split over its 'tp' ranks by rows (module
+    docstring). Returns (x', lam, w_rows', defect)."""
     sel0, ms = sel
     xs = x[..., sel0 : sel0 + ms]
-    xh = x.mH
-    gram = mm(xh, xs if b is None else mm(b, xs, chunk), chunk)
-    s = mm(xh, mm(a, xs, chunk), chunk)
+    split = comm.row_range(x.shape[-2], mesh) is not None
+    if not split:
+        xh = x.mH
+        gram = mm(xh, xs if b is None else mm(b, xs, chunk), chunk)
+        s = mm(xh, mm(a, xs, chunk), chunk)
+    else:
+        rows = lambda m: comm.row_block(m, mesh)
+        xh = rows(x).mH
+        mx = rows(xs) if b is None else mm(rows(b), xs, chunk)
+        gram, s = comm.all_reduce(
+            torch.stack([mm(xh, mx, chunk), mm(xh, mm(rows(a), xs, chunk), chunk)]),
+            mesh, what="refine")
     e, sc, lam, w_rows, defect = _correct_block(gram, s, sel0, ms, w_rows)
     x = x.clone()
-    x[..., sel0 : sel0 + ms] = (xs + (mm_dx or mm)(x, e, chunk)) * sc
+    if not split:
+        dx = (mm_dx or mm)(x, e, chunk)
+    else:
+        dx = comm.all_gather((mm_dx or mm)(rows(x), e, chunk), mesh, what="refine")
+    x[..., sel0 : sel0 + ms] = (xs + dx) * sc
     return x, lam, w_rows, defect
 
 
-def _resolve_mm(gemm, dt):
+def _resolve_mm(gemm, dt, mesh=None):
     """(mm, mm_dx) of the fp64 sweeps: the ozaki digit product on real fp64
-    input under ``gemm='ozaki'``, with the correction X @ E at 28 bits (its
-    error is relative to |E|, below the sweep's own quadratic term); the
-    plain product otherwise (JAX's ``_resolve_mm``)."""
-    if gemm == "ozaki" and dt == torch.float64:
+    input under ``gemm='ozaki'`` without a mesh, with the correction X @ E
+    at 28 bits (its error is relative to |E|, below the sweep's own
+    quadratic term); the plain product otherwise (JAX's ``_resolve_mm``,
+    whose gate keeps ozaki off sharded runs)."""
+    if gemm == "ozaki" and dt == torch.float64 and mesh is None:
         return ozaki_matmul_chunked, functools.partial(ozaki_matmul_chunked, bits=28)
     return _mm_chunked, None
 
@@ -206,7 +230,7 @@ def _check_gemm(gemm):
         raise ValueError(f"unknown gemm {gemm!r}")
 
 
-def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name, gemm):
+def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name, gemm, mesh=None):
     """Body shared by refine_gevp and refine_eigh (``b`` None). Returns
     (w or None, w_rows, x) after all sweeps."""
     dt = a.dtype
@@ -230,22 +254,22 @@ def _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0, extra_max, name, gemm
             # cap coarse sweeps at 2: iterations beyond that go to fp64
             n_coarse = min(sweeps - 1, 2)
             for _ in range(n_coarse):
-                x32, _, w32, _ = _sweep(a32, b32, x32, sel, w32)
+                x32, _, w32, _ = _sweep(a32, b32, x32, sel, w32, mesh=mesh)
             x = x32.to(dt)
             w_rows = w32.to(rdt)
             n_full = max(sweeps - n_coarse, 1)
         else:
             n_full = sweeps
-        mm, mm_dx = _resolve_mm(gemm, dt)
+        mm, mm_dx = _resolve_mm(gemm, dt, mesh)
         return _run_sweeps(
-            lambda x, w_rows: _sweep(a, b, x, sel, w_rows, chunk, mm, mm_dx),
+            lambda x, w_rows: _sweep(a, b, x, sel, w_rows, chunk, mm, mm_dx, mesh),
             x, w_rows, n_full, extra_max, n, is64,
         )
 
 
 @highest_precision
 def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
-                gemm="native", sel=None, w0=None, extra_max=0):
+                gemm="native", sel=None, w0=None, extra_max=0, mesh=None):
     """Refine generalized eigenpairs of (a, b) from the approximate
     B-orthonormal full basis ``x`` (n x n, ascending eigenvalue order).
 
@@ -257,6 +281,8 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
     gemm: 'native' (the default, here and on the card: fp64
     torch.matmul) or 'ozaki' (the JAX default: exact digit gemms on real
     fp64 input, ops/ozaki.py); anything else is a ValueError.
+    mesh: split the products over its 'tp' ranks by rows (module
+    docstring); every rank returns the whole result.
     Returns (w (ms,), x_block (n, ms)).
     """
     _check_gemm(gemm)
@@ -264,7 +290,7 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
         sel = (0, x.shape[-1])
     sel0, ms = sel
     x, w, w_rows = _refine(a, b, x, sweeps, coarse_first, chunk, sel, w0,
-                           extra_max, "refine_gevp", gemm)
+                           extra_max, "refine_gevp", gemm, mesh)
     if w is None:
         w = w_rows[..., sel0 : sel0 + ms]
     return w, x[..., sel0 : sel0 + ms]
@@ -272,20 +298,26 @@ def refine_gevp(a, b, x, sweeps=2, coarse_first=True, chunk=None,
 
 @highest_precision
 def refine_eigh(a, x, sweeps=2, coarse_first=True, chunk=None,
-                gemm="native", sel=None, w0=None, extra_max=0):
+                gemm="native", sel=None, w0=None, extra_max=0, mesh=None):
     """Refine eigenvectors of dense symmetric/Hermitian ``a`` from the
     approximate full basis ``x`` (n x m, ascending order); returns
     (w (ms,), x_block (n, ms)) for the selected block (all of x when
     sel is None). Arguments as in refine_gevp; the block is finished with
-    a column normalization and its Rayleigh quotients.
+    a column normalization and its Rayleigh quotients (under a mesh, the
+    rank's rows of A times the block, summed over the ranks).
     """
     _check_gemm(gemm)
     if sel is None:
         sel = (0, x.shape[-1])
     sel0, ms = sel
     x, _, _ = _refine(a, None, x, sweeps, coarse_first, chunk, sel, w0,
-                      extra_max, "refine_eigh", gemm)
+                      extra_max, "refine_eigh", gemm, mesh)
     xs = x[..., sel0 : sel0 + ms]
     xs = xs / torch.linalg.vector_norm(xs, dim=-2)[..., None, :]
-    w = torch.sum(xs.conj() * (a @ xs), dim=-2).real
+    if comm.row_range(xs.shape[-2], mesh) is None:
+        w = torch.sum(xs.conj() * (a @ xs), dim=-2).real
+    else:
+        w = comm.all_reduce(torch.sum(comm.row_block(xs, mesh).conj()
+                                      * (comm.row_block(a, mesh) @ xs), dim=-2).real,
+                            mesh, what="refine")
     return w, xs

@@ -27,12 +27,23 @@ size, ``sygvdx_batched``): sbrd runs its panel loop once for the batch, one
 panel call (one launch of K5 on the card) and one set of batched gemms a
 panel step, and apply_q1 replays the batch's factors in the same batched
 gemms. An unbatched call goes through the same code.
+
+``sbrd(mesh=...)`` splits the rows over the mesh's 'tp' ranks (JAX: the
+row-sharded operand of ``models/syevdx._tridiag_reduce``): rank r owns
+the contiguous rows ``comm.row_range(n, mesh)``. Each panel is gathered
+from the owners of its rows (one all_gather) and factored on every rank
+(K5 on the card); the two-sided update forms Y and W on the rank's rows,
+contracts V^T Y over the rows through an all_reduce, gathers W (one
+all_gather) and updates the rank's own rows. The band comes out whole on
+every rank: the panels are written everywhere, and the leading b x b
+block, which the last update leaves on its owners, is gathered at the end.
 """
 
 from __future__ import annotations
 
 import torch
 
+from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -86,7 +97,7 @@ def _larft_forward(v, tau):
 
 
 @highest_precision
-def sbrd(a, band=32, bucket=512, panel_kernel=True):
+def sbrd(a, band=32, bucket=512, panel_kernel=True, mesh=None):
     """Reduce symmetric ``a`` to a symmetric band matrix of half-width
     ``band``. Returns (ab, vs, ts): the banded matrix (full storage,
     entries outside the band zero) and the per-panel WY factors with
@@ -99,7 +110,9 @@ def sbrd(a, band=32, bucket=512, panel_kernel=True):
     (..., n // band - 1, n, band), ts (..., n // band - 1, band, band).
 
     panel_kernel: route each panel through ops/ql_panel.ql_panel (kernel
-    K5 on a CUDA tensor). ``bucket`` is kept for the JAX signature."""
+    K5 on a CUDA tensor). ``bucket`` is kept for the JAX signature.
+    mesh: split the rows over its 'tp' ranks (module docstring); not
+    used where the rows do not split evenly."""
     del bucket
     n = a.shape[-1]
     lead = a.shape[:-2]
@@ -113,10 +126,14 @@ def sbrd(a, band=32, bucket=512, panel_kernel=True):
     vs = torch.zeros(lead + (npanels, n, b), dtype=a.dtype, device=a.device)
     ts = torch.zeros(lead + (npanels, b, b), dtype=a.dtype, device=a.device)
 
+    rows = comm.row_range(n, mesh)
     with trace_range("sbrd"):
         for p in range(npanels):
             pend = n - p * b
             mrows = pend - b
+            if rows is not None:  # the panel, whole, from the ranks that own its rows
+                a[..., :pend, mrows:pend] = comm.all_gather(
+                    a[..., rows[0] : rows[1], mrows:pend], mesh, what="sbrd")[..., :pend, :]
             panel = a[..., :pend, mrows:pend]  # view, row stride n (batch stride n^2)
             if panel_kernel:
                 pfac, v, _, t = ql_panel(panel, mrows - b)
@@ -127,16 +144,38 @@ def sbrd(a, band=32, bucket=512, panel_kernel=True):
             # two-sided A <- N A N^T, N = I - V T V^T, via the symmetric
             # W-form: Y = A V T^T, S = T (V^T Y), W = Y - 1/2 V S,
             # A <- A - V W^T - W V^T, on the leading mrows x mrows block
-            a_m = a[..., :mrows, :mrows]
-            y = a_m @ (v @ t.mT)
-            w = y - 0.5 * (v @ (t @ (v.mT @ y)))
-            a_m -= torch.cat([v, w], dim=-1) @ torch.cat([w, v], dim=-1).mT
+            if rows is None:
+                a_m = a[..., :mrows, :mrows]
+                y = a_m @ (v @ t.mT)
+                w = y - 0.5 * (v @ (t @ (v.mT @ y)))
+                a_m -= torch.cat([v, w], dim=-1) @ torch.cat([w, v], dim=-1).mT
+            else:
+                _update_rows(a, v, t, mrows, rows, mesh)
             # the factored panel and its transpose
             a[..., :pend, mrows:pend] = pfac
             a[..., mrows:pend, :pend] = pfac.mT
             vs[..., p, :mrows, :] = v
             ts[..., p, :, :] = t
+        if rows is not None:  # the leading block, last updated on its owners
+            a[..., :b, :b] = comm.all_gather(
+                a[..., rows[0] : rows[1], :b], mesh, what="sbrd")[..., :b, :]
     return a, vs, ts
+
+
+def _update_rows(a, v, t, mrows, rows, mesh):
+    """The two-sided update of sbrd on the rank's own rows of the leading
+    mrows x mrows block: Y and W on rows lo:hi, V^T Y summed over the
+    ranks, W gathered, then A[lo:hi] -= V[lo:hi] W^T + W[lo:hi] V^T."""
+    lo, hi = rows
+    top = max(lo, min(hi, mrows))  # the rank's rows above the block's edge end at top
+    vr = v[..., lo:top, :]
+    y = a[..., lo:top, :mrows] @ (v @ t.mT)
+    vty = comm.all_reduce(vr.mT @ y, mesh, what="sbrd")
+    w = torch.zeros(v.shape[:-2] + (hi - lo, v.shape[-1]), dtype=v.dtype, device=v.device)
+    w[..., : top - lo, :] = y - 0.5 * (vr @ (t @ vty))
+    w_all = comm.all_gather(w, mesh, what="sbrd")[..., :mrows, :]
+    if top > lo:
+        a[..., lo:top, :mrows] -= vr @ w_all.mT + w[..., : top - lo, :] @ v.mT
 
 
 @highest_precision

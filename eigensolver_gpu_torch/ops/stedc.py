@@ -41,7 +41,18 @@ Port differences:
     bucket, as under JAX's vmap, and the items of one bucket share one
     gemm (at most four a merge). ``stedc.compact`` holds (n2, alive
     counts, buckets) of each compact merge of the last call;
-  * the mesh sharding is not ported;
+  * under a ``mesh`` (JAX's ``stedc(mesh=...)``) the levels of at most two
+    pairs a problem and the fold merges take the full assembly, as JAX's
+    ``compact=mesh is None`` does, and split their O(n2^2) work over the
+    'tp' ranks where n2 divides: each rank runs the secular iteration for
+    its block of roots (rows of the pole-difference matrix), the Loewner
+    products for the same block of columns and the assembly gemm
+    ``Q . U`` for the same block of columns of U; the roots, the
+    recomputed z and the assembled columns are gathered (two vector
+    all_gathers and one matrix all_gather a merge), and the stop test is
+    an all_reduce of the ranks' done flags, so every rank runs the same
+    sweeps. The lower levels run whole on every rank (JAX shards their
+    pair axis);
   * leaves follow the JAX rule: torch.linalg.eigh in fp32 (the JAX 'xla'
     leaf), the batched cyclic Jacobi of ops/jacobi.py in fp64 (for an
     even leaf size, else dense eigh).
@@ -54,8 +65,10 @@ T = tridiag(e, d, e), with the batch axis in front when given one.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from eigensolver_gpu_torch.ops.jacobi import jacobi_eigh
+from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -77,7 +90,7 @@ def _buckets(n2):
     return sizes if sizes[-1] == n2 else sizes + [n2]
 
 
-def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
+def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False, mesh=None):
     """Merge batches of solved blocks coupled by off-diagonal ``beta``.
 
     d1 (B, m), q1 (B, m, m), d2 (B, m2), q2 (B, m2, m2), beta (B,),
@@ -90,6 +103,9 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
     are unit vectors, so with the alive poles ordered first the update
     gemm runs at the smallest bucket (``_buckets``) that covers the alive
     count, each item at its own, and the other columns pass through.
+
+    mesh: split the O(n2^2) work over its 'tp' ranks (module docstring);
+    unused where n2 does not split evenly. Not with compact.
 
     Sets ``_merge_pair.sweeps`` (secular sweeps run) and, under compact,
     ``_merge_pair.alive`` and ``_merge_pair.bucket`` (one an item)."""
@@ -138,10 +154,14 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
         nxt_above < n2, torch.gather(dp, 1, nxt_above.clamp_max(n2 - 1)), ub
     )
 
-    # --- secular solve: all roots at once, shifted coordinates ---
-    pd = dp[:, None, :] - dp[:, :, None]  # pd[b, i, j] = dp[j] - dp[i]
-    gap = nxt_d - dp
-    le_mask = torch.ones((n2, n2), dtype=torch.bool, device=dev).tril()
+    # --- secular solve: all roots at once (a rank's block of them under
+    # a mesh: rows lo:hi), shifted coordinates ---
+    rows = comm.row_range(n2, mesh)
+    lo_r, hi_r = (0, n2) if rows is None else rows
+    gap_all = nxt_d - dp
+    pd = dp[:, None, :] - dp[:, lo_r:hi_r, None]  # pd[b, i, j] = dp[j] - dp[i]
+    gap = gap_all[:, lo_r:hi_r]
+    le_mask = torch.ones((n2, n2), dtype=torch.bool, device=dev).tril()[lo_r:hi_r]
 
     def secular_parts(mu, sig_right):
         base = torch.where(sig_right[:, :, None], pd - gap[:, :, None], pd)
@@ -155,7 +175,7 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
         dphi = rho * torch.where(le_mask, 0.0, terms2).sum(-1)
         return psi, phi, dpsi, dphi
 
-    p_mid, q_mid, _, _ = secular_parts(gap / 2, torch.zeros_like(alive))
+    p_mid, q_mid, _, _ = secular_parts(gap / 2, torch.zeros_like(gap, dtype=torch.bool))
     sig_right = 1.0 + p_mid + q_mid < 0
     zero = torch.zeros_like(gap)
     lo = torch.where(sig_right, -gap, zero)
@@ -163,7 +183,7 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
     mu = (lo + hi) / 2
     di = torch.where(sig_right, -gap, zero)  # left pole (mu coordinates)
     dn = torch.where(sig_right, zero, gap)  # right pole
-    conv = torch.zeros_like(alive)
+    conv = torch.zeros_like(sig_right)
     # absolute floor eps * gap_min: roots hugging their pole still resolve
     # to full relative precision before the stop fires
     tol_abs = eps * gap_min
@@ -172,7 +192,11 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
     while it < max_it:
         if it % STOP_EVERY == 0:
             done = conv | (hi - lo <= eps * torch.maximum(lo.abs(), hi.abs()) + tol_abs)
-            if bool(done.all()):  # one host read every STOP_EVERY sweeps
+            done = done.all()
+            if rows is not None:  # every rank's roots
+                done = comm.all_reduce(done.to(torch.int32), mesh, op=dist.ReduceOp.MIN,
+                                       what="stedc")
+            if bool(done):  # one host read every STOP_EVERY sweeps
                 break
         it += 1
         psi, phi, dpsi, dphi = secular_parts(mu, sig_right)
@@ -211,29 +235,44 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
         # re-running the step is a no-op; keep it in any new step formula)
         mu = torch.where(conv, mu, cand)
     mu = torch.minimum(torch.maximum(mu, lo), hi)
+    # [b, k, i] = lam_k - dp_i for the rows k of this rank's roots
+    lam_minus_d = torch.where(sig_right[:, :, None], -(pd - gap[:, :, None]), -pd) + mu[:, :, None]
+    if rows is not None:  # every rank's roots
+        got = comm.all_gather(torch.stack([mu, sig_right.to(dt)], 1), mesh, axis=-1,
+                              what="stedc")
+        mu, sig_right = got[:, 0], got[:, 1] > 0.5
     sigma = torch.where(sig_right, nxt_d, dp)
     w = torch.where(alive, sigma + mu, ds)
 
-    # --- Gu/Eisenstat recomputed z via the Loewner formula ---
-    sig_minus_d = torch.where(sig_right[:, :, None], -(pd - gap[:, :, None]), -pd)
-    lam_minus_d = sig_minus_d + mu[:, :, None]  # [b, k, i] = lam_k - dp_i
-    pdT = -pd  # [b, k, i] = dp_k - dp_i
-    eye = torch.eye(n2, dtype=torch.bool, device=dev)
-    both = alive[:, :, None] & alive[:, None, :]
+    # --- Gu/Eisenstat recomputed z via the Loewner formula, for the
+    # columns i = lo:hi (all of them without a mesh) ---
+    if rows is None:
+        lmd_c, pdT = lam_minus_d, -pd  # [b, k, i] = lam_k - dp_i, dp_k - dp_i
+    else:
+        pd_c = dp[:, None, lo_r:hi_r] - dp[:, :, None]
+        lmd_c = torch.where(sig_right[:, :, None], -(pd_c - gap_all[:, :, None]), -pd_c) \
+            + mu[:, :, None]
+        pdT = -pd_c
+    eye = torch.eye(n2, dtype=torch.bool, device=dev)[:, lo_r:hi_r]
+    both = alive[:, :, None] & alive[:, None, lo_r:hi_r]
     ratio = torch.where(
-        both & ~eye, lam_minus_d / torch.where(pdT == 0, one, pdT), one
+        both & ~eye, lmd_c / torch.where(pdT == 0, one, pdT), one
     )
-    own = torch.where(alive, torch.diagonal(lam_minus_d, dim1=1, dim2=2).abs(), one)
+    own = torch.where(alive[:, lo_r:hi_r],
+                      torch.diagonal(lmd_c[:, lo_r:hi_r], dim1=1, dim2=2).abs(), one)
     zhat_abs = torch.sqrt(torch.prod(ratio, dim=1).abs() * own)
-    zhat = torch.where(alive, torch.where(zs >= 0, zhat_abs, -zhat_abs), 0.0)
+    zhat = torch.where(alive[:, lo_r:hi_r],
+                       torch.where(zs[:, lo_r:hi_r] >= 0, zhat_abs, -zhat_abs), 0.0)
+    if rows is not None:
+        zhat = comm.all_gather(zhat, mesh, axis=-1, what="stedc")
 
-    # --- eigenvector assembly ---
+    # --- eigenvector assembly: the columns k = lo:hi of U ---
     denom_u = -lam_minus_d.transpose(1, 2)  # [b, i, k] = dp_i - lam_k
     safe_u = torch.where(denom_u == 0, one, denom_u)
     u = torch.where(both, zhat[:, :, None] / safe_u, 0.0)
     norms = torch.sqrt((u * u).sum(dim=1))
     u = u / torch.where(norms == 0, one, norms)[:, None, :]
-    u = torch.where((~alive[:, None, :]) & eye, one, u)
+    u = torch.where((~alive[:, None, lo_r:hi_r]) & eye, one, u)
 
     qcat = torch.zeros((bsz, n2, n2), dtype=dt, device=dev)
     qcat[:, :m, :m] = q1
@@ -244,7 +283,10 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False):
     _merge_pair.sweeps = it
     cols = lambda idx: idx[:, None, :].expand(bsz, n2, n2)
     if not compact:
-        return w, torch.gather(qp @ u, 2, cols(order))
+        qnew = qp @ u
+        if rows is not None:
+            qnew = comm.all_gather(qnew, mesh, axis=-1, what="stedc")
+        return w, torch.gather(qnew, 2, cols(order))
 
     # alive poles first; U restricted to the leading block of the alive
     # count is the whole update (dead rows and columns of U are unit)
@@ -283,7 +325,7 @@ def _tridiag_dense(d, e):
 
 
 @highest_precision
-def stedc(d, e, leaf=64, leaf_solver=None):
+def stedc(d, e, leaf=64, leaf_solver=None, mesh=None):
     """All eigenpairs of the symmetric tridiagonal (d, e), on device.
 
     leaf_solver: None = auto ('xla' for fp32, 'jacobi' for fp64, as in
@@ -296,7 +338,9 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     per problem.
 
     The levels of at most two pairs a problem and the fold merges take the
-    compact assembly (JAX's ``compact=mesh is None``). After a call,
+    compact assembly (JAX's ``compact=mesh is None``); under ``mesh`` they
+    take the full assembly and split their work over its 'tp' ranks
+    (module docstring), and every rank returns the whole result. After a call,
     ``stedc.sweeps`` lists the secular sweeps of each merge and
     ``stedc.compact`` (n2, alive counts, buckets) of each compact merge.
     """
@@ -319,8 +363,11 @@ def stedc(d, e, leaf=64, leaf_solver=None):
     def done(w, q):
         return (w, q) if batched else (w[0], q[0])
 
-    def merge(*args, compact):
-        out = _merge_pair(*args, compact=compact)
+    def merge(*args, top):
+        # JAX's top merges: the compact assembly without a mesh, the full
+        # one split over the mesh with one
+        compact = top and mesh is None
+        out = _merge_pair(*args, compact=compact, mesh=mesh if top else None)
         stedc.sweeps.append(_merge_pair.sweeps)
         if compact:
             stedc.compact.append((out[0].shape[1], _merge_pair.alive, _merge_pair.bucket))
@@ -383,7 +430,7 @@ def stedc(d, e, leaf=64, leaf_solver=None):
                 betas = e_full[:, cols].reshape(bsz * pairs)
                 gs = gap_scale[:, None].expand(bsz, pairs).reshape(bsz * pairs)
                 wb_c, qb_c = merge(w2[:, 0], q2[:, 0], w2[:, 1], q2[:, 1], betas, gs,
-                                   compact=pairs <= 2)
+                                   top=pairs <= 2)
                 m *= 2
             return wb_c.reshape(bsz, sz), qb_c.reshape(bsz, sz, sz)
 
@@ -401,7 +448,7 @@ def stedc(d, e, leaf=64, leaf_solver=None):
                 acc_w, acc_q = wg, qg
             else:
                 beta = e_full[:, start * leaf - 1]
-                acc_w, acc_q = merge(acc_w, acc_q, wg, qg, beta, gap_scale, compact=True)
+                acc_w, acc_q = merge(acc_w, acc_q, wg, qg, beta, gap_scale, top=True)
             start += size
 
         # padding deflates to eigenvalues >= 4 > Gershgorin(T/scale) <= 3,

@@ -21,8 +21,20 @@ Port differences: the working matrix is updated IN PLACE on views (each
 bucket is ``a[:mb, :mb]`` of the symmetrized copy), and exact slices
 replace the static-shape row masks -- ``v`` is zero from row cj on and
 ``w`` is masked to rows < cj, so the products run on the leading
-cj x cj block only. The ``mesh`` argument (row sharding) is not carried:
-sharding is not ported yet.
+cj x cj block only.
+
+``mesh`` (a ('dp', 'tp') DeviceMesh, parallel/mesh.py) splits the rows of
+the working matrix over 'tp', as JAX's row sharding does: rank r owns the
+contiguous rows ``comm.row_range(n, mesh)`` of the whole matrix (of a
+bucket, the part of them above its edge). Each panel's columns are
+gathered from their owners (one all_gather a panel), the column chain
+then runs on every rank (V and W replicated), each column's ``A v`` is
+every rank's rows of the trailing block followed by one all_gather of the
+n-vector (with ``use_pallas`` on fp32, the symv kernel over the rank's
+diagonal block and two gemvs beside it), and the rank-2k trailing update
+touches only the rank's own rows. The packed columns, d, e and tau come
+out whole on every rank. Where the rows do not split evenly the mesh is
+not used (JAX's ``_maybe_row_shard`` does nothing then).
 
 Requires n % nb == 0 (drivers pad with a decoupled diagonal block).
 """
@@ -32,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from eigensolver_gpu_torch.ops.symv import symv
+from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
 
@@ -76,13 +89,35 @@ def _vdot(x, y):
     return (x.conj()[..., None, :] @ y[..., :, None])[..., 0, 0]
 
 
-def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False):
+def _rows_mv(a, v, cj, lo, hi, use_pallas):
+    """Rows lo:hi of A[:cj, :cj] v (zero past row cj), A the whole working
+    matrix whose rows lo:hi are current: a (hi - lo)-vector. With
+    ``use_pallas`` the rank's diagonal block goes through the symv kernel
+    and the blocks beside it through gemvs."""
+    y = v.new_zeros(v.shape[:-1] + (hi - lo,))
+    top = min(hi, cj)
+    if top <= lo:
+        return y
+    if not use_pallas:
+        y[..., : top - lo] = _mv(a[..., lo:top, :cj], v)
+        return y
+    y[..., : top - lo] = symv(a[lo:top, lo:top], v[lo:top])
+    if lo > 0:
+        y[: top - lo] += a[lo:top, :lo] @ v[:lo]
+    if cj > top:
+        y[: top - lo] += a[lo:top, top:cj] @ v[top:cj]
+    return y
+
+
+def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False, shard=None):
     """dlatrd-equivalent: process the nb columns [panel_end-nb, panel_end)
     in descending order. Writes the packed columns into ``a_mb`` and the
     scalars into d, e, tau in place; returns the compact-WY panels
     (v_p, w_p), (mb, nb), slot k = column panel_end-1-k. Leading axes are
     a batch of problems (per-item scalars are tensors of the batch shape);
-    ``use_pallas`` (the symv kernel) takes one problem.
+    ``use_pallas`` (the symv kernel) takes one problem. ``shard`` =
+    (a, lo, hi, mesh): each ``A v`` is rows lo:hi of the whole working
+    matrix ``a`` times v, gathered over the mesh's 'tp' ranks.
 
     The panels live side by side in two stacked buffers, vw = [V W] and
     wv = [W V], so each of the reference's stacked gemv pairs
@@ -117,7 +152,11 @@ def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False):
         # w = tau * (A v - V (W^H v) - W (V^H v)), then the -1/2 tau
         # (w^H v) v correction (dlatrd tail). A v is the flops-dominant
         # product of the whole reduction (the reference's dsymv_gpu).
-        if use_pallas:
+        if shard is not None:
+            a_all, lo, hi, mesh = shard
+            y = comm.all_gather(_rows_mv(a_all, v, cj, lo, hi, use_pallas), mesh, axis=-1,
+                                what="sytrd")[..., :cj]
+        elif use_pallas:
             y = symv(a_mb, v, extent=cj)
         else:
             y = _mv(a_mb[..., :cj, :cj], v)
@@ -141,10 +180,11 @@ def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False):
 
 
 @highest_precision
-def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
+def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False, mesh=None):
     """Full blocked tridiagonalization. Returns (a_packed, d, e, tau).
     Leading axes of ``a`` are a batch of problems, reduced together
-    column by column; ``use_pallas`` takes one problem at a time."""
+    column by column; ``use_pallas`` takes one problem at a time.
+    ``mesh``: split the rows over its 'tp' ranks (module docstring)."""
     n = a.shape[-1]
     if n % nb != 0:
         raise ValueError(f"sytrd_blocked requires n % nb == 0, got n={n}, nb={nb}")
@@ -164,6 +204,7 @@ def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
     e = torch.zeros(lead + (max(n - 1, 1),), dtype=rdtype, device=a.device)
     tau = torch.zeros(lead + (max(n - 1, 1),), dtype=dtype, device=a.device)
 
+    rows = comm.row_range(n, mesh)
     with trace_range("sytrd"):
         num_buckets = -(-n // bucket)
         for b in range(num_buckets, 0, -1):
@@ -177,18 +218,30 @@ def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False):
             )
             for p in range((mb - lo) // nb):
                 panel_end = mb - p * nb
-                v_p, w_p = _panel_columns(a_mb, d, e, tau, panel_end, nb, kernel_ok)
-                # trailing rank-2nb update A -= V W^H + W V^H on the
-                # leading t x t block (syr2k/her2k in the reference)
                 t = panel_end - nb
-                upd = v_p[..., :t, :] @ w_p[..., :t, :].mH
-                a_mb[..., :t, :t] -= upd + upd.mH
+                if rows is None:
+                    v_p, w_p = _panel_columns(a_mb, d, e, tau, panel_end, nb, kernel_ok)
+                    # trailing rank-2nb update A -= V W^H + W V^H on the
+                    # leading t x t block (syr2k/her2k in the reference)
+                    upd = v_p[..., :t, :] @ w_p[..., :t, :].mH
+                    a_mb[..., :t, :t] -= upd + upd.mH
+                    continue
+                r0, r1 = rows
+                # the panel's columns, whole, from the ranks that own their rows
+                a[..., :mb, t:panel_end] = comm.all_gather(
+                    a[..., r0:r1, t:panel_end], mesh, what="sytrd")[..., :mb, :]
+                v_p, w_p = _panel_columns(a_mb, d, e, tau, panel_end, nb, kernel_ok,
+                                          shard=(a, r0, r1, mesh))
+                top = min(r1, t)
+                if top > r0:  # the update of the rank's own rows
+                    a_mb[..., r0:top, :t] -= (v_p[..., r0:top, :] @ w_p[..., :t, :].mH
+                                              + w_p[..., r0:top, :] @ v_p[..., :t, :].mH)
 
     ne = n - 1 if n > 1 else 0
     return a, d, e[..., :ne], tau[..., :ne]
 
 
-def sytrd(a, nb=32, bucket=512, use_pallas=False):
+def sytrd(a, nb=32, bucket=512, use_pallas=False, mesh=None):
     """Alias used by the drivers (real and complex share one
     implementation)."""
-    return sytrd_blocked(a, nb=nb, bucket=bucket, use_pallas=use_pallas)
+    return sytrd_blocked(a, nb=nb, bucket=bucket, use_pallas=use_pallas, mesh=mesh)

@@ -988,3 +988,48 @@ def test_embedded_solve_on_the_card(cuda_device):
     for k in range(2):
         one = zhegvdx_embedded(*(x[k] for x in args), il=1, iu=16, cfg=cfg)
         assert (res.w[k] - one.w).abs().max() < 1e-12 * 128
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_card(cuda_device):
+    """JAX's five dry-run checks in a world of one NCCL rank on the card."""
+    from eigensolver_gpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert dryrun_multichip(1, device_type="cuda") == {
+        "tp": 0, "dp": [0], "planar": 0, "planar dp": [0], "tp two-stage": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(use_pallas=True), dict(tridiag_mode="two")])
+def test_sharded_solve_of_one_rank_launches_the_path_kernels(cuda_device, kw):
+    """sygvdx_sharded on make_mesh(1) (one NCCL rank) at n = 1024, iu = 64,
+    mp: with use_pallas the one-stage reduction's A v goes through K4 over
+    the rank's diagonal block (one launch a column of the 512-aligned
+    buckets of 256 columns: n / 2), two-stage through K5 a panel, K7 and K9 once; the result
+    equals the unsharded solve's (eigenvalues 1e-12 relative, vectors 1e-8)
+    and its residual is below 1e-13."""
+    from eigensolver_gpu_torch import SolverConfig, sygvdx
+    from eigensolver_gpu_torch.parallel.dryrun import run_calls, run_world
+    from eigensolver_gpu_torch.utils.testing import compare_vectors, random_spd_pair
+
+    n, iu = 1024, 64
+    a, b = random_spd_pair(n, seed=3)
+    cfg = SolverConfig(compute_dtype="float32", **kw)
+    (rec,) = run_world(1, run_calls, ([("sygvdx_sharded", (a, b), dict(il=1, iu=iu, cfg=cfg),
+                                         (1, 1))], "cuda"), device_type="cuda")
+    assert "error" not in rec, rec.get("error")
+    w, z, info = rec["out"]
+    ref = sygvdx(torch.tensor(a, device=cuda_device), torch.tensor(b, device=cuda_device),
+                 il=1, iu=iu, cfg=cfg)
+    assert int(info) == int(ref.info) == 0
+    rw = ref.w.cpu().numpy()
+    assert np.abs(w - rw).max() <= 1e-12 * np.abs(rw).max()
+    assert compare_vectors(z, ref.z.cpu().numpy()) < 1e-8
+    r = a @ z - (b @ z) * w[None, :]
+    assert np.linalg.norm(r, axis=0).max() / (n * np.abs(a).sum(1).max()) < 1e-13
+    if kw.get("use_pallas"):
+        assert rec["launches"] == {"symv": n // 2}  # the columns of the 512-aligned buckets
+    else:
+        assert rec["launches"] == {"ql_panel": n // 32 - 1, "bulge_chase_kernel": 1,
+                                   "apply_q2_kernel": 1}
+    assert rec["stages"]["stedc"] > 0 and rec["stages"]["back"] > 0
