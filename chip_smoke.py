@@ -28,7 +28,12 @@ non-zero without printing a result:
                 loop that launches it; K3 and K4 also at the real solve's
                 extents on lda=4096 views, n=999 and n=1, with one launch a
                 call (profiler), 20 calls with the first call's bits, and
-                times with a warm and a cold L2;
+                times with a warm and a cold L2; K2, K3 and K4 likewise on
+                batches in one launch: K2 64 x (1024, 1024) at pe=1024 and
+                544 and 2 x (4096, 4096), K4 fp32 and fp64 and K3 on 64 x
+                n=1024, full and at extent 999, and K3 through a batched
+                panel of the column loop, each item bit-identical to its
+                unbatched launch, one kernel a call, times and bounds;
   4. main    -- zhegvdx n=4096, il=1..iu=1024, fp32 pipeline + fp64
                 refinement, with use_pallas False (kernel K1) and True
                 (K1 and K2): launch counts from one solve, then a timed
@@ -138,6 +143,17 @@ non-zero without printing a result:
                 residual over every item, items 0 and 63 against their
                 unbatched solves, wall ms of two processes time-sharing one
                 card through host-staged collectives (no scaling figure).
+ 19. main (batched, use_pallas) -- run after phase 15: phase 10's two
+                k-point batches with use_pallas=True, each one batched
+                solve: the planar one (K1 8, K2 16 launches) and the real
+                one (K4 512), each with info, residual over every item,
+                launches (counters and kineto), wall ms, stage ms, busy
+                ms, idle share, peak memory, and items 0, 21, 42, 63
+                against their unbatched use_pallas solves, whose mean time
+                times 64 is the item-by-item yardstick; then 8 planar pairs
+                with use_pallas=True and tridiag_mode='two' as one batched
+                solve (K6 31, K8 1, K10 1). The last lines put them beside
+                phase 10's batched solves without use_pallas.
 
 Phase 7 also holds zhegvdx_via_embedding (n=1024, iu=256, fp64) against
 scipy.linalg.eigh, and on an exactly degenerate spectrum (96- and 64-fold
@@ -148,7 +164,7 @@ and K5 3 x (1100, 16) rb=1000 fp64, K7 2 x n=2400 b=6 fp64 (268 pairs),
 K9 3 x n=1000 m=1 fp64, each item bit-identical to its unbatched launch
 (K9 on one window store), one kernel a call.
 
-Phases 1 and 2 run in this process; the checks and phases 3 to 18 run in
+Phases 1 and 2 run in this process; the checks and phases 3 to 19 run in
 groups (GROUPS), each in a child process of its own, one after the other;
 each group's process is started (it imports) while the group before it
 runs, and touches the card only when its turn comes. The run has 1200 s,
@@ -547,13 +563,79 @@ def check_k2(torch):
     }
 
 
-def _mv_bound(n, planes, itemsize=4):
+def _herm_planes_on_card(torch, batch, n, seed):
+    """(batch, n, n) fp32 planes of Hermitian matrices, drawn on the card
+    from a seeded generator: the symmetric real and the antisymmetric
+    imaginary part of (t + t^H) / 2."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn((2, batch, n, n), generator=g, device="cuda")
+    return (t[0] + t[0].mT) / 2, (t[1] - t[1].mT) / 2
+
+
+def check_k2_batched(torch, entry):
+    """K2 on batches in one launch: K1_BATCH x (1024, 1024) planes at pe =
+    1024 and 544 (the planar k-point batch's largest bucket; 32 blocks an
+    item, so as many groups of 32 as are resident take the items in
+    turns), and 2 x (4096, 4096) at pe = 4096 (128 blocks an item: one
+    group, the items one after the other). Each item bit-identical to its
+    unbatched launch, within K2_TOL of the batched plain version, one kernel
+    a call (counter and profiler); times at batch 64, pe = 1024 against the
+    bound of the batch's work and against one unbatched launch, and at
+    batch 2, mb = 4096 against K2's unbatched time. Adds the readings to
+    K2's entry under "batched"."""
+    from eigensolver_gpu_torch.ops.latrd import latrd_panel_plain, latrd_panel_planar
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    nb = 32
+    planes = {K1_BATCH: _herm_planes_on_card(torch, K1_BATCH, N_BATCHED, 22),
+              2: _herm_planes_on_card(torch, 2, 4096, 23)}
+    max_abs = 0.0
+    for batch, mb, pe in ((K1_BATCH, N_BATCHED, N_BATCHED), (K1_BATCH, N_BATCHED, 544),
+                          (2, 4096, 4096)):
+        ar, ai = planes[batch]
+        label = f"batch={batch} mb={mb} pe={pe}"
+        latrd_panel_planar.launches = 0
+        got = latrd_panel_planar(ar, ai, pe, nb=nb)
+        launches = latrd_panel_planar.launches
+        want = latrd_panel_plain(ar, ai, pe, nb=nb)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        max_abs = max(max_abs, max(e[1] for e in errs))
+        del want
+        same = _same_items(torch, got, lambda k: latrd_panel_planar(ar[k], ai[k], pe, nb=nb),
+                           batch)
+        _, kernels = _kineto(torch, lambda: latrd_panel_planar(ar, ai, pe, nb=nb), "latrd_")
+        log(f"K2 batched {label}: one launch (counter {launches}, kineto {kernels}), every item "
+            f"bit-identical to its unbatched launch: {same}, worst rel_err vs plain "
+            f"{max(e[0] for e in errs):.1e}")
+        if launches != 1 or kernels != 1 or not same or not max(e[0] for e in errs) <= K2_TOL:
+            raise RuntimeError(f"batched K2 disagrees at {label}")
+    batch, mb = K1_BATCH, N_BATCHED
+    ar, ai = planes[batch]
+    ms = device_ms(lambda: latrd_panel_planar(ar, ai, mb, nb=nb), iters=3)
+    one_ms = device_ms(lambda: latrd_panel_planar(ar[0], ai[0], mb, nb=nb), iters=10)
+    plain_ms = device_ms(lambda: latrd_panel_plain(ar, ai, mb, nb=nb), iters=1)
+    nbytes, flops = _k2_work(mb, mb, nb)
+    bound_ms, bound_by = bound(batch * nbytes, batch * flops)
+    xr, xi = planes[2]
+    two_ms = device_ms(lambda: latrd_panel_planar(xr, xi, 4096, nb=nb), iters=3)
+    log(f"K2 batched times at batch={batch} mb=pe={mb}: kernel {ms:.3f} ms in 1 launch "
+        f"({ms / batch * 1e3:.1f} us an item; one item alone {one_ms:.4f} ms, {batch} such "
+        f"launches {batch * one_ms:.3f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); library_ms null (no single call computes a zlatrd panel); batch=2 "
+        f"mb=pe=4096: {two_ms:.3f} ms (one item alone {entry['ms']:.3f} ms)")
+    entry["batched"] = {"batch": batch, "shape": f"mb=pe={mb} nb={nb} fp32", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "max_abs_err": max_abs}
+
+
+def _mv_bound(n, planes, itemsize=4, batch=1):
     """The upper triangle with its diagonal, n (n + 1) / 2 elements a plane,
     read once, v read and y written once: the work, whatever tile the
-    kernel uses."""
+    kernel uses (of each of ``batch`` problems)."""
     nbytes = itemsize * planes * (n * (n + 1) // 2 + 2 * n)
     flops = 2 * n * n * (1 if planes == 1 else 4)
-    return bound(nbytes, flops)
+    return bound(batch * nbytes, batch * flops)
 
 
 _FLUSH_KERNELS = set()  # device record names of the flush
@@ -780,6 +862,141 @@ def check_k3(torch):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "launches": launches,
     }
+
+
+def check_k4_batched(torch, entry):
+    """K4 on K1_BATCH x n = 1024 symmetric matrices (the real k-point
+    batch's largest bucket, lda = 1024) in one launch, fp32 and fp64, full
+    and at extent 999: each item bit-identical to its unbatched launch,
+    within MV_TOL (MV_TOL64) of the batched plain version, one kernel a
+    call (counter and profiler); times at fp32, full, warm and with a cold
+    L2, against the bound of the batch's work and the batched torch.matmul.
+    Adds the readings to K4's entry under "batched"."""
+    from eigensolver_gpu_torch.ops.symv import symv, symv_plain
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    batch, n = K1_BATCH, N_BATCHED
+    g = torch.Generator(device="cuda").manual_seed(24)
+    t = torch.randn((batch, n, n), generator=g, device="cuda", dtype=torch.float64)
+    a64 = (t + t.mT) / 2
+    del t
+    v64 = torch.randn((batch, n), generator=g, device="cuda", dtype=torch.float64)
+    a32, v32 = a64.float(), v64.float()
+    max_abs = 0.0
+    for name, a, v, tol in (("fp32", a32, v32, MV_TOL), ("fp64", a64, v64, MV_TOL64)):
+        for extent in (None, 999):
+            c = n if extent is None else extent
+            label = f"batch={batch} n={n} extent={extent} {name}"
+            symv.launches = 0
+            got = symv(a, v, extent=extent)
+            launches = symv.launches
+            want = symv_plain(a[:, :c, :c], v[:, :c])
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, want)
+            if tol == MV_TOL:
+                max_abs = max(max_abs, err)
+            same = _same_items(torch, (got,), lambda k: (symv(a[k], v[k], extent=extent),),
+                               batch)
+            _, kernels = _kineto(torch, lambda: symv(a, v, extent=extent), "symv_kernel")
+            log(f"K4 batched {label}: one launch (counter {launches}, kineto {kernels}), every "
+                f"item bit-identical to its unbatched launch: {same}, rel_err vs plain {rel:.2e}")
+            if launches != 1 or kernels != 1 or not same or got.shape != (batch, c) \
+                    or not rel <= tol:
+                raise RuntimeError(f"batched K4 disagrees at {label}")
+    ms = device_ms(lambda: symv(a32, v32), iters=20)
+    cold = _cold_ms(torch, lambda: symv(a32, v32), iters=5)
+    one_ms = device_ms(lambda: symv(a32[0], v32[0]), iters=100)
+    ms64 = device_ms(lambda: symv(a64, v64), iters=20)
+    plain_ms = device_ms(lambda: symv_plain(a32, v32), iters=1)
+    with true_fp32():
+        library_ms = device_ms(lambda: torch.matmul(a32, v32[..., None]), iters=20)
+    bound_ms, bound_by = _mv_bound(n, 1, batch=batch)
+    b64, _ = _mv_bound(n, 1, itemsize=8, batch=batch)
+    log(f"K4 batched times at batch={batch} n={n} fp32: kernel {ms:.4f} ms warm, {cold:.4f} cold "
+        f"({bound_ms / cold:.0%} of the bound; one item alone {one_ms:.4f} ms warm), plain "
+        f"{plain_ms:.3f} ms, library (torch.matmul (B, n, n) x (B, n, 1), full matrices) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); fp64 {ms64:.4f} ms warm "
+        f"against its bound {b64:.4f} ms")
+    entry["batched"] = {"batch": batch, "shape": f"n={n} fp32", "ms": ms, "cold_ms": cold,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "max_abs_err": max_abs}
+
+
+def check_k3_batched(torch, entry):
+    """K3 on K1_BATCH x n = 1024 planar Hermitian matrices in one launch,
+    full and at extent 999: each item bit-identical to its unbatched launch,
+    within MV_TOL of the batched plain version, one kernel a call (counter
+    and profiler); times against the bound of the batch's work and the
+    batched complex64 torch.matmul; then one full panel of the planar column
+    loop with use_pallas on the batch (32 launches, one a column for the
+    whole batch) against the loop without it. Adds the readings to K3's
+    entry under "batched"."""
+    from eigensolver_gpu_torch.ops.symv import hemv_planar, hemv_planar_plain
+    from eigensolver_gpu_torch.ops.sytrd_planar import _panel_columns_planar
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    batch, n = K1_BATCH, N_BATCHED
+    ar, ai = _herm_planes_on_card(torch, batch, n, 33)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    vr, vi = torch.randn((2, batch, n), generator=g, device="cuda")
+    max_abs = 0.0
+    for extent in (None, 999):
+        c = n if extent is None else extent
+        label = f"batch={batch} n={n} extent={extent}"
+        hemv_planar.launches = 0
+        got = hemv_planar(ar, ai, vr, vi, extent=extent)
+        launches = hemv_planar.launches
+        want = hemv_planar_plain(ar[:, :c, :c], ai[:, :c, :c], vr[:, :c], vi[:, :c])
+        torch.cuda.synchronize()
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(float((x - w).abs().max()) for x, w in zip(got, want))
+        max_abs = max(max_abs, err)
+        same = _same_items(torch, got,
+                           lambda k: hemv_planar(ar[k], ai[k], vr[k], vi[k], extent=extent), batch)
+        _, kernels = _kineto(torch, lambda: hemv_planar(ar, ai, vr, vi, extent=extent),
+                             "hemv_planar_kernel")
+        log(f"K3 batched {label}: one launch (counter {launches}, kineto {kernels}), every item "
+            f"bit-identical to its unbatched launch: {same}, rel_err vs plain {err / scale:.2e}")
+        if launches != 1 or kernels != 1 or not same or not err <= MV_TOL * scale:
+            raise RuntimeError(f"batched K3 disagrees at {label}")
+    ms = device_ms(lambda: hemv_planar(ar, ai, vr, vi), iters=20)
+    one_ms = device_ms(lambda: hemv_planar(ar[0], ai[0], vr[0], vi[0]), iters=100)
+    plain_ms = device_ms(lambda: hemv_planar_plain(ar, ai, vr, vi), iters=1)
+    ac, vc = torch.complex(ar, ai), torch.complex(vr, vi)[..., None]
+    with true_fp32():
+        library_ms = device_ms(lambda: torch.matmul(ac, vc), iters=20)
+    del ac, vc
+    bound_ms, bound_by = _mv_bound(n, 2, batch=batch)
+    log(f"K3 batched times at batch={batch} n={n}: kernel {ms:.4f} ms warm (one item alone "
+        f"{one_ms:.4f} ms), plain {plain_ms:.3f} ms, library (torch.matmul complex64 (B, n, n) x "
+        f"(B, n, 1)) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # the path that launches K3, on the batch: one full panel of the column loop
+    nb, outs = 32, {}
+    for use_pallas in (False, True):
+        pr, pi = ar.clone(), ai.clone()
+        d, e, taur, taui = (torch.zeros((batch, n), device="cuda") for _ in range(4))
+        hemv_planar.launches = 0
+        with true_fp32():
+            panels = _panel_columns_planar(pr, pi, d, e, taur, taui, n, nb,
+                                           use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        outs[use_pallas] = (*panels, pr[..., n - nb:], pi[..., n - nb:], d, e, taur, taui)
+        launches = hemv_planar.launches
+        if launches != (nb if use_pallas else 0):
+            raise RuntimeError(f"batched K3 launches in one panel: {launches} "
+                               f"(use_pallas={use_pallas})")
+    names = ["vr", "vi", "wr", "wi", "colr", "coli", "d", "e", "taur", "taui"]
+    errs = [rel_err(x, w)[0] for x, w in zip(outs[True], outs[False])]
+    log(f"K3 batched panel batch={batch} mb=pe={n}: launches {launches}, rel_err kernel path vs "
+        "matmul path " + " ".join(f"{nm}={x:.1e}" for nm, x in zip(names, errs)))
+    if not max(errs) <= K2_TOL:
+        raise RuntimeError("the batched planar column loop with K3 disagrees with the matmul path")
+    entry["batched"] = {"batch": batch, "shape": f"n={n} fp32", "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                        "max_abs_err": max_abs, "launches": launches}
 
 
 def _timed_once(torch, fn):
@@ -2680,6 +2897,141 @@ def phase_batched_real_two_stage(torch):
             "real_item_by_item_ms": turn_ms}
 
 
+def _pallas_batch(torch, what, solve, item_solve, pair, residual, want, keys):
+    """One batched use_pallas=True solve of the k-point batch: info,
+    residual over every item (``residual(res)``), the launches by the
+    wrappers' counters (``want``: wrapper -> launches a batched solve) and
+    by kineto (``keys``: kernel name key -> launches), wall ms of the first
+    and of a timed solve, stage ms, busy ms, idle share and peak memory;
+    items 0, 21, 42, 63 against their unbatched solves (``item_solve(k)``;
+    ``pair(res, k)`` gives an item's (w, z)), whose mean wall ms times the
+    batch is the item-by-item yardstick. Returns the readings."""
+    from eigensolver_gpu_torch.utils.timer import wall_ms
+
+    batch = K1_BATCH
+    for fn in want:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, first_ms = _timed_once(torch, solve)
+    counts = {fn.__name__: fn.launches for fn in want}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    info = res.info.cpu().tolist()
+    resid = residual(res)
+    finite = all(bool(torch.isfinite(x).all()) for x in res[:-1])
+    times = wall_ms(solve, iters=1)
+    batched_ms = min(times)
+    log(f"{what}: info all 0: {set(info) == {0}}, residual (max over items) {resid:.3e}, first "
+        f"{first_ms:.1f} ms, timed {[round(x, 1) for x in times]} ms = "
+        f"{batched_ms / batch:.2f} ms a problem, launches {counts}, peak memory {peak:.2f} GiB")
+    if len(info) != batch or set(info) != {0} or not finite or not resid <= 1e-13:
+        raise RuntimeError(f"{what} wrong: info={info} finite={finite} residual={resid}")
+    if counts != {fn.__name__: v for fn, v in want.items()}:
+        raise RuntimeError(f"{what}: launch counts {counts}, want one batched solve's")
+    stages, totals = _breakdown(torch, solve, batched_ms, kernels=tuple(keys))
+    seen = {k: totals[k][1] for k in keys}
+    if seen != keys:
+        raise RuntimeError(f"{what}: one batched solve ran {seen} kernels (kineto), want {keys}")
+    item_ms = []
+    for k in (0, batch // 3, 2 * batch // 3, batch - 1):  # 0, 21, 42, 63
+        # one solve an item, timed (the batched solves before it warmed the path)
+        single, ms = _timed_once(torch, lambda: item_solve(k))
+        item_ms.append(ms)
+        werr, vdist = _held_items(torch, pair(res, k), pair(single, None), f"{what} item {k}")
+        log(f"  item {k} against its unbatched use_pallas solve: eigenvalues {werr:.2e} "
+            f"relative, vectors {vdist:.2e}, info {int(single.info)}, unbatched "
+            f"{item_ms[-1]:.1f} ms")
+    turn_ms = sum(item_ms) / len(item_ms) * batch
+    log(f"{what} item by item, estimated: {batch} x the mean of the four unbatched solves = "
+        f"{turn_ms:.1f} ms ({turn_ms / batched_ms:.2f}x the batched solve)")
+    return {"launches": counts, "ms": batched_ms, "first_ms": first_ms,
+            "item_by_item_ms": turn_ms, "residual": resid, "peak_gib": peak,
+            "kernel_ms": {k: totals[k][0] for k in keys},
+            "stages": {k: round(v, 1) for k, v in stages.items()}}
+
+
+def phase_batched_pallas(torch):
+    """The k-point batches of phase 10 with use_pallas=True, each as one
+    batched solve (before the batch axes of K2 and K4 the batched entries
+    solved such a batch item by item): zhegvdx_planar_batched on 64 x
+    random_hpd_pair(1024, seed=k), iu=128, mp (K1 8 and K2 16 launches: the
+    1024, 768, 512 and 256 buckets at bucket=128, four panels each), then
+    sygvdx_batched on 64 x random_spd_pair(1024), iu=64, mp (K4 512: the
+    1024 and 512 buckets at bucket=256, 16 panels of 32 columns), each with
+    _pallas_batch's readings; then the first 8 planar pairs with
+    use_pallas=True and tridiag_mode='two' as one batched solve (K6 31, K8
+    1, K10 1, no K2). Returns the readings."""
+    import numpy as np
+
+    from eigensolver_gpu_torch import (
+        SolverConfig,
+        sygvdx,
+        sygvdx_batched,
+        zhegvdx_planar,
+        zhegvdx_planar_batched,
+    )
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.latrd import latrd_panel_planar
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel_planar
+    from eigensolver_gpu_torch.ops.replay import apply_q2_planar_kernel
+    from eigensolver_gpu_torch.ops.symv import symv
+
+    batch, n = K1_BATCH, N_BATCHED
+    cfg = SolverConfig(compute_dtype="float32", refine_iters=2, use_pallas=True)
+    out = {}
+    args = _kpoint_batch(torch, "main (batched, use_pallas)")
+    planar_pair = lambda r, k: ((r.w, torch.complex(r.zr, r.zi)) if k is None
+                                else (r.w[k], torch.complex(r.zr[k], r.zi[k])))
+    out["planar"] = _pallas_batch(
+        torch, f"main (batched, use_pallas) planar: {batch} x n={n} iu={IU_BATCHED} mp",
+        lambda: zhegvdx_planar_batched(*args, il=1, iu=IU_BATCHED, cfg=cfg),
+        lambda k: zhegvdx_planar(*(x[k] for x in args), il=1, iu=IU_BATCHED, cfg=cfg),
+        planar_pair, lambda r: _device_residual(torch, args, r),
+        {pchol_block_planar: n // 128, latrd_panel_planar: 16},
+        {"pchol_block_kernel": n // 128, "latrd_": 16})
+
+    # use_pallas with the two-stage reduction: K2 takes no part, and the
+    # batch runs as one batched two-stage solve
+    cfg_two = SolverConfig(compute_dtype="float32", refine_iters=2, use_pallas=True,
+                           tridiag_mode="two")
+    few = tuple(x[:8] for x in args)
+    wrappers = (pchol_block_planar, latrd_panel_planar, ql_panel_planar,
+                bulge_chase_planar_kernel, apply_q2_planar_kernel)
+    for fn in wrappers:
+        fn.launches = 0
+    res, two_ms = _timed_once(
+        torch, lambda: zhegvdx_planar_batched(*few, il=1, iu=IU_BATCHED, cfg=cfg_two))
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    resid = _device_residual(torch, few, res)
+    info = res.info.cpu().tolist()
+    log(f"main (batched, use_pallas) planar two-stage: 8 x n={n} iu={IU_BATCHED} mp, one batched "
+        f"solve {two_ms:.1f} ms (first call), info {info}, residual {resid:.3e}, launches {counts}")
+    want = {"pchol_block_planar": n // 128, "latrd_panel_planar": 0,
+            "ql_panel_planar": n // BAND - 1, "bulge_chase_planar_kernel": 1,
+            "apply_q2_planar_kernel": 1}
+    if set(info) != {0} or not resid <= 1e-13 or counts != want:
+        raise RuntimeError(f"batched use_pallas two-stage solve: info {info}, residual {resid}, "
+                           f"launches {counts}, want {want}")
+    out["planar_two_stage_8_ms"] = two_ms
+    del args, few, res
+
+    t0 = time.perf_counter()
+    pairs = _pairs("random_spd_pair", n, batch)
+    a = torch.tensor(np.stack([p[0] for p in pairs]), device="cuda")
+    b = torch.tensor(np.stack([p[1] for p in pairs]), device="cuda")
+    del pairs
+    log(f"main (batched, use_pallas) real: {batch} x random_spd_pair({n}, seed=k) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    real_pair = lambda r, k: (r.w, r.z) if k is None else (r.w[k], r.z[k])
+    out["real"] = _pallas_batch(
+        torch, f"main (batched, use_pallas) real: {batch} x n={n} iu={IU_BATCHED_REAL} mp",
+        lambda: sygvdx_batched(a, b, il=1, iu=IU_BATCHED_REAL, cfg=cfg),
+        lambda k: sygvdx(a[k], b[k], il=1, iu=IU_BATCHED_REAL, cfg=cfg),
+        real_pair, lambda r: _real_residual(torch, a, b, r),
+        {symv: (n // 512) * (256 // 32) * 32}, {"symv_kernel": (n // 512) * (256 // 32) * 32})
+    return out
+
+
 def _embedded_readings(torch, what, solve, args, want, wrappers):
     """One embedded solve on ``args`` (fp64 planes, a batch or not) with
     synchronizing ranges, then one under the profiler: info, the device
@@ -3455,6 +3807,7 @@ def _with(torch, check_batched, entry):
 def _kernels_k1_k2(torch):
     kernels = [check_k1(torch), check_k2(torch)]
     check_k1_batched(torch, kernels[0])
+    check_k2_batched(torch, kernels[1])
     return {"kernels": kernels}
 
 
@@ -3483,7 +3836,8 @@ def _new_routes(torch):
 # row on the card.
 GROUPS = {
     "K1, K2": _kernels_k1_k2,
-    "K3, K4": lambda torch: {"kernels": [check_k3(torch), check_k4(torch)]},
+    "K3, K4": lambda torch: {"kernels": [_with(torch, check_k3_batched, check_k3(torch)),
+                                         _with(torch, check_k4_batched, check_k4(torch))]},
     "K5": lambda torch: {"kernels": [_with(torch, check_k5_batched, check_k5(torch))]},
     "K6": lambda torch: {"kernels": [_with(torch, check_k6_batched, check_k6(torch))]},
     "K7": lambda torch: {"kernels": [_with(torch, check_k7_batched, check_k7(torch))]},
@@ -3499,6 +3853,7 @@ GROUPS = {
     "main (batched, two-stage)": lambda torch: {"batched": phase_batched_two_stage(torch)},
     "main (batched real, two-stage)": lambda torch: {
         "batched_real": phase_batched_real_two_stage(torch)},
+    "main (batched, use_pallas)": lambda torch: {"pallas": phase_batched_pallas(torch)},
     "main (embedded)": lambda torch: {"embedded": phase_embedded(torch)},
     "trinv, ozaki, stedc": _new_routes,
     "sharded (tp, one rank)": phase_sharded_tp,
@@ -3518,6 +3873,8 @@ PREPARE = {
                        ("random_spd_pair", N_BATCHED, K1_BATCH)],
     "main (batched, two-stage)": [("random_hpd_pair", N_BATCHED, K1_BATCH)],
     "main (batched real, two-stage)": [("random_spd_pair", N_BATCHED, K1_BATCH)],
+    "main (batched, use_pallas)": [("random_hpd_pair", N_BATCHED, K1_BATCH),
+                                   ("random_spd_pair", N_BATCHED, K1_BATCH)],
     "main (embedded)": [("random_hpd_pair", N_MAIN, (0,)),
                         ("random_hpd_pair", N_EMBED_BATCHED, EMBED_BATCH)],
     "trinv, ozaki, stedc": [("random_hpd_pair", N_MAIN, (0,)), ("qe_style_pair", N_MAIN, (0,))],
@@ -3575,7 +3932,7 @@ def _merge_result(result, kernels, launches, readings):
     launches.update(result.get("launches", {}))
     readings.update({k: v for k, v in result.items()
                      if k in ("batched", "batched_real", "embedded", "batched_one_stage_ms",
-                              "batched_real_one_stage_ms", "tp", "two_ranks")})
+                              "batched_real_one_stage_ms", "tp", "two_ranks", "pallas")})
 
 
 def _prepare(name):
@@ -3693,6 +4050,18 @@ def _main_groups(torch):
         f"each: one-stage batched {readings['batched_real_one_stage_ms']:.1f} ms, two-stage "
         f"batched {real['batched_real_two_stage_ms']:.1f} ms, two-stage item by item (estimated "
         f"from four items) {real['real_item_by_item_ms']:.1f} ms")
+    pallas = readings["pallas"]
+    for k in kernels:  # K2, K4: launches a batched use_pallas solve of the k-point batch
+        for route in (pallas["planar"], pallas["real"]):
+            if k["name"] in route["launches"]:
+                k["batched"]["launches"] = route["launches"][k["name"]]
+    for name, one_stage in (("planar", readings["batched_one_stage_ms"]),
+                            ("real", readings["batched_real_one_stage_ms"])):
+        r = pallas[name]
+        log(f"the {name} k-point batch with use_pallas=True, one-stage: one batched solve "
+            f"{r['ms']:.1f} ms, item by item (estimated from four items) "
+            f"{r['item_by_item_ms']:.1f} ms; without use_pallas (phase 10) one batched solve "
+            f"{one_stage:.1f} ms")
     emb = readings["embedded"]
     log(f"the complex embedding (fp64): n={N_MAIN} iu={IU_MAIN} {emb['embedded_ms']:.1f} ms, "
         f"{EMBED_BATCH} x n={N_EMBED_BATCHED} iu={IU_EMBED_BATCHED} batched "

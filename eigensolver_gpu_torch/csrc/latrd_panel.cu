@@ -47,9 +47,20 @@
 // published w there (rounded without contraction, so it is the owner's
 // bits). The parts are reduced in block order by every block (no float
 // atomics), so two calls give the same bits. Sums are taken in another
-// order than the TPU's, so outputs agree to a tolerance, not bitwise. The
-// launch fails (cudaErrorCooperativeLaunchTooLarge) when the blocks cannot
-// all be resident; there is no fallback.
+// order than the TPU's, so outputs agree to a tolerance, not bitwise.
+//
+// A batch of problems (one mb, one panel_end; the JAX kernel under
+// jax.vmap) is one launch too: the grid holds G = min(batch, resident /
+// blocks) groups of ceil(mb / 32) blocks, and group g takes items g, g + G,
+// .. in turn, each with its own slice of the scratch and of the outputs.
+// The groups run in lockstep behind the grid barriers: a group with no item
+// in the last round only takes part in them. An item keeps the unbatched
+// block count and block-order sums, so its outputs are the bits of its
+// unbatched launch (where its rows are 16-byte aligned alike). A batch of
+// one runs a kernel instance of its own (kBatched false) that reads its
+// problem from the parameters, as before the batch axis. The launch fails
+// (cudaErrorCooperativeLaunchTooLarge) when one group cannot be resident;
+// there is no fallback.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,7 +95,51 @@ struct Panel {
   int lda, mb, pe, nb;
   float* pan;   // [6][nb][mb] slot-major
   float* scal;  // [4][nb]
-  float* scr;   // x [2][mb], kPub scalars, kFields x gridDim.x parts
+  float* scr;   // x [2][mb], kPub scalars, kFields x G parts
+  long long sa;  // batch stride of ar and ai
+  int batch, groups;
+};
+
+// floats of one problem's scratch
+__host__ __device__ inline size_t latrd_scratch(int mb) {
+  return 2 * mb + kPub + kFields * kGMax;
+}
+
+// The item a block of a batched launch works on: its pointers and the
+// block's place in its group. Kept in shared memory and read where used, so
+// that they do not stay in registers over the column loop (held there, they
+// made the kernel spill).
+struct Item {
+  const float* ar;
+  const float* ai;
+  float* pan;
+  float* scal;
+  float* scr;
+  int blk;
+};
+
+// Where panel() finds its problem: an unbatched launch in the kernel's
+// parameters and blockIdx (as before the batch axis: read in place, they
+// cost no registers; read through the Item, the unbatched panel was
+// slower), a batched one in the Item.
+struct FromParams {
+  const Panel& p;
+  __device__ const float* ar() const { return p.ar; }
+  __device__ const float* ai() const { return p.ai; }
+  __device__ float* pan() const { return p.pan; }
+  __device__ float* scal() const { return p.scal; }
+  __device__ float* scr() const { return p.scr; }
+  __device__ int blk() const { return blockIdx.x; }
+};
+
+struct FromItem {
+  const Item& it;
+  __device__ const float* ar() const { return it.ar; }
+  __device__ const float* ai() const { return it.ai; }
+  __device__ float* pan() const { return it.pan; }
+  __device__ float* scal() const { return it.scal; }
+  __device__ float* scr() const { return it.scr; }
+  __device__ int blk() const { return it.blk; }
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -150,8 +205,11 @@ __device__ __forceinline__ float2 row_dot(const float* __restrict__ pr,
   return make_float2(warp_sum(sr), warp_sum(si));
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p) {
+// One panel of the problem that `src` points to, on the G = ceil(mb / 32)
+// blocks of a group.
+template <bool kVec, typename Src>
+__device__ __forceinline__ void panel(const Panel& p, const Src& src) {
+  const int G = (p.mb + kRows - 1) / kRows;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int mbp = (p.mb + 3) & ~3;
@@ -164,21 +222,20 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
   float* sc = zr + 4 * kNbMax;               // [kSc]
   auto slab = [&](int plane, int k) { return sv + (plane * kNbMax + k) * kSlabLd; };
   auto vec = [&](int which) { return rv + which * kRows; };
-  auto slot = [&](int plane, int k) { return p.pan + ((size_t)plane * p.nb + k) * p.mb; };
+  auto slot = [&](int plane, int k) { return src.pan() + ((size_t)plane * p.nb + k) * p.mb; };
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int G = gridDim.x, blk = blockIdx.x;
-  const int r_lo = blk * kRows;
+  const int r_lo = src.blk() * kRows;
   const int nrow = min(kRows, p.mb - r_lo);
-  float* xg_r = p.scr;
+  float* xg_r = src.scr();
   float* xg_i = xg_r + p.mb;
   float* pub = xg_i + p.mb;
   float* part = pub + kPub;
   auto field = [&](int f) { return part + (size_t)f * G; };
 
   if (t < nrow) {  // the first column's raw entries
-    vec(R_CR)[t] = __ldg(p.ar + (size_t)(r_lo + t) * p.lda + p.pe - 1);
-    vec(R_CI)[t] = __ldg(p.ai + (size_t)(r_lo + t) * p.lda + p.pe - 1);
+    vec(R_CR)[t] = __ldg(src.ar() + (size_t)(r_lo + t) * p.lda + p.pe - 1);
+    vec(R_CI)[t] = __ldg(src.ai() + (size_t)(r_lo + t) * p.lda + p.pe - 1);
   }
 
   for (int s = 0; s < p.nb; ++s) {
@@ -232,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
         q = xr * xr + xi * xi;
       }
       q = warp_sum(q);
-      if (lane == 0) field(F_XN)[blk] = q;
+      if (lane == 0) field(F_XN)[src.blk()] = q;
     }
     grid.sync();
 
@@ -265,11 +322,11 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
     float sc_r = dr / safe_den, sc_i = -alphi / safe_den;
     if (trivial || !has_r) tk_r = tk_i = sc_r = sc_i = 0.f;
     if (trivial) beta = alphr;
-    if (blk == 0 && t == 0) {
-      p.scal[s] = d_val;
-      p.scal[p.nb + s] = has_r ? beta : 0.f;
-      p.scal[2 * p.nb + s] = tk_r;
-      p.scal[3 * p.nb + s] = tk_i;
+    if (src.blk() == 0 && t == 0) {
+      src.scal()[s] = d_val;
+      src.scal()[p.nb + s] = has_r ? beta : 0.f;
+      src.scal()[2 * p.nb + s] = tk_r;
+      src.scal()[3 * p.nb + s] = tk_i;
     }
     if (t < nrow) {
       const int r = r_lo + t;
@@ -303,7 +360,8 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
     if (warp < nrow) {  // a warp a slab row
       const int i = warp, r = r_lo + i;
       if (r < cj) {
-        const float2 u = row_dot<kVec>(p.ar + (size_t)r * p.lda, p.ai + (size_t)r * p.lda,
+        const float2 u = row_dot<kVec>(src.ar() + (size_t)r * p.lda,
+                                       src.ai() + (size_t)r * p.lda,
                                        xs_r, xs_i, ncol, lane);
         if (lane == 0) {
           vec(R_UR)[i] = u.x;
@@ -311,8 +369,8 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
         }
       }
       if (lane == 1 && has_r) {  // A[r, cj - 1]: y's term of v's unit entry, the next raw column
-        vec(R_CR)[i] = __ldg(p.ar + (size_t)r * p.lda + cj - 1);
-        vec(R_CI)[i] = __ldg(p.ai + (size_t)r * p.lda + cj - 1);
+        vec(R_CR)[i] = __ldg(src.ar() + (size_t)r * p.lda + cj - 1);
+        vec(R_CI)[i] = __ldg(src.ai() + (size_t)r * p.lda + cj - 1);
       }
     }
     if (warp < s) {  // warp k: the slab's (W^H x)_k and (V^H x)_k
@@ -333,10 +391,10 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
       a2 = warp_sum(a2);
       a3 = warp_sum(a3);
       if (lane == 0) {
-        field(F_Z + 4 * k)[blk] = a0;
-        field(F_Z + 4 * k + 1)[blk] = a1;
-        field(F_Z + 4 * k + 2)[blk] = a2;
-        field(F_Z + 4 * k + 3)[blk] = a3;
+        field(F_Z + 4 * k)[src.blk()] = a0;
+        field(F_Z + 4 * k + 1)[src.blk()] = a1;
+        field(F_Z + 4 * k + 2)[src.blk()] = a2;
+        field(F_Z + 4 * k + 3)[src.blk()] = a3;
       }
     }
     grid.sync();
@@ -423,8 +481,8 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
       hr = warp_sum(hr);
       hi = warp_sum(hi);
       if (lane == 0) {
-        field(F_HR)[blk] = hr;
-        field(F_HI)[blk] = hi;
+        field(F_HR)[src.blk()] = hr;
+        field(F_HI)[src.blk()] = hi;
       }
     }
     grid.sync();
@@ -463,6 +521,35 @@ __global__ void __launch_bounds__(kThreads, 1) latrd_panel_kernel(const Panel p)
   }
 }
 
+template <bool kVec, bool kBatched>
+__global__ void __launch_bounds__(kThreads, 1)
+    latrd_panel_kernel(const __grid_constant__ Panel p) {
+  if constexpr (!kBatched) {
+    panel<kVec>(p, FromParams{p});
+    return;
+  }
+  __shared__ Item it;
+  const int G = gridDim.x / p.groups;  // blocks of a group
+  // group g takes items g, g + groups, ..: as many rounds as the first group
+  const int end = (p.batch + p.groups - 1) / p.groups * p.groups;
+  for (int k = (int)blockIdx.x / G; k < end; k += p.groups) {
+    if (k >= p.batch) {  // no item for this group: only the columns' three barriers
+      for (int b = 0; b < 3 * p.nb; ++b) cg::this_grid().sync();
+      continue;
+    }
+    __syncthreads();  // the block is done with the item before
+    if (threadIdx.x == 0) {
+      it.ar = p.ar + k * p.sa, it.ai = p.ai + k * p.sa;
+      it.pan = p.pan + (size_t)k * 6 * p.nb * p.mb;
+      it.scal = p.scal + (size_t)k * 4 * p.nb;
+      it.scr = p.scr + k * latrd_scratch(p.mb);
+      it.blk = (int)blockIdx.x % G;
+    }
+    __syncthreads();
+    panel<kVec>(p, FromItem{it});
+  }
+}
+
 size_t smem_bytes(int mb) {
   const int mbp = (mb + 3) & ~3;
   return sizeof(float) *
@@ -472,25 +559,30 @@ size_t smem_bytes(int mb) {
 }  // namespace
 
 // Floats of the scratch a panel of mb rows needs (latrd_panel_planar_launch).
-extern "C" int latrd_panel_scratch_floats(int mb) {
-  return 2 * mb + kPub + kFields * kGMax;
-}
+extern "C" int latrd_panel_scratch_floats(int mb) { return (int)latrd_scratch(mb); }
 
-// Run one panel on `stream` in one cooperative launch. pan [6][nb][mb] and
-// scal [4][nb] are written in full; scratch holds
-// latrd_panel_scratch_floats(mb) floats. Returns the first cudaError_t met
-// while launching (0 = launched); cudaErrorCooperativeLaunchTooLarge when
-// the ceil(mb / 32) blocks cannot all be resident.
-extern "C" int latrd_panel_planar_launch(const float* ar, const float* ai, int lda, int mb,
-                                         int pe, int nb, float* pan, float* scal,
-                                         float* scratch, void* stream) {
-  if (nb < 1 || nb > kNbMax || pe < nb || pe > mb || mb > kMbMax || lda < mb)
+// Run one panel of each of `batch` problems on `stream` in one cooperative
+// launch; item k's planes start at ar + k * sa, ai + k * sa. pan
+// [batch][6][nb][mb] and scal [batch][4][nb] are written in full; scratch
+// holds batch * latrd_panel_scratch_floats(mb) floats. Returns the first
+// cudaError_t met while launching (0 = launched);
+// cudaErrorCooperativeLaunchTooLarge when the ceil(mb / 32) blocks of one
+// problem cannot all be resident.
+extern "C" int latrd_panel_planar_launch(const float* ar, const float* ai, int lda,
+                                         long long sa, int mb, int pe, int nb, float* pan,
+                                         float* scal, float* scratch, int batch,
+                                         void* stream) {
+  if (nb < 1 || nb > kNbMax || pe < nb || pe > mb || mb > kMbMax || lda < mb || batch < 1)
     return (int)cudaErrorInvalidValue;
-  Panel p{ar, ai, lda, mb, pe, nb, pan, scal, scratch};
-  const bool vec = lda % 4 == 0 &&
+  Panel p{ar, ai, lda, mb, pe, nb, pan, scal, scratch, sa, batch, 1};
+  const bool vec = lda % 4 == 0 && sa % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(ar) | reinterpret_cast<uintptr_t>(ai)) % 16 == 0;
-  const void* kernel = vec ? reinterpret_cast<const void*>(latrd_panel_kernel<true>)
-                           : reinterpret_cast<const void*>(latrd_panel_kernel<false>);
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(latrd_panel_kernel<false, false>),
+       reinterpret_cast<const void*>(latrd_panel_kernel<false, true>)},
+      {reinterpret_cast<const void*>(latrd_panel_kernel<true, false>),
+       reinterpret_cast<const void*>(latrd_panel_kernel<true, true>)}};
+  const void* kernel = kernels[vec][batch > 1];
   const int blocks = (mb + kRows - 1) / kRows;
   const size_t smem = smem_bytes(mb);
   cudaError_t err =
@@ -503,8 +595,9 @@ extern "C" int latrd_panel_planar_launch(const float* ar, const float* ai, int l
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  p.groups = min(batch, per_sm * sms / blocks);
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks * p.groups), dim3(kThreads), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -71,16 +71,29 @@
 //   The launch fails (cudaErrorCooperativeLaunchTooLarge) when the blocks
 //   cannot all be resident; the grid never asks for more than the occupancy
 //   calculator allows.
+//   A batch of problems (one n, one extent) is still one cooperative launch.
+//   Each item keeps the split of its unbatched launch: min(tiles, resident
+//   blocks of the unbatched kernel) *virtual* blocks, taking their tiles by
+//   the same integer rule, so its partials, and the fixed-order sums over
+//   them, are the unbatched bits. The one-wave grid walks the (item,
+//   virtual block) pairs, grid-strided; each item has its own slice of the
+//   partial scratch, and after the one grid barrier the final sums run over
+//   (item, row slice). The batched walk is a kernel instance of its own
+//   (kBatched): in the unbatched one the item is the constant 0, which keeps
+//   its registers and time those of the kernel before the batch axis (the
+//   item's offsets held in one instance for both made the unbatched K4 and
+//   K3 slower, K3 with a stack frame).
 //
-// C entries (a: row-major view, unit column stride, row stride lda >= n;
-// `part`: a scratch of symv_part_elems(n, planes) elements of the matrix's
-// type; all on the card, launched on `stream`; a launch returns a
-// cudaError_t code):
-//   symv_f32_launch(a, lda, n, v, part, y, stream)          K4 fp32
-//   symv_f64_launch(a, lda, n, v, part, y, stream)          K4 fp64
-//   hemv_planar_launch(ar, ai, lda, n, vr, vi, part, y, stream)
-//                      K3 fp32, y = (yr, yi) as 2 x n
-//   symv_part_elems(n, planes)
+// C entries (a: row-major views, unit column stride, row stride lda >= n,
+// item k at a + k * sa; v: item k at v + k * sv; `part`: a scratch of
+// batch * symv_part_elems(n, planes) elements of the matrix's type; y:
+// batch x planes x n; all on the card, launched on `stream`; a launch
+// returns a cudaError_t code):
+//   symv_f32_launch(a, lda, sa, n, v, sv, part, y, batch, stream)      K4 fp32
+//   symv_f64_launch(a, lda, sa, n, v, sv, part, y, batch, stream)      K4 fp64
+//   hemv_planar_launch(ar, ai, lda, sa, n, vr, vi, sv, part, y, batch, stream)
+//                      K3 fp32, an item's y = (yr, yi) as 2 x n
+//   symv_part_elems(n, planes)           the scratch of one item
 // Plain FMA arithmetic, no tensor cores.
 
 #include <cooperative_groups.h>
@@ -114,10 +127,11 @@ template <typename T, int P>
 struct Args {
   const T* a[P];
   const T* v[P];
-  T* part;     // row partials [P][tiles][64], then column partials [P][tiles][64]
-  T* y;        // P planes of n
-  unsigned tiles, blocks;  // upper tiles; blocks of the grid
-  int lda, n, nt;
+  T* part;     // an item: row partials [P][tiles][64], then column partials [P][tiles][64]
+  T* y;        // an item: P planes of n
+  long long sa, sv, sp;  // batch strides of a, v and part (y: P n)
+  unsigned tiles, blocks;  // upper tiles; virtual blocks of an item
+  int lda, n, nt, batch;
   bool wide;   // 16-byte aligned rows: 16-byte copies
 };
 
@@ -170,11 +184,15 @@ __device__ __forceinline__ unsigned block_of(unsigned t, unsigned tiles, unsigne
   return ((t + 1) * blocks - 1) / tiles;
 }
 
-// Stage tile (bi, bj) and the vector slices it needs; zero past n.
+// Stage tile (bi, bj) of problem `item` and the vector slices it needs; zero
+// past n.
+// (The item's pointers are formed here from the kernel parameters: a copy
+// of them held over the tile loop cost K3 a stack frame.)
 template <typename T, int P>
-__device__ __forceinline__ void issue_tile(const Args<T, P>& g, T* stage, int bi, int bj) {
+__device__ __forceinline__ void issue_tile(const Args<T, P>& g, int item, T* stage, int bi,
+                                           int bj) {
   const int r0 = bi * kTile, c0 = bj * kTile;
-  const size_t lda = (size_t)g.lda;
+  const size_t lda = (size_t)g.lda, oa = (size_t)item * g.sa;
   if (g.wide) {
     constexpr int kVec = 16 / sizeof(T);
     constexpr int kChunks = kTile / kVec;  // a tile row
@@ -186,7 +204,7 @@ __device__ __forceinline__ void issue_tile(const Args<T, P>& g, T* stage, int bi
         const int row = c / kChunks, col = (c % kChunks) * kVec;
         const int gr = r0 + row, gc = c0 + col;
         const int valid = gr < g.n ? min(max(g.n - gc, 0), kVec) : 0;
-        const T* src = valid ? g.a[p] + gr * lda + gc : g.a[p];
+        const T* src = g.a[p] + oa + (valid ? gr * lda + gc : 0);
         cp_async16(stage + p * kTileElems + row * kTile + col, src, valid * (int)sizeof(T));
       }
     }
@@ -199,15 +217,15 @@ __device__ __forceinline__ void issue_tile(const Args<T, P>& g, T* stage, int bi
         const int row = e / kTile, col = e % kTile;
         const int gr = r0 + row, gc = c0 + col;
         const bool in = gr < g.n && gc < g.n;
-        cp_async_elem<sizeof(T)>(stage + p * kTileElems + e, in ? g.a[p] + gr * lda + gc : g.a[p],
-                                 in ? (int)sizeof(T) : 0);
+        cp_async_elem<sizeof(T)>(stage + p * kTileElems + e,
+                                 g.a[p] + oa + (in ? gr * lda + gc : 0), in ? (int)sizeof(T) : 0);
       }
     }
   }
   if (threadIdx.x < 2 * P * kTile) {  // vi planes, then vj planes
     const int w = threadIdx.x / kTile, k = threadIdx.x % kTile;
     const int gi = (w < P ? r0 : c0) + k;
-    const T* base = g.v[w % P];
+    const T* base = g.v[w % P] + (size_t)item * g.sv;
     cp_async_elem<sizeof(T)>(stage + P * kTileElems + threadIdx.x, gi < g.n ? base + gi : base,
                              gi < g.n ? (int)sizeof(T) : 0);
   }
@@ -291,18 +309,20 @@ __device__ __forceinline__ void tile_products(const T* stage, int tx, int ty, T 
 // y from the partials, after the grid barrier. Output strip k has
 // runs + nt - 1 - k partials in a fixed order: the column partials of the runs
 // of column strip k (at each run's last tile), then the row partials of
-// tiles (k, j), j = k + 1 .. nt - 1. A block takes items of 32 rows of one
-// plane of one strip (items grid-strided over the blocks); each row is
-// summed by 8 threads over consecutive slices of the partials (loads asked
-// for kBatch at a time, added in slot order), the slices then added in
-// order.
-template <typename T, int P>
+// tiles (k, j), j = k + 1 .. nt - 1. A block takes work items of 32 rows of
+// one plane of one strip of one problem (grid-strided over the blocks);
+// each row is summed by 8 threads over consecutive slices of the partials
+// (loads asked for kBatch at a time, added in slot order), the slices then
+// added in order.
+template <typename T, int P, bool kBatched>
 __device__ void finish(const Args<T, P>& g, T* red) {
   constexpr int kRows = 32, kGroups = kThreads / kRows, kBatch = 16;
   const int t = threadIdx.x, grp = t / kRows;
-  const int items = g.nt * P * (kTile / kRows);
+  const int per = g.nt * P * (kTile / kRows), items = kBatched ? per * g.batch : per;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int k = item / (P * 2), p = item / 2 % P, r = item % 2 * kRows + t % kRows;
+    const int b = kBatched ? item / per : 0, w = kBatched ? item % per : item;
+    const T* part = g.part + b * g.sp;
+    const int k = w / (P * 2), p = w / 2 % P, r = w % 2 * kRows + t % kRows;
     const unsigned s = (unsigned)strip_start(k), b0 = block_of(s, g.tiles, g.blocks);
     const int runs = (int)(block_of(s + k, g.tiles, g.blocks) - b0) + 1, m = runs + g.nt - 1 - k;
     const int q1 = (grp + 1) * m / kGroups;
@@ -316,7 +336,7 @@ __device__ void finish(const Args<T, P>& g, T* red) {
             q < runs ? (size_t)(P + p) * g.tiles +
                            min(block_first(b0 + q + 1, g.tiles, g.blocks) - 1, s + k)
                      : (size_t)p * g.tiles + strip_start(k + 1 + q - runs) + k;
-        x[u] = q < q1 ? __ldcg(g.part + slot * kTile + r) : T(0);
+        x[u] = q < q1 ? __ldcg(part + slot * kTile + r) : T(0);
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) sum += x[u];
@@ -328,29 +348,30 @@ __device__ void finish(const Args<T, P>& g, T* red) {
 #pragma unroll
       for (int h = 1; h < kGroups; ++h) total += red[h * kRows + t];
       const int row = k * kTile + r;
-      if (row < g.n) g.y[(size_t)p * g.n + row] = total;
+      if (row < g.n) g.y[((size_t)b * P + p) * g.n + row] = total;
     }
     __syncthreads();
   }
 }
 
+// The tiles of virtual block vb of item k: partials into the item's part.
 template <typename T, int P>
-__device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
+__device__ __forceinline__ void stream_tiles(const Args<T, P>& g, int item, unsigned vb) {
   using C = Cfg<T, P>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* red = smem + C::kStages * C::kStageElems;
 
   const int t = threadIdx.x, tx = t % kTx, ty = t / kTx;
-  const unsigned first = block_first(blockIdx.x, g.tiles, g.blocks);
-  const int cnt = (int)(block_first(blockIdx.x + 1, g.tiles, g.blocks) - first);
+  const unsigned first = block_first(vb, g.tiles, g.blocks);
+  const int cnt = (int)(block_first(vb + 1, g.tiles, g.blocks) - first);
   int ci, cj;  // the tile being multiplied
   tile_of(first, ci, cj);
   int li = ci, lj = cj;  // the next tile to stage
 #pragma unroll
   for (int s = 0; s < C::kStages - 1; ++s) {
     if (s < cnt) {
-      issue_tile(g, smem + s * C::kStageElems, li, lj);
+      issue_tile(g, item, smem + s * C::kStageElems, li, lj);
       if (++li > lj) ++lj, li = 0;
     }
     cp_async_commit();
@@ -366,7 +387,7 @@ __device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
     cp_async_wait<C::kStages - 2>();
     __syncthreads();
     if (k + C::kStages - 1 < cnt) {
-      issue_tile(g, smem + ((k + C::kStages - 1) % C::kStages) * C::kStageElems, li, lj);
+      issue_tile(g, item, smem + ((k + C::kStages - 1) % C::kStages) * C::kStageElems, li, lj);
       if (++li > lj) ++lj, li = 0;
     }
     cp_async_commit();
@@ -378,7 +399,7 @@ __device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
       for (int p = 0; p < P; ++p) {
         const T row_sum = reduce_rows(s[p], tx);
         if ((tx & 3) == 0)
-          g.part[((size_t)p * g.tiles + tile) * kTile + 4 * ty + 2 * ((tx >> 3) & 1) +
+          g.part[item * g.sp + ((size_t)p * g.tiles + tile) * kTile + 4 * ty + 2 * ((tx >> 3) & 1) +
                  ((tx >> 2) & 1)] = row_sum;
       }
     }
@@ -396,90 +417,130 @@ __device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
         T sum = red[p * kTy * kTile + c];
 #pragma unroll
         for (int h = 1; h < kTy; ++h) sum += red[(p * kTy + h) * kTile + c];
-        g.part[(((size_t)P + p) * g.tiles + tile) * kTile + c] = sum;
+        g.part[item * g.sp + (((size_t)P + p) * g.tiles + tile) * kTile + c] = sum;
       }
     }
     if (++ci > cj) ++cj, ci = 0;
   }
   cp_async_wait<0>();
+  __syncthreads();  // the ring and red are free for the next pair
+}
+
+// A batched launch walks the (item, virtual block) pairs; an unbatched one
+// (its own kernel instance: item 0 is a constant there, so it pays nothing
+// for the batch axis) has one pair a block.
+template <typename T, int P, bool kBatched>
+__device__ __forceinline__ void upper_tiles(const Args<T, P>& g) {
+  using C = Cfg<T, P>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* red = reinterpret_cast<T*>(smem_raw) + C::kStages * C::kStageElems;
+  if constexpr (kBatched) {
+    const unsigned pairs = g.blocks * (unsigned)g.batch;
+    for (unsigned q = blockIdx.x; q < pairs; q += gridDim.x)
+      stream_tiles(g, (int)(q / g.blocks), q % g.blocks);
+  } else {
+    stream_tiles(g, 0, blockIdx.x);
+  }
 
   // every partial is written before any is summed
   cg::this_grid().sync();
-  finish(g, red);
+  finish<T, P, kBatched>(g, red);
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads) symv_kernel(const __grid_constant__ Args<T, 1> g) {
-  upper_tiles(g);
+  upper_tiles<T, 1, kBatched>(g);
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
     hemv_planar_kernel(const __grid_constant__ Args<float, 2> g) {
-  upper_tiles(g);
+  upper_tiles<float, 2, kBatched>(g);
 }
 
+// Resident blocks of `kern` on the card (cached a device in `slots`).
 template <typename T, int P>
-int launch(void (*kern)(const Args<T, P>), Args<T, P> g, void* stream) {
+cudaError_t resident(void (*kern)(const Args<T, P>), int dev, int* slots) {
   using C = Cfg<T, P>;
-  if (g.n < 1 || g.lda < g.n) return (int)cudaErrorInvalidValue;
+  if (slots[dev] != 0) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms < 1) return cudaErrorLaunchOutOfResources;
+  slots[dev] = per_sm * sms;
+  return cudaSuccess;
+}
+
+// An item's virtual blocks follow the unbatched kernel's residency, so a
+// batched item splits its tiles as its unbatched launch does; the batched
+// grid is its own kernel's one wave.
+template <typename T, int P>
+int launch(void (*single)(const Args<T, P>), void (*batched)(const Args<T, P>), Args<T, P> g,
+           void* stream) {
+  using C = Cfg<T, P>;
+  if (g.n < 1 || g.lda < g.n || g.batch < 1) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  static int slots[kMaxDevices] = {0};  // resident blocks on the card
-  if (slots[dev] == 0) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, C::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms < 1) return (int)cudaErrorLaunchOutOfResources;
-    slots[dev] = per_sm * sms;
-  }
+  static int slots[2][kMaxDevices] = {};  // resident blocks: unbatched, batched kernel
+  err = resident(single, dev, slots[0]);
+  if (err == cudaSuccess && g.batch > 1) err = resident(batched, dev, slots[1]);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned wave = slots[g.batch > 1][dev];
   g.nt = (g.n + kTile - 1) / kTile;
   const unsigned long long tiles = (unsigned long long)g.nt * (g.nt + 1) / 2;
-  const unsigned long long blocks = tiles < (unsigned)slots[dev] ? tiles : slots[dev];
+  const unsigned long long blocks = tiles < (unsigned)slots[0][dev] ? tiles : slots[0][dev];
   if (tiles * blocks >= (1ULL << 32)) return (int)cudaErrorInvalidValue;  // n past 300 000
+  const unsigned long long pairs = blocks * (unsigned long long)g.batch;
+  if (pairs >= (1ULL << 32)) return (int)cudaErrorInvalidValue;
   g.tiles = (unsigned)tiles, g.blocks = (unsigned)blocks;
-  g.wide = (size_t)g.lda * sizeof(T) % 16 == 0;
+  g.sp = 2LL * P * (long long)tiles * kTile;  // symv_part_elems
+  g.wide = (size_t)g.lda * sizeof(T) % 16 == 0 && (size_t)g.sa * sizeof(T) % 16 == 0;
   for (int p = 0; p < P; ++p) g.wide = g.wide && reinterpret_cast<uintptr_t>(g.a[p]) % 16 == 0;
+  const unsigned grid = pairs < wave ? (unsigned)pairs : wave;
   void* args[] = {&g};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(g.blocks), dim3(kThreads), args,
-                                    C::kSmemBytes, (cudaStream_t)stream);
+  err = cudaLaunchCooperativeKernel((const void*)(g.batch > 1 ? batched : single), dim3(grid),
+                                    dim3(kThreads), args, C::kSmemBytes, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// elements of the scratch `part` for order n with `planes` planes (1 or 2)
+// elements of one item's scratch `part` for order n with `planes` planes (1 or 2)
 extern "C" long long symv_part_elems(int n, int planes) {
   const long long nt = (n + kTile - 1) / kTile;
   return 2LL * planes * (nt * (nt + 1) / 2) * kTile;
 }
 
-extern "C" int symv_f32_launch(const float* a, int lda, int n, const float* v, float* part,
-                               float* y, void* stream) {
+extern "C" int symv_f32_launch(const float* a, int lda, long long sa, int n, const float* v,
+                               long long sv, float* part, float* y, int batch, void* stream) {
   Args<float, 1> g{};
   g.a[0] = a, g.v[0] = v, g.part = part, g.y = y, g.lda = lda, g.n = n;
-  return launch(symv_kernel<float>, g, stream);
+  g.sa = sa, g.sv = sv, g.batch = batch;
+  return launch(symv_kernel<float, false>, symv_kernel<float, true>, g, stream);
 }
 
-extern "C" int symv_f64_launch(const double* a, int lda, int n, const double* v, double* part,
-                               double* y, void* stream) {
+extern "C" int symv_f64_launch(const double* a, int lda, long long sa, int n, const double* v,
+                               long long sv, double* part, double* y, int batch, void* stream) {
   Args<double, 1> g{};
   g.a[0] = a, g.v[0] = v, g.part = part, g.y = y, g.lda = lda, g.n = n;
-  return launch(symv_kernel<double>, g, stream);
+  g.sa = sa, g.sv = sv, g.batch = batch;
+  return launch(symv_kernel<double, false>, symv_kernel<double, true>, g, stream);
 }
 
-extern "C" int hemv_planar_launch(const float* ar, const float* ai, int lda, int n,
-                                  const float* vr, const float* vi, float* part, float* y,
-                                  void* stream) {
+extern "C" int hemv_planar_launch(const float* ar, const float* ai, int lda, long long sa, int n,
+                                  const float* vr, const float* vi, long long sv, float* part,
+                                  float* y, int batch, void* stream) {
   Args<float, 2> g{};
   g.a[0] = ar, g.a[1] = ai, g.v[0] = vr, g.v[1] = vi;
   g.part = part, g.y = y, g.lda = lda, g.n = n;
-  return launch(hemv_planar_kernel, g, stream);
+  g.sa = sa, g.sv = sv, g.batch = batch;
+  return launch(hemv_planar_kernel<false>, hemv_planar_kernel<true>, g, stream);
 }

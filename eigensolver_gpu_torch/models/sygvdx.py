@@ -72,8 +72,8 @@ def sygvdx(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
 
 def _sygvdx(a, b, il, iu, cfg):
     """The body of ``sygvdx``; leading axes of a and b are a batch of
-    problems, solved together (both reductions; ``sygvdx_batched`` sends
-    ``use_pallas=True`` item by item)."""
+    problems, solved together (both reductions, with or without
+    ``use_pallas``)."""
     n = a.shape[-1]
     if iu is None:
         iu = n

@@ -9,7 +9,8 @@ The reference's 5-phase pipeline (zhegvdx_gpu.F90:131-180):
                              diagonal blocks by kernel K1 in fp32)
   2. C = L^{-1} A L^{-H}     two planar triangular solves
   3. hetrd_planar -> real (d, e) -> stedc -> select il..iu
-     -> unmtr_planar back-transform   (kernel K2 with use_pallas=True);
+     -> unmtr_planar back-transform   (kernel K2 a panel with
+                                       use_pallas=True);
      or, two-stage: psbrd (kernel K6 per panel) -> planar bulge chase
      (K8) -> phase_normalize -> stedc -> Q2 replay (K10) -> Q1 replay
   4. x = L^{-H} y            planar upper solve
@@ -36,7 +37,8 @@ g) is a ValueError under ``mosaic_kernels``: set ``replay_g`` to at most
 ``129 - band``, or take the plain route with ``mosaic_kernels=False``.
 
 ``zhegvdx_planar_batched`` solves a batch of problems (leading axis) with
-the batch axis through every stage of the one-stage pipeline and, with
+the batch axis through every stage of the one-stage pipeline (with
+``use_pallas=True``, K2 once a panel for the whole batch) and, with
 ``tridiag_mode='two'``, of the two-stage pipeline (K6 once a panel, K8 and
 K10 once a solve, for the whole batch).
 
@@ -182,8 +184,7 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
 
     Leading axes of the four planes are a batch of problems, solved
     together by the one-stage or the two-stage pipeline
-    (``zhegvdx_planar_batched`` is the entry point that also takes
-    ``use_pallas=True``)."""
+    (``zhegvdx_planar_batched`` is the batched entry point)."""
     n = ar.shape[-1]
     if iu is None:
         iu = n
@@ -306,11 +307,10 @@ def zhegvdx_planar_batched(
     The one-stage and the two-stage pipelines run the whole batch at once:
     a batch axis runs through every stage, so each block step of the
     Cholesky (one launch of kernel K1), each column step of the one-stage
-    reduction and, with ``tridiag_mode='two'`` where it engages, each panel
-    of psbrd (one launch of K6), the chase (one launch of K8) and the
-    replay (one launch of K10) serve every problem. ``use_pallas=True``,
-    whose kernel K2 takes one problem at a time, runs the unbatched solve
-    on each item in turn, so the same kernels launch as for one problem.
+    reduction (with ``use_pallas=True``, each panel: one launch of K2) and,
+    with ``tridiag_mode='two'`` where it engages, each panel of psbrd (one
+    launch of K6), the chase (one launch of K8) and the replay (one launch
+    of K10) serve every problem.
 
     ``chunk``: solve the batch in sequential chunks of this size, to bound
     the peak memory; ``batch % chunk`` must be 0.
@@ -320,18 +320,8 @@ def zhegvdx_planar_batched(
             "zhegvdx_planar_batched takes four (batch, n, n) planes of one shape, got "
             f"{[tuple(x.shape) for x in (ar, ai, br, bi)]}"
         )
-    batch, n = ar.shape[0], ar.shape[-1]
-    slices = _chunks(batch, chunk)
-    by_item = cfg.use_pallas
-    parts = []
-    for sl in slices:
-        args = (ar[sl], ai[sl], br[sl], bi[sl])
-        if by_item:
-            items = [zhegvdx_planar(*(x[k] for x in args), il=il, iu=iu, cfg=cfg)
-                     for k in range(args[0].shape[0])]
-            parts.append(PlanarResult(*(torch.stack(f) for f in zip(*items))))
-        else:
-            parts.append(zhegvdx_planar(*args, il=il, iu=iu, cfg=cfg))
+    parts = [zhegvdx_planar(ar[sl], ai[sl], br[sl], bi[sl], il=il, iu=iu, cfg=cfg)
+             for sl in _chunks(ar.shape[0], chunk)]
     return parts[0] if len(parts) == 1 else _stack_results(parts, PlanarResult)
 
 

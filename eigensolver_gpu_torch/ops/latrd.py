@@ -16,12 +16,19 @@ panel_end-1-k), and ``scal`` (4, nb) with rows (d, e, tau_r, tau_i) per
 slot. The input planes are not modified; their row stride may exceed
 mb (a bucket is a view of the full planes).
 
+A leading batch axis (the Pallas function under ``jax.vmap``): (B, mb,
+mb) views of (B, n, n) planes, one ``panel_end`` for all items; the seven
+outputs gain a leading B. A batch is one launch, and each item's outputs
+are the bits of its unbatched launch.
+
 ``latrd_panel_planar`` is the wrapper: a CUDA tensor launches the
 kernel (and raises if it cannot), a CPU tensor takes
 ``latrd_panel_plain``, which runs the same panel through the eager
 column loop of ops/sytrd_planar.py on a copy and reads the slots out.
 The kernel is one cooperative launch a panel; it raises when its
-ceil(mb / 32) blocks cannot all be resident on the card.
+ceil(mb / 32) blocks cannot all be resident on the card. A batch runs on
+as many groups of those blocks as are resident at once, each group taking
+its items in turn.
 """
 
 from __future__ import annotations
@@ -40,28 +47,29 @@ def latrd_panel_plain(ar_mb, ai_mb, panel_end, nb=32):
     """Plain PyTorch version of kernel K2 (same contract)."""
     from eigensolver_gpu_torch.ops.sytrd_planar import _panel_columns_planar
 
-    mb = ar_mb.shape[0]
+    mb = ar_mb.shape[-1]
     ar = ar_mb.clone()
     ai = ai_mb.clone()
-    d = torch.zeros((mb,), dtype=ar.dtype, device=ar.device)
+    d = torch.zeros(ar.shape[:-2] + (mb,), dtype=ar.dtype, device=ar.device)
     e, taur, taui = torch.zeros_like(d), torch.zeros_like(d), torch.zeros_like(d)
     vr, vi, wr, wi = _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb)
     cols = torch.arange(panel_end - 1, panel_end - 1 - nb, -1, device=ar.device)
     has_r = cols > 0
     below = (cols - 1).clamp_min(0)
     scal = torch.stack([
-        d[cols],
-        torch.where(has_r, e[below], 0.0),
-        torch.where(has_r, taur[below], 0.0),
-        torch.where(has_r, taui[below], 0.0),
-    ])
-    return vr, vi, wr, wi, ar[:, cols], ai[:, cols], scal
+        d[..., cols],
+        torch.where(has_r, e[..., below], 0.0),
+        torch.where(has_r, taur[..., below], 0.0),
+        torch.where(has_r, taui[..., below], 0.0),
+    ], dim=-2)
+    return vr, vi, wr, wi, ar[..., :, cols], ai[..., :, cols], scal
 
 
 def _check(ar, ai, panel_end, nb):
-    mb = ar.shape[0]
-    if ar.shape != (mb, mb) or ai.shape != (mb, mb):
-        raise ValueError(f"latrd planes must be square, got {ar.shape}, {ai.shape}")
+    mb, lead = ar.shape[-1], tuple(ar.shape[:-2])
+    if len(lead) > 1 or ar.shape != lead + (mb, mb) or ai.shape != ar.shape:
+        raise ValueError(f"latrd planes must be square, with at most one batch axis, "
+                         f"got {ar.shape}, {ai.shape}")
     if ar.dtype != torch.float32 or ai.dtype != torch.float32:
         raise TypeError("latrd panel kernel takes float32 planes")
     if ar.device != ai.device:
@@ -71,8 +79,8 @@ def _check(ar, ai, panel_end, nb):
             f"latrd needs 1 <= nb <= {NB_MAX}, nb <= panel_end <= mb <= {MB_MAX}; "
             f"got nb={nb}, panel_end={panel_end}, mb={mb}"
         )
-    if ar.stride(1) != 1 or ai.stride(1) != 1 or ar.stride(0) != ai.stride(0):
-        raise ValueError("latrd planes need unit column stride and one row stride")
+    if ar.stride(-1) != 1 or ar.stride() != ai.stride():
+        raise ValueError("latrd planes need unit column stride and one row (and batch) stride")
 
 
 def latrd_panel_planar(ar_mb, ai_mb, panel_end, nb=32):
@@ -83,26 +91,30 @@ def latrd_panel_planar(ar_mb, ai_mb, panel_end, nb=32):
         return latrd_panel_plain(ar_mb, ai_mb, panel_end, nb)
     lib = kernel_guard.load("latrd_panel")
     fn = lib.latrd_panel_planar_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, V, I, ctypes.c_longlong, I, I, I, V, V, V, I, V]
     fn.restype = ctypes.c_int
     lib.latrd_panel_scratch_floats.argtypes = [ctypes.c_int]
     lib.latrd_panel_scratch_floats.restype = ctypes.c_int
-    mb = ar_mb.shape[0]
+    mb, lead = ar_mb.shape[-1], tuple(ar_mb.shape[:-2])
+    batch = lead[0] if lead else 1
+    sa = ar_mb.stride(0) if lead and batch > 1 else 0
     dev = ar_mb.device
-    # slot-major work planes [vr vi wr wi colr coli], so a slot is contiguous;
-    # the kernel writes every entry of them and of scal
-    pan = torch.empty((6, nb, mb), dtype=torch.float32, device=dev)
-    scal = torch.empty((4, nb), dtype=torch.float32, device=dev)
-    scratch = torch.empty((lib.latrd_panel_scratch_floats(mb),), dtype=torch.float32, device=dev)
+    # slot-major work planes [vr vi wr wi colr coli] an item, so a slot is
+    # contiguous; the kernel writes every entry of them and of scal
+    pan = torch.empty(lead + (6, nb, mb), dtype=torch.float32, device=dev)
+    scal = torch.empty(lead + (4, nb), dtype=torch.float32, device=dev)
+    scratch = torch.empty((batch * lib.latrd_panel_scratch_floats(mb),), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         status = fn(
-            ar_mb.data_ptr(), ai_mb.data_ptr(), ar_mb.stride(0), mb, panel_end, nb,
-            pan.data_ptr(), scal.data_ptr(), scratch.data_ptr(),
+            ar_mb.data_ptr(), ai_mb.data_ptr(), ar_mb.stride(-2), sa, mb, panel_end, nb,
+            pan.data_ptr(), scal.data_ptr(), scratch.data_ptr(), batch,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernel_guard.check(status, "latrd_panel_planar launch")
     latrd_panel_planar.launches += 1
-    vr, vi, wr, wi, colr, coli = (pan[j].T for j in range(6))
+    vr, vi, wr, wi, colr, coli = (pan[..., j, :, :].mT for j in range(6))
     return vr, vi, wr, wi, colr, coli, scal
 
 

@@ -24,6 +24,11 @@ belongs to their reflection grid and is not carried over, nor is their
 ``extent=c`` restricts the product to the leading c x c block and the
 first c entries of the vectors; the result then has length c.
 
+A leading batch axis (the JAX kernels under ``jax.vmap``): ``a`` (B, n, n)
+with one row stride and one batch stride, ``v`` (B, n), ``y`` (B, n);
+``extent`` applies to every item. A batch is one launch, and every item's
+``y`` has the bits of the unbatched launch on it.
+
 What bounds the kernels on the H100: bytes, the upper tiles read once
 (33.6 MB for K4 at n = 4096 in fp32, 67.1 MB for K3's two planes and for
 K4 in fp64). K4's fp32 triangle fits in the 50 MB L2 up to n of about
@@ -41,12 +46,14 @@ each off-diagonal tile's row product as a partial and keeps its column
 products in registers over each strip's run. Ordering: after a grid
 barrier every output row is summed from its partials in a fixed order,
 the rows spread over all blocks. No float atomics; the same bits from
-call to call.
+call to call. A batch keeps each item's unbatched split of the tiles
+(its virtual blocks); the grid walks the (item, virtual block) pairs.
 
 C entries (``csrc/symv.cu``): ``symv_f32_launch`` / ``symv_f64_launch``
-``(a, lda, n, v, part, y, stream)`` and ``hemv_planar_launch(ar, ai, lda,
-n, vr, vi, part, y, stream)``; ``part`` is a scratch of
-``symv_part_elems(n, planes)`` elements.
+``(a, lda, sa, n, v, sv, part, y, batch, stream)`` and
+``hemv_planar_launch(ar, ai, lda, sa, n, vr, vi, sv, part, y, batch,
+stream)``; ``sa``, ``sv`` are the batch strides, ``part`` is a scratch of
+``batch * symv_part_elems(n, planes)`` elements.
 
 ``symv`` and ``hemv_planar`` are the wrappers: CUDA tensors launch the
 kernel (and raise if it cannot be built or launched), CPU tensors take
@@ -72,10 +79,10 @@ def _bind(name, argtypes, restype=ctypes.c_int):
     return fn
 
 
-def _scratch(n, planes, dtype, device):
-    """The partial-sum scratch of the kernels (``symv_part_elems``)."""
+def _scratch(n, planes, batch, dtype, device):
+    """The partial-sum scratch of the kernels (``symv_part_elems`` an item)."""
     elems = _bind("symv_part_elems", [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
-    return torch.empty((elems(n, planes),), dtype=dtype, device=device)
+    return torch.empty((batch * elems(n, planes),), dtype=dtype, device=device)
 
 
 def _upper_tiles(n, tile):
@@ -84,14 +91,19 @@ def _upper_tiles(n, tile):
             yield slice(r0, min(r0 + tile, n)), slice(c0, min(c0 + tile, n))
 
 
+def _mv(m, x):
+    """m @ x for a matrix and a vector, or for batches of each."""
+    return m @ x if x.dim() == 1 else (m @ x[..., None])[..., 0]
+
+
 def symv_plain(a, v, tile=TILE):
     """Plain PyTorch version of kernel K4 (same contract, same tile walk)."""
     y = torch.zeros_like(v)
-    for rows, cols in _upper_tiles(a.shape[0], tile):
-        t = a[rows, cols]
-        y[rows] += t @ v[cols]
+    for rows, cols in _upper_tiles(a.shape[-1], tile):
+        t = a[..., rows, cols]
+        y[..., rows] += _mv(t, v[..., cols])
         if rows != cols:
-            y[cols] += t.T @ v[rows]
+            y[..., cols] += _mv(t.mT, v[..., rows])
     return y
 
 
@@ -99,13 +111,13 @@ def hemv_planar_plain(ar, ai, vr, vi, tile=TILE):
     """Plain PyTorch version of kernel K3 (same contract, same tile walk)."""
     yr = torch.zeros_like(vr)
     yi = torch.zeros_like(vi)
-    for rows, cols in _upper_tiles(ar.shape[0], tile):
-        tr, ti = ar[rows, cols], ai[rows, cols]
-        yr[rows] += tr @ vr[cols] - ti @ vi[cols]
-        yi[rows] += tr @ vi[cols] + ti @ vr[cols]
+    for rows, cols in _upper_tiles(ar.shape[-1], tile):
+        tr, ti = ar[..., rows, cols], ai[..., rows, cols]
+        yr[..., rows] += _mv(tr, vr[..., cols]) - _mv(ti, vi[..., cols])
+        yi[..., rows] += _mv(tr, vi[..., cols]) + _mv(ti, vr[..., cols])
         if rows != cols:
-            yr[cols] += tr.T @ vr[rows] + ti.T @ vi[rows]
-            yi[cols] += tr.T @ vi[rows] - ti.T @ vr[rows]
+            yr[..., cols] += _mv(tr.mT, vr[..., rows]) + _mv(ti.mT, vi[..., rows])
+            yi[..., cols] += _mv(tr.mT, vi[..., rows]) - _mv(ti.mT, vr[..., rows])
     return yr, yi
 
 
@@ -114,27 +126,37 @@ def _restrict(mats, vecs, extent):
     if extent is None:
         return mats, vecs
     c = int(extent)
-    if not 1 <= c <= mats[0].shape[0]:
-        raise ValueError(f"extent must be in 1..{mats[0].shape[0]}, got {c}")
-    return [m[:c, :c] for m in mats], [x[:c] for x in vecs]
+    if not 1 <= c <= mats[0].shape[-1]:
+        raise ValueError(f"extent must be in 1..{mats[0].shape[-1]}, got {c}")
+    return [m[..., :c, :c] for m in mats], [x[..., :c] for x in vecs]
 
 
 def _check(mats, vecs, what):
-    n = mats[0].shape[0]
-    if n < 1 or any(m.shape != (n, n) for m in mats):
-        raise ValueError(f"{what}: matrices must be square and non-empty, "
-                         f"got {[tuple(m.shape) for m in mats]}")
-    if any(x.shape != (n,) for x in vecs):
-        raise ValueError(f"{what}: vectors must have shape ({n},), "
-                         f"got {[tuple(x.shape) for x in vecs]}")
+    """Square matrices with at most one leading batch axis, vectors to
+    match; the layout the kernels read (one row and one batch stride)."""
     first = mats[0]
+    n, lead = first.shape[-1], tuple(first.shape[:-2])
+    if n < 1 or len(lead) > 1 or any(m.shape != lead + (n, n) for m in mats):
+        raise ValueError(f"{what}: matrices must be square and non-empty, with at most one "
+                         f"batch axis, got {[tuple(m.shape) for m in mats]}")
+    if any(x.shape != lead + (n,) for x in vecs):
+        raise ValueError(f"{what}: vectors must have shape {lead + (n,)}, "
+                         f"got {[tuple(x.shape) for x in vecs]}")
     for x in (*mats, *vecs):
         if x.dtype != first.dtype or x.device != first.device:
             raise ValueError(f"{what}: operands differ in dtype or device")
     if first.is_complex() or not first.is_floating_point():
         raise TypeError(f"{what} takes real floating-point tensors, got {first.dtype}")
-    if any(m.stride(1) != 1 or m.stride(0) != first.stride(0) for m in mats):
+    if any(m.stride() != first.stride() for m in mats) or first.stride(-1) != 1:
         raise ValueError(f"{what}: matrices need unit column stride and one row stride")
+
+
+def _layout(a, vecs):
+    """(batch, batch stride of the matrices, the vectors as contiguous
+    (batch, n) rows) of a batched or unbatched call."""
+    batch = a.shape[0] if a.dim() == 3 else 1
+    sa = a.stride(0) if a.dim() == 3 and batch > 1 else 0
+    return batch, sa, [x.contiguous() for x in vecs]
 
 
 def symv(a, v, extent=None):
@@ -149,13 +171,14 @@ def symv(a, v, extent=None):
         name = "symv_f64_launch"
     else:
         raise TypeError(f"the symv kernel takes float32 or float64, got {a.dtype}")
-    fn = _bind(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
-    n = a.shape[0]
-    v = v.contiguous()
-    part = _scratch(n, 1, a.dtype, a.device)
-    y = torch.empty((n,), dtype=a.dtype, device=a.device)
-    status = fn(a.data_ptr(), a.stride(0), n, v.data_ptr(), part.data_ptr(), y.data_ptr(),
-                torch.cuda.current_stream(a.device).cuda_stream)
+    V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _bind(name, [V, I, L, I, V, L, V, V, I, V])
+    n = a.shape[-1]
+    batch, sa, (v,) = _layout(a, [v])
+    part = _scratch(n, 1, batch, a.dtype, a.device)
+    y = torch.empty(v.shape, dtype=a.dtype, device=a.device)
+    status = fn(a.data_ptr(), a.stride(-2), sa, n, v.data_ptr(), n, part.data_ptr(),
+                y.data_ptr(), batch, torch.cuda.current_stream(a.device).cuda_stream)
     kernel_guard.check(status, "symv launch")
     symv.launches += 1
     return y
@@ -173,17 +196,18 @@ def hemv_planar(ar, ai, vr, vi, extent=None):
         return hemv_planar_plain(ar, ai, vr, vi)
     if ar.dtype != torch.float32:
         raise TypeError(f"the hemv_planar kernel takes float32, got {ar.dtype}")
-    fn = _bind("hemv_planar_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_void_p] * 5)
-    n = ar.shape[0]
-    vr, vi = vr.contiguous(), vi.contiguous()
-    part = _scratch(n, 2, torch.float32, ar.device)
-    y = torch.empty((2, n), dtype=torch.float32, device=ar.device)
-    status = fn(ar.data_ptr(), ai.data_ptr(), ar.stride(0), n, vr.data_ptr(), vi.data_ptr(),
-                part.data_ptr(), y.data_ptr(), torch.cuda.current_stream(ar.device).cuda_stream)
+    V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _bind("hemv_planar_launch", [V, V, I, L, I, V, V, L, V, V, I, V])
+    n = ar.shape[-1]
+    batch, sa, (vr, vi) = _layout(ar, [vr, vi])
+    part = _scratch(n, 2, batch, torch.float32, ar.device)
+    y = torch.empty(vr.shape[:-1] + (2, n), dtype=torch.float32, device=ar.device)
+    status = fn(ar.data_ptr(), ai.data_ptr(), ar.stride(-2), sa, n, vr.data_ptr(),
+                vi.data_ptr(), n, part.data_ptr(), y.data_ptr(), batch,
+                torch.cuda.current_stream(ar.device).cuda_stream)
     kernel_guard.check(status, "hemv_planar launch")
     hemv_planar.launches += 1
-    return y[0], y[1]
+    return y[..., 0, :], y[..., 1, :]
 
 
 hemv_planar.launches = 0

@@ -15,7 +15,7 @@ the stacked gemvs, then a syr2k trailing update. As in the JAX package,
 bottom-right, and one implementation serves real and complex dtypes.
 With ``use_pallas=True`` the hot ``A v`` of real fp32 buckets whose size
 is a multiple of 512 (the JAX gate) goes through the upper-tile symv
-kernel (ops/symv.py).
+kernel (ops/symv.py), one launch a column for a whole batch.
 
 Port differences: the working matrix is updated IN PLACE on views (each
 bucket is ``a[:mb, :mb]`` of the symmetrized copy), and exact slices
@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from eigensolver_gpu_torch.ops.symv import symv
+from eigensolver_gpu_torch.ops.symv import _mv, symv
 from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
@@ -75,11 +75,6 @@ def _larfg(alpha, xnormsq, iscomplex):
     scale = torch.where(trivial, torch.zeros_like(scale), scale)
     beta = torch.where(trivial, alphr, beta)
     return beta, tau, scale
-
-
-def _mv(m, v):
-    """m @ v for a matrix and a vector, or for batches of each."""
-    return m @ v if v.dim() == 1 else (m @ v[..., None])[..., 0]
 
 
 def _vdot(x, y):
@@ -115,7 +110,8 @@ def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False, shard=None)
     scalars into d, e, tau in place; returns the compact-WY panels
     (v_p, w_p), (mb, nb), slot k = column panel_end-1-k. Leading axes are
     a batch of problems (per-item scalars are tensors of the batch shape);
-    ``use_pallas`` (the symv kernel) takes one problem. ``shard`` =
+    ``use_pallas`` runs each column's ``A v`` as one symv launch for the
+    batch. ``shard`` =
     (a, lo, hi, mesh): each ``A v`` is rows lo:hi of the whole working
     matrix ``a`` times v, gathered over the mesh's 'tp' ranks.
 
@@ -183,14 +179,13 @@ def _panel_columns(a_mb, d, e, tau, panel_end, nb, use_pallas=False, shard=None)
 def sytrd_blocked(a, nb=32, bucket=512, use_pallas=False, mesh=None):
     """Full blocked tridiagonalization. Returns (a_packed, d, e, tau).
     Leading axes of ``a`` are a batch of problems, reduced together
-    column by column; ``use_pallas`` takes one problem at a time.
+    column by column (with ``use_pallas``, one symv launch a column for the
+    batch, which takes one batch axis).
     ``mesh``: split the rows over its 'tp' ranks (module docstring)."""
     n = a.shape[-1]
     if n % nb != 0:
         raise ValueError(f"sytrd_blocked requires n % nb == 0, got n={n}, nb={nb}")
     lead = a.shape[:-2]
-    if use_pallas and lead:
-        raise ValueError("sytrd(use_pallas=True) takes one problem at a time")
     dtype = a.dtype
     iscomplex = a.is_complex()
     rdtype = a.real.dtype

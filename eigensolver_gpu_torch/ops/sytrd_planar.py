@@ -13,7 +13,9 @@ hand-written latrd panel kernel (ops/latrd.py) -- the same gate as the
 JAX package's ``pallas_ok``. The column loop's own ``use_pallas``
 argument routes its ``A v`` through the upper-tile planar hemv kernel
 (ops/symv.py); as in the JAX package, ``hetrd_planar`` never sets it
-(its kernel route is the latrd panel).
+(its kernel route is the latrd panel). Both kernels take a leading batch
+axis: a batch of problems runs each panel (or each column's ``A v``) in
+one launch for all of them.
 
 Unlike the JAX package, the working planes are updated IN PLACE: each
 bucket is a view of the full planes, and the panel and her2k writes go
@@ -69,7 +71,7 @@ def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb, use_pallas=Fa
     v is zero from row cj on and w is masked to rows < cj, so the matvec
     and corrections run on the leading cj rows only. With ``use_pallas``
     the matvec is the planar hemv kernel on the leading cj x cj block
-    (one problem only)."""
+    (one launch for the batch)."""
     mb = ar.shape[-1]
     vr = torch.zeros(ar.shape[:-2] + (mb, nb), dtype=ar.dtype, device=ar.device)
     vi, wr, wi = torch.zeros_like(vr), torch.zeros_like(vr), torch.zeros_like(vr)
@@ -156,23 +158,24 @@ def _panel_columns_planar(ar, ai, d, e, taur, taui, panel_end, nb, use_pallas=Fa
 
 def _panel_via_kernel(ar_mb, ai_mb, d, e, taur, taui, panel_end, nb):
     """Run the panel through the latrd kernel (ops/latrd.py) and fold its
-    slot-ordered outputs back into LAPACK layout, in place."""
+    slot-ordered outputs back into LAPACK layout, in place (each item of a
+    batch, from one launch)."""
     vr, vi, wr, wi, colr, coli, scal = latrd_panel_planar(
         ar_mb, ai_mb, panel_end, nb=nb
     )
     pe = panel_end
     start = pe - nb
-    ar_mb[:, start:pe] = torch.flip(colr, (1,))
-    ai_mb[:, start:pe] = torch.flip(coli, (1,))
-    d[start:pe] = torch.flip(scal[0], (0,))
+    ar_mb[..., :, start:pe] = torch.flip(colr, (-1,))
+    ai_mb[..., :, start:pe] = torch.flip(coli, (-1,))
+    d[..., start:pe] = torch.flip(scal[..., 0, :], (-1,))
     # slot k targets e/tau index pe-2-k; the slot of column 0 (only when
     # start == 0) has no target
     for vec, row in ((e, 1), (taur, 2), (taui, 3)):
-        vals = torch.flip(scal[row], (0,))
+        vals = torch.flip(scal[..., row, :], (-1,))
         if start > 0:
-            vec[start - 1 : pe - 1] = vals
+            vec[..., start - 1 : pe - 1] = vals
         else:
-            vec[: pe - 1] = vals[1:]
+            vec[..., : pe - 1] = vals[..., 1:]
     return vr, vi, wr, wi
 
 
@@ -181,14 +184,12 @@ def hetrd_planar(a_r, a_i, nb=32, bucket=512, use_pallas=False):
     """Planar blocked hetrd. Returns ((ar, ai) packed, d, e, (taur, taui)).
 
     Leading axes of (a_r, a_i) are a batch of problems, reduced together
-    column by column; ``use_pallas`` (the latrd kernel, which has no batch
-    axis) takes one problem at a time."""
+    column by column, or with ``use_pallas`` panel by panel (one latrd
+    launch a panel for the batch; the kernel takes one batch axis)."""
     n = a_r.shape[-1]
     if n % nb != 0:
         raise ValueError(f"hetrd_planar requires n % nb == 0, got n={n}, nb={nb}")
     lead = a_r.shape[:-2]
-    if use_pallas and lead:
-        raise ValueError("hetrd_planar(use_pallas=True) takes one problem at a time")
     rdt = a_r.dtype
     dev = a_r.device
     # hermitize in planar form: Ar <- (Ar+Ar^T)/2, Ai <- (Ai-Ai^T)/2

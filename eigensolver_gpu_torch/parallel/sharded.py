@@ -5,10 +5,9 @@ eigensolver_gpu_tpu/parallel/sharded.py).
 leading batch axis (BASELINE.md config 4, Quantum ESPRESSO k-points),
 for real and complex dtypes, on one card. The batch axis runs through
 every stage of the pipeline, so each column step of the reduction serves
-the whole batch; where the two-stage reduction engages, each sbrd panel,
-the chase and the Q2 replay are one launch of K5, K7 and K9 for the
-batch. Only ``use_pallas=True``, whose kernel K4 takes one problem at a
-time, solves each item in turn with ``sygvdx``.
+the whole batch (with ``use_pallas=True``, one launch of K4 a column for
+the batch); where the two-stage reduction engages, each sbrd panel, the
+chase and the Q2 replay are one launch of K5, K7 and K9 for the batch.
 
 The sharded solves run over a ('dp', 'tp') mesh of torch.distributed
 ranks (``parallel/mesh.make_mesh``). As with JAX's host arrays, every
@@ -43,7 +42,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from eigensolver_gpu_torch.models.sygvdx import SygvdxResult, _from_upper, _sygvdx, sygvdx
+# sygvdx is not called here (the batched entry is one batched solve); it stays in this
+# module's namespace, as in the JAX package's twin
+from eigensolver_gpu_torch.models.sygvdx import (  # noqa: F401
+    SygvdxResult,
+    _from_upper,
+    _sygvdx,
+    sygvdx,
+)
 from eigensolver_gpu_torch.models.syevdx import sort_pairs, syevdx
 from eigensolver_gpu_torch.ops.cholesky import cholesky_upper
 from eigensolver_gpu_torch.ops.refine import refine_gevp
@@ -68,9 +74,6 @@ def sygvdx_batched(a, b, il=1, iu=None, cfg: SolverConfig = DEFAULT_CONFIG):
             f"sygvdx_batched takes (batch, n, n) pairs of one shape, got "
             f"{tuple(a.shape)}, {tuple(b.shape)}"
         )
-    if cfg.use_pallas:
-        items = [sygvdx(a[k], b[k], il=il, iu=iu, cfg=cfg) for k in range(a.shape[0])]
-        return SygvdxResult(*(torch.stack(f) for f in zip(*items)))
     return _sygvdx(a, b, il, iu, cfg)
 
 

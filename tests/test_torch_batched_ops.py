@@ -145,9 +145,31 @@ def test_hetrd_planar_batched_matches_vmap():
 
 
 def test_hetrd_planar_refuses_a_batch_with_use_pallas():
-    z = torch.zeros((2, 64, 64))
-    with pytest.raises(ValueError):
-        hetrd_planar(z, z, nb=32, bucket=64, use_pallas=True)
+    """Named for the refusal it replaced: hetrd_planar(use_pallas=True) now
+    takes a batch. A batch of 3 at n = 256 in fp32 (bucket 128: the 256
+    bucket's four panels through the latrd wrapper, one call a panel for
+    the whole batch; the 128 bucket the column loop): d, e and tau of each
+    item as the port's unbatched call on it, within rtol 1e-4 / atol 1e-3
+    (fp32 sums in another order)."""
+    n = 256
+    a = _hpd_batch(n, 31)
+    ar, ai = T(a.real, torch.float32), T(a.imag, torch.float32)
+    calls = []
+    import eigensolver_gpu_torch.ops.sytrd_planar as sp
+
+    real = sp.latrd_panel_planar
+    sp.latrd_panel_planar = lambda x, *args, **kw: calls.append(tuple(x.shape)) or real(
+        x, *args, **kw)
+    try:
+        _, d, e, (tr, ti) = hetrd_planar(ar, ai, nb=32, bucket=128, use_pallas=True)
+    finally:
+        sp.latrd_panel_planar = real
+    assert calls == [(BATCH, n, n)] * 4
+    assert d.shape == (BATCH, n) and e.shape == tr.shape == ti.shape == (BATCH, n - 1)
+    for k in range(BATCH):
+        _, d1, e1, (t1r, t1i) = hetrd_planar(ar[k], ai[k], nb=32, bucket=128, use_pallas=True)
+        for got, want in ((d[k], d1), (e[k], e1), (tr[k], t1r), (ti[k], t1i)):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("dt", [np.float64, np.float32])

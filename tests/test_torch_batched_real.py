@@ -2,8 +2,8 @@
 JAX package's (jax.vmap of its ``sygvdx``), on the CPU: a batch of 3 at
 n = 32, il = 1 .. iu = 8, real in fp64 and in ``mp``, and complex in fp64;
 each item also against the port's unbatched ``sygvdx`` of it, a
-non-positive-definite B in one item, the configuration that runs item by
-item (``use_pallas=True``) and the batched two-stage solve
+non-positive-definite B in one item, ``use_pallas=True`` (which ran item
+by item before K4 took a batch) and the batched two-stage solve
 (``tridiag_mode='two'``). Bars as JAX's own
 tests/test_batched.py: eigenvalues within 1e-10 n of JAX and of scipy,
 ``ge_residual`` < 1e-12, ``info`` exact."""
@@ -84,20 +84,22 @@ def test_non_pd_item_sets_its_own_info(mode):
 
 @pytest.mark.parametrize("kw", [dict(MIXED, use_pallas=True), dict(tridiag_mode="two", band=8)])
 def test_item_by_item_configurations_equal_the_unbatched_solves(monkeypatch, kw):
-    """use_pallas=True (K4) takes one problem at a time: the batched entry
-    solves each item with the unbatched driver, so each item is that solve
-    exactly. The two-stage reduction runs one batched solve: no unbatched
-    sygvdx call, one call of the K5 wrapper a sbrd panel and one of the K7
-    and the K9 wrappers, each on the whole batch; each item equals its
-    unbatched solve to the module's tolerance (check_against_single)."""
+    """Named for the item-by-item route that use_pallas=True took before K4
+    took a batch. Both configurations now run one batched solve: the
+    solve's body called once, on the whole batch (use_pallas=True at n = 32
+    reaches no K4 bucket, which tests/test_torch_batched_pallas.py
+    drives); with tridiag_mode='two' one call of the K5 wrapper a sbrd panel
+    and one of the K7 and the K9 wrappers, each on the whole batch. Each
+    item equals its unbatched solve to the module's tolerance
+    (check_against_single)."""
     import eigensolver_gpu_torch.parallel.sharded as sharded
     from eigensolver_gpu_torch.ops import chase, ql_panel, replay
 
     a, b = pair_batch(BATCH, N, seed=160, cplx=False)
     cfg = eig.SolverConfig(stedc_leaf=LEAF, **kw)
     calls = []
-    real = sharded.sygvdx
-    monkeypatch.setattr(sharded, "sygvdx",
+    real = sharded._sygvdx
+    monkeypatch.setattr(sharded, "_sygvdx",
                         lambda *args, **k: calls.append(args[0].dim()) or real(*args, **k))
     wrapped = {}
 
@@ -112,21 +114,17 @@ def test_item_by_item_configurations_equal_the_unbatched_solves(monkeypatch, kw)
     logged(replay, "apply_q2_kernel", lambda args: tuple(args[2].shape))
     res = sygvdx_batched(torch.from_numpy(a), torch.from_numpy(b), il=1, iu=IU, cfg=cfg)
     monkeypatch.undo()
+    assert calls == [3]  # one batched solve
     if kw.get("use_pallas"):
-        assert calls == [2] * BATCH  # only unbatched solves
         assert not any(wrapped.values())
     else:
-        assert not calls  # one batched solve
         assert [s[0] for s in wrapped["ql_panel"]] == [BATCH] * (N // 8 - 1)
         assert wrapped["bulge_chase_kernel"] == [(BATCH, N, 16)]
         assert wrapped["apply_q2_kernel"] == [(BATCH, N, IU)]
     for k in range(BATCH):
         sw, sz, sinfo = _single(a[k], b[k], cfg)
         assert sinfo == int(res.info[k]) == 0
-        if kw.get("use_pallas"):
-            assert np.array_equal(res.w[k].numpy(), sw) and np.array_equal(res.z[k].numpy(), sz)
-        else:
-            check_against_single(res.w[k].numpy(), res.z[k].numpy(), (sw, sz), N)
+        check_against_single(res.w[k].numpy(), res.z[k].numpy(), (sw, sz), N)
     check_items(a, b, res.w.numpy(), res.z.numpy(), res.info.numpy(), IU)
 
 

@@ -1033,3 +1033,100 @@ def test_sharded_solve_of_one_rank_launches_the_path_kernels(cuda_device, kw):
         assert rec["launches"] == {"ql_panel": n // 32 - 1, "bulge_chase_kernel": 1,
                                    "apply_q2_kernel": 1}
     assert rec["stages"]["stedc"] > 0 and rec["stages"]["back"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pe", [1024, 544])
+@_fresh_process_on_drop
+def test_latrd_panel_kernel_batched(cuda_device, pe):
+    """K2 on 6 x mb = 1024 bucket views of (6, 1088, 1088) planes in one
+    launch (profiler and counter): on an H100 four groups of 32 blocks are
+    resident at once, so the second round has items for two groups and the
+    other two only take part in the barriers. Each item's seven outputs are
+    bit-identical to the unbatched launch on it and within rtol 1e-4 / atol
+    1e-3 of the batched plain version."""
+    batch, n, mb = 6, 1088, 1024
+    rng = np.random.default_rng(pe)
+    t = rng.standard_normal((batch, n, n)) + 1j * rng.standard_normal((batch, n, n))
+    ar, ai = _planes((t + t.conj().transpose(0, 2, 1)) / 2, cuda_device)
+    ar, ai = ar[:, :mb, :mb], ai[:, :mb, :mb]
+    latrd_panel_planar(ar, ai, pe)  # builds the kernel
+    before = latrd_panel_planar.launches
+    got, launched, calls = _device_launches(lambda: latrd_panel_planar(ar, ai, pe), "latrd_")
+    assert launched == 1 and latrd_panel_planar.launches == before + calls
+    for k in range(batch):
+        one = latrd_panel_planar(ar[k], ai[k], pe)
+        assert all(torch.equal(x[k], y) for x, y in zip(got, one))
+    want = latrd_panel_plain(ar, ai, pe)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == batch
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [("symv", torch.float32), ("symv", torch.float64),
+                                          ("hemv_planar", torch.float32)])
+@pytest.mark.parametrize("extent", [None, 999])
+@_fresh_process_on_drop
+def test_symv_kernels_batched(cuda_device, kernel, dtype, extent):
+    """K4 and K3 on 5 x n = 1024 views of (5, 1040, 1040) matrices (a batch
+    and a row stride of their own), full and at extent 999: one launch
+    (profiler and counter), every item bit-identical to the unbatched
+    launch on it, within 1e-4 relative (fp32) and 1e-12 (fp64) of the
+    batched plain version."""
+    batch, n = 5, 1024
+    rng = np.random.default_rng(n + (extent or 0))
+    t = rng.standard_normal((batch, n + 16, n + 16))
+    up = np.triu(rng.standard_normal((batch, n + 16, n + 16)), 1)
+    a, ai = (torch.tensor(x, dtype=dtype, device=cuda_device)[:, :n, :n]
+             for x in ((t + t.transpose(0, 2, 1)) / 2, up - up.transpose(0, 2, 1)))
+    v, vi = (torch.tensor(rng.standard_normal((batch, n)), dtype=dtype, device=cuda_device)
+             for _ in range(2))
+    c = n if extent is None else extent
+    if kernel == "symv":
+        fn, key, counter = (lambda: (symv(a, v, extent=extent),)), "symv_kernel", symv
+        one = lambda k: (symv(a[k], v[k], extent=extent),)
+        want = (symv_plain(a[:, :c, :c], v[:, :c]),)
+    else:
+        fn, key, counter = ((lambda: hemv_planar(a, ai, v, vi, extent=extent)),
+                            "hemv_planar_kernel", hemv_planar)
+        one = lambda k: hemv_planar(a[k], ai[k], v[k], vi[k], extent=extent)
+        want = hemv_planar_plain(a[:, :c, :c], ai[:, :c, :c], v[:, :c], vi[:, :c])
+    fn()  # builds the kernel
+    before = counter.launches
+    got, launched, calls = _device_launches(fn, key)
+    assert launched == 1 and counter.launches == before + calls
+    for k in range(batch):
+        assert all(torch.equal(x[k], y) for x, y in zip(got, one(k)))
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == (batch, c) and float((g - w).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_planar_batched_use_pallas_launches_k2_once_a_panel(cuda_device):
+    """zhegvdx_planar_batched(use_pallas=True) on 4 x random_hpd_pair(1024),
+    iu = 64, mp: one batched solve with 16 K2 launches (the 1024, 768, 512
+    and 256 buckets at bucket 128, four panels each, one launch a panel for
+    the batch) and 8 K1 launches; info 0 and each item within 1e-12 relative
+    (eigenvalues) and 1e-8 (vectors, compare_vectors) of its unbatched
+    use_pallas=True solve."""
+    from eigensolver_gpu_torch import SolverConfig, zhegvdx_planar, zhegvdx_planar_batched
+    from eigensolver_gpu_torch.utils.testing import compare_vectors, random_hpd_pair
+
+    batch, n, iu = 4, 1024, 64
+    pairs = [random_hpd_pair(n, seed=40 + k) for k in range(batch)]
+    args = [torch.tensor(np.stack([f(p[j]) for p in pairs]), device=cuda_device)
+            for j in (0, 1) for f in (np.real, np.imag)]  # ar, ai, br, bi
+    cfg = SolverConfig(compute_dtype="float32", use_pallas=True)
+    before = (latrd_panel_planar.launches, pchol_block_planar.launches)
+    res = zhegvdx_planar_batched(*args, il=1, iu=iu, cfg=cfg)
+    assert (latrd_panel_planar.launches - before[0], pchol_block_planar.launches - before[1]) == (
+        16, 8)
+    assert res.info.tolist() == [0] * batch
+    for k in range(batch):
+        one = zhegvdx_planar(*(x[k] for x in args), il=1, iu=iu, cfg=cfg)
+        assert float((res.w[k] - one.w).abs().max()) <= 1e-12 * float(one.w.abs().max())
+        z = (res.zr[k] + 1j * res.zi[k]).cpu().numpy()
+        assert compare_vectors(z, (one.zr + 1j * one.zi).cpu().numpy()) < 1e-8

@@ -5,6 +5,7 @@ turns in one process on one card.
     git archive <commit> | tar -x -C <dir>       # any directory
     python3 tools/kernel_ab.py <dir>             # K2 and K9 (<commit>: b9bcfb8)
     python3 tools/kernel_ab.py --symv <dir>      # K3 and K4 (<commit>: 376279d)
+    python3 tools/kernel_ab.py --batch <dir>     # K2, K3, K4 (<commit>: b9de9c6)
 
 <dir> holds a checkout whose C entries are those in PARENT_ENTRIES for the
 mode; the tool reads them from <dir>'s sources and refuses a checkout whose
@@ -36,6 +37,10 @@ inputs:
         use_pallas=True) with the solve's device busy time, the parent's
         kernel (through a wrapper of this tool in place of ops/symv.symv)
         and this tree's in turns.
+  K2, K3, K4 -- (--batch) the kernels before their batch axis against this
+        tree's on one problem (batch 1): K2 at mb = pe = 4096, 2048 and
+        1024, K4 fp32 and fp64 and K3 at n = 4096, warm (and K3, K4 cold),
+        in turns, with whether the two give the same bits.
 
 Prints one line a measurement with the card's name and power limit first.
 Needs a CUDA device and nvcc.
@@ -70,6 +75,18 @@ PARENT_ENTRIES = {
     ],
     # the two-launch design, whose scratch is planes x ceil(n / 64) x n
     "symv": [
+        ("symv.cu", "symv_f32_launch(const float* a, int lda, int n, const float* v, "
+                    "float* part, float* y, void* stream)"),
+        ("symv.cu", "symv_f64_launch(const double* a, int lda, int n, const double* v, "
+                    "double* part, double* y, void* stream)"),
+        ("symv.cu", "hemv_planar_launch(const float* ar, const float* ai, int lda, int n, "
+                    "const float* vr, const float* vi, float* part, float* y, void* stream)"),
+    ],
+    # the one-launch designs before the batch axis (symv_part_elems, a scratch)
+    "batch": [
+        ("latrd_panel.cu", "latrd_panel_planar_launch(const float* ar, const float* ai, "
+                           "int lda, int mb, int pe, int nb, float* pan, float* scal, "
+                           "float* scratch, void* stream)"),
         ("symv.cu", "symv_f32_launch(const float* a, int lda, int n, const float* v, "
                     "float* part, float* y, void* stream)"),
         ("symv.cu", "symv_f64_launch(const double* a, int lda, int n, const double* v, "
@@ -132,10 +149,12 @@ def _turns(label_a, fa, label_b, fb, iters):
 
 
 def k2(parent_lib, new_lib, dev):
+    V, I = ctypes.c_void_p, ctypes.c_int
+    parent_lib.latrd_panel_planar_launch.argtypes = [V] * 2 + [I] * 4 + [V] * 4
+    new_lib.latrd_panel_planar_launch.argtypes = [V, V, I, ctypes.c_longlong, I, I, I, V, V, V,
+                                                  I, V]
     for lib in (parent_lib, new_lib):
-        fn = lib.latrd_panel_planar_launch
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
+        lib.latrd_panel_planar_launch.restype = ctypes.c_int
     new_lib.latrd_panel_scratch_floats.restype = ctypes.c_int
     rng = np.random.default_rng(2)
     nb = 32
@@ -160,9 +179,9 @@ def k2(parent_lib, new_lib, dev):
             pan = torch.empty((6, nb, mb), device=dev)
             scal = torch.empty((4, nb), device=dev)
             scr = torch.empty((new_lib.latrd_panel_scratch_floats(mb),), device=dev)
-            kernel_guard.check(new_lib.latrd_panel_planar_launch(
-                ar.data_ptr(), ai.data_ptr(), mb, mb, mb, nb, pan.data_ptr(), scal.data_ptr(),
-                scr.data_ptr(), stream), "K2")
+            kernel_guard.check(new_lib.latrd_panel_planar_launch(  # one problem: batch 1
+                ar.data_ptr(), ai.data_ptr(), mb, 0, mb, mb, nb, pan.data_ptr(), scal.data_ptr(),
+                scr.data_ptr(), 1, stream), "K2")
             return pan, scal
 
         (pp, ps), (npn, ns) = parent(), new()
@@ -279,12 +298,19 @@ def k9_repeat(lib, dev, calls=20):
         del outs, store
 
 
-def _mv_entries(lib):
-    V, I = ctypes.c_void_p, ctypes.c_int
+def _mv_entries(lib, kind):
+    """The argument types of a library's K4 and K3 entries, by its kind:
+    "two_launch" (376279d), "one_launch" (b9de9c6: the same entries, and
+    symv_part_elems) or "batched" (this tree: a batch and its strides)."""
+    V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kind = kind
+    batched = kind == "batched"
     for name in ("symv_f32_launch", "symv_f64_launch"):
-        getattr(lib, name).argtypes = [V, I, I, V, V, V, V]
-    lib.hemv_planar_launch.argtypes = [V, V, I, I, V, V, V, V, V]
-    if hasattr(lib, "symv_part_elems"):
+        getattr(lib, name).argtypes = ([V, I, L, I, V, L, V, V, I, V] if batched
+                                       else [V, I, I, V, V, V, V])
+    lib.hemv_planar_launch.argtypes = ([V, V, I, L, I, V, V, L, V, V, I, V] if batched
+                                       else [V, V, I, I, V, V, V, V, V])
+    if kind != "two_launch":
         lib.symv_part_elems.argtypes = [I, I]
         lib.symv_part_elems.restype = ctypes.c_longlong
 
@@ -292,22 +318,28 @@ def _mv_entries(lib):
 def _mv_call(lib, mats, vecs, c):
     """A caller of one library's K4 (one matrix) or K3 (two planes) on the
     leading c x c block of ``mats`` and the heads of ``vecs``; the scratch
-    and y are made anew each call, as the wrapper does. The parent's
-    scratch is planes x ceil(c / 64) x c; this tree's symv_part_elems."""
+    and y are made anew each call, as the wrapper does. The two-launch
+    parent's scratch is planes x ceil(c / 64) x c; the others'
+    symv_part_elems."""
     a, planes = mats[0], len(mats)
     stream = torch.cuda.current_stream().cuda_stream
     if planes == 2:
         fn = lib.hemv_planar_launch
     else:
         fn = lib.symv_f64_launch if a.dtype == torch.float64 else lib.symv_f32_launch
-    new = hasattr(lib, "symv_part_elems")
 
     def call():
-        elems = lib.symv_part_elems(c, planes) if new else planes * -(-c // 64) * c
+        elems = planes * -(-c // 64) * c if lib.kind == "two_launch" else lib.symv_part_elems(
+            c, planes)
         part = torch.empty(elems, dtype=a.dtype, device=a.device)
         y = torch.empty(planes * c, dtype=a.dtype, device=a.device)
-        status = fn(*(m.data_ptr() for m in mats), a.stride(0), c,
-                    *(x.data_ptr() for x in vecs), part.data_ptr(), y.data_ptr(), stream)
+        if lib.kind == "batched":  # one problem: batch 1
+            status = fn(*(m.data_ptr() for m in mats), a.stride(0), 0, c,
+                        *(x.data_ptr() for x in vecs), c, part.data_ptr(), y.data_ptr(), 1,
+                        stream)
+        else:
+            status = fn(*(m.data_ptr() for m in mats), a.stride(0), c,
+                        *(x.data_ptr() for x in vecs), part.data_ptr(), y.data_ptr(), stream)
         kernel_guard.check(status, "symv A/B launch")
         return y
 
@@ -320,8 +352,8 @@ def mv_ab(parent_lib, new_lib, dev):
     from chip_smoke import _cold_ms, _mv_bound
     from eigensolver_gpu_torch.utils.precision import true_fp32
 
-    for lib in (parent_lib, new_lib):
-        _mv_entries(lib)
+    _mv_entries(parent_lib, "two_launch")
+    _mv_entries(new_lib, "batched")
     rng = np.random.default_rng(12)
     t = rng.standard_normal((4096, 4096))
     a64 = torch.tensor((t + t.T) / 2, device=dev)
@@ -396,10 +428,65 @@ def k4_solve(parent_lib, dev):
               flush=True)
 
 
+def batch_ab(parent_latrd, parent_symv, new_latrd, new_symv, dev):
+    """K2, K3 and K4 on one problem: the kernels before the batch axis and
+    this tree's (whose unbatched launches run kernel instances of their
+    own), in turns, with whether they give the same bits."""
+    from chip_smoke import _cold_ms
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    parent_latrd.latrd_panel_planar_launch.argtypes = [V, V, I, I, I, I, V, V, V, V]
+    new_latrd.latrd_panel_planar_launch.argtypes = [V, V, I, ctypes.c_longlong, I, I, I, V, V,
+                                                    V, I, V]
+    for lib in (parent_latrd, new_latrd):
+        lib.latrd_panel_planar_launch.restype = ctypes.c_int
+        lib.latrd_panel_scratch_floats.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(15)
+    stream = torch.cuda.current_stream().cuda_stream
+    for mb in (4096, 2048, 1024):
+        t = torch.randn((2, mb, mb), generator=gen, device=dev)
+        ar, ai = (t[0] + t[0].T) / 2, (t[1] - t[1].T) / 2
+        del t
+
+        def panel(lib, batched):
+            pan = torch.empty((6, 32, mb), device=dev)
+            scal = torch.empty((4, 32), device=dev)
+            scr = torch.empty((lib.latrd_panel_scratch_floats(mb),), device=dev)
+            extra = ((0,), (1,)) if batched else ((), ())
+            kernel_guard.check(lib.latrd_panel_planar_launch(
+                ar.data_ptr(), ai.data_ptr(), mb, *extra[0], mb, mb, 32, pan.data_ptr(),
+                scal.data_ptr(), scr.data_ptr(), *extra[1], stream), "K2 A/B launch")
+            return pan, scal
+
+        parent = lambda: panel(parent_latrd, False)  # noqa: E731
+        new = lambda: panel(new_latrd, True)  # noqa: E731
+        same = all(torch.equal(x, y) for x, y in zip(parent(), new()))
+        print(f"K2 mb=pe={mb}, one problem: same bits {same}", flush=True)
+        _turns("  parent (no batch axis)", parent, "new (batch 1)", new, iters=10)
+        del ar, ai
+    _mv_entries(parent_symv, "one_launch")
+    _mv_entries(new_symv, "batched")
+    n = 4096
+    t = torch.randn((2, n, n), generator=gen, device=dev, dtype=torch.float64)
+    a64, ai = (t[0] + t[0].T) / 2, ((t[1] - t[1].T) / 2).float()
+    del t
+    v64, vi = torch.randn((2, n), generator=gen, device=dev, dtype=torch.float64)
+    a32, v32, vi = a64.float(), v64.float(), vi.float()
+    for label, mats, vecs in (("K4 fp32", (a32,), (v32,)), ("K4 fp64", (a64,), (v64,)),
+                              ("K3", (a32, ai), (v32, vi))):
+        parent, new = _mv_call(parent_symv, mats, vecs, n), _mv_call(new_symv, mats, vecs, n)
+        print(f"{label} n={n}, one problem: same bits {torch.equal(parent(), new())}",
+              flush=True)
+        _turns("  warm: parent (no batch axis)", parent, "new (batch 1)", new, iters=100)
+        cold = [_cold_ms(torch, f) for f in (parent, new, new, parent)]
+        print(f"  cold: parent {cold[0]:.4f}, {cold[3]:.4f} ms; new {cold[1]:.4f}, "
+              f"{cold[2]:.4f} ms", flush=True)
+
+
 def main():
     args = sys.argv[1:]
-    mode = "symv" if args[:1] == ["--symv"] else "k2k9"
-    args = args[1:] if mode == "symv" else args
+    mode = {"--symv": "symv", "--batch": "batch"}.get(args[0] if args else "", "k2k9")
+    args = args[1:] if mode != "k2k9" else args
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -416,6 +503,10 @@ def main():
     dev = torch.device("cuda")
     if mode == "symv":
         jobs = [(parent_csrc / "symv.cu", "parent_symv"), (csrc / "symv.cu", "new_symv")]
+    elif mode == "batch":
+        jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd_b"),
+                (parent_csrc / "symv.cu", "parent_symv_b"),
+                (csrc / "latrd_panel.cu", "new_latrd"), (csrc / "symv.cu", "new_symv")]
     else:
         jobs = [(parent_csrc / "latrd_panel.cu", "parent_latrd"),
                 (parent_csrc / "replay.cu", "parent_replay"),
@@ -425,6 +516,8 @@ def main():
     if mode == "symv":
         mv_ab(libs[0], libs[1], dev)
         k4_solve(libs[0], dev)
+    elif mode == "batch":
+        batch_ab(*libs, dev)
     else:
         k2(libs[0], libs[2], dev)
         k9(parent_dir, libs[1], libs[3], dev)

@@ -151,7 +151,8 @@ def main():
     lib, lines, to_source = build("latrd_panel", "cg::grid_group grid = cg::this_grid();",
                                   "vec(R_UI)[i] = u.y;")
     fn = lib.latrd_panel_planar_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, V, I, ctypes.c_longlong, I, I, I, V, V, V, I, V]
     fn.restype = ctypes.c_int
     lib.latrd_panel_scratch_floats.restype = ctypes.c_int
     mb = 4096
@@ -165,8 +166,9 @@ def main():
     scratch = torch.empty((lib.latrd_panel_scratch_floats(mb),), device=dev)
     for _ in range(2):
         lib.marks_reset()
-        status = fn(hr.data_ptr(), hi.data_ptr(), mb, mb, mb, 32, pan.data_ptr(),
-                    scal.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        status = fn(hr.data_ptr(), hi.data_ptr(), mb, 0, mb, mb, 32, pan.data_ptr(),  # batch 1
+                    scal.data_ptr(), scratch.data_ptr(), 1,
+                    torch.cuda.current_stream().cuda_stream)
         kernel_guard.check(status, "instrumented latrd_panel launch")
         torch.cuda.synchronize()
     report(lib, lines, to_source, f"K2 mb=pe={mb} nb=32 fp32 (block 0: rows 0-31)")
@@ -324,12 +326,12 @@ def main():
         "symv", "T* red = smem + C::kStages * C::kStageElems;", "cp_async_commit();",
         "tile_products<T, P>(smem + (k % C::kStages) * C::kStageElems, tx, ty, s, acc);",
         "if (++ci > cj) ++cj, ci = 0;", "cg::this_grid().sync();",
-        "finish(g, red);", block=100)
-    V, I = ctypes.c_void_p, ctypes.c_int
+        "finish<T, P, kBatched>(g, red);", block=100)
+    V, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.symv_part_elems.argtypes = [I, I]
     lib.symv_part_elems.restype = ctypes.c_longlong
-    lib.symv_f32_launch.argtypes = [V, I, I, V, V, V, V]
-    lib.hemv_planar_launch.argtypes = [V, V, I, I, V, V, V, V, V]
+    lib.symv_f32_launch.argtypes = [V, I, L, I, V, L, V, V, I, V]
+    lib.hemv_planar_launch.argtypes = [V, V, I, L, I, V, V, L, V, V, I, V]
     n = 4096
     t = torch.tensor(rng.standard_normal((2, n, n)), dtype=torch.float32, device=dev)
     vv = torch.tensor(rng.standard_normal((2, n)), dtype=torch.float32, device=dev)
@@ -339,13 +341,13 @@ def main():
         y = torch.empty(planes * n, device=dev)
         for _ in range(2):
             lib.marks_reset()
-            if planes == 1:
-                status = lib.symv_f32_launch(t[0].data_ptr(), n, n, vv[0].data_ptr(),
-                                             part.data_ptr(), y.data_ptr(), stream)
+            if planes == 1:  # one problem: batch 1
+                status = lib.symv_f32_launch(t[0].data_ptr(), n, 0, n, vv[0].data_ptr(), n,
+                                             part.data_ptr(), y.data_ptr(), 1, stream)
             else:
-                status = lib.hemv_planar_launch(t[0].data_ptr(), t[1].data_ptr(), n, n,
-                                                vv[0].data_ptr(), vv[1].data_ptr(),
-                                                part.data_ptr(), y.data_ptr(), stream)
+                status = lib.hemv_planar_launch(t[0].data_ptr(), t[1].data_ptr(), n, 0, n,
+                                                vv[0].data_ptr(), vv[1].data_ptr(), n,
+                                                part.data_ptr(), y.data_ptr(), 1, stream)
             kernel_guard.check(status, "instrumented symv launch")
             torch.cuda.synchronize()
         report(lib, lines, to_source, f"{label} (block 100, thread 0)")
