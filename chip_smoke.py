@@ -89,9 +89,14 @@ non-zero without printing a result:
                 relative, residuals of one class);
  13. ozaki   -- refine_gevp_planar at the main path's shapes (fp64 A, B,
                 the fp32 pipeline's vectors, sel=(0, 1056), w0, extra_max)
-                with gemm 'native' beside 'ozaki': ms and residual; one
-                ozaki_matmul (4096, 4096) x (4096, 1056) against the fp64
-                product;
+                with gemm 'native' beside 'ozaki', and 'native' with
+                final_pass=True (B-norms within 1e-12 of 1): ms and
+                residual; one ozaki_matmul (4096, 4096) x (4096, 1056)
+                against the fp64 product; then utils/roofline.py's rows
+                (share of the H100's published ceilings) for that product
+                by ozaki_matmul and by torch.matmul in fp64, torch.matmul
+                at 8192^2 in fp32 (TF32 off), bf16 and fp64, and a 2 GiB
+                device copy; any share above 105 % fails;
  14. main (batched, two-stage) -- run after phase 10: the k-point batch of
                 phase 10 with tridiag_mode='two', one batched solve (chunk
                 None and 8): info, residual over every item, launches a
@@ -154,6 +159,18 @@ non-zero without printing a result:
                 with use_pallas=True and tridiag_mode='two' as one batched
                 solve (K6 31, K8 1, K10 1). The last lines put them beside
                 phase 10's batched solves without use_pallas.
+ 20. padded (C1) -- run after phase 7: padded solves whose standard-form
+                matrix has a small norm, against scipy.linalg.eigh (eigenvalues
+                within 1e-10 of the largest selected |lambda|, ge_residual
+                below 1e-12, info 0): real n=130 (padded to 160) il=120..130
+                and planar n=100 (to 128) il=90..100 with A scaled 1e-4,
+                1e-6, 1e-8, mp one-stage with use_pallas=True and mp
+                two-stage; planar fp64 one-stage and two-stage at 1e-8; real
+                n=1000 (to 1024, where K4's buckets are reached) mp use_pallas
+                at 1e-6; one sygvdx_batched and one zhegvdx_planar_batched mp
+                two-stage batch with items scaled 1e-6, 1, 1e6; each solve's
+                launches by the wrappers' counters (K1, K4, K5-K10; K2 and K4
+                where their bucket gates leave them out must show none).
 
 Phase 7 also holds zhegvdx_via_embedding (n=1024, iu=256, fp64) against
 scipy.linalg.eigh, and on an exactly degenerate spectrum (96- and 64-fold
@@ -164,7 +181,7 @@ and K5 3 x (1100, 16) rb=1000 fp64, K7 2 x n=2400 b=6 fp64 (268 pairs),
 K9 3 x n=1000 m=1 fp64, each item bit-identical to its unbatched launch
 (K9 on one window store), one kernel a call.
 
-Phases 1 and 2 run in this process; the checks and phases 3 to 19 run in
+Phases 1 and 2 run in this process; the checks and phases 3 to 20 run in
 groups (GROUPS), each in a child process of its own, one after the other;
 each group's process is started (it imports) while the group before it
 runs, and touches the card only when its turn comes. The run has 1200 s,
@@ -190,9 +207,13 @@ import traceback
 # caught no device record in any later session of that process
 os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+try:  # the H100's published ceilings (utils/roofline.py); main() fails where the port is missing
+    from eigensolver_gpu_torch.utils.roofline import CEILINGS
+except ImportError:
+    CEILINGS = {}
+HBM_BYTES_PER_S = CEILINGS.get("hbm")  # H100 SXM HBM3
 L2_BYTES = 50 * 2**20  # H100 SXM L2
-FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+FP32_FLOP_PER_S = CEILINGS.get("f32")  # H100 SXM fp32 outside the tensor cores
 
 N_MAIN, IU_MAIN = 4096, 1024
 N_REF, IU_REF = 1024, 256
@@ -250,6 +271,10 @@ K10_TOL64 = 1e-11
 N_PLAIN_ROUTE = 512  # mosaic_kernels=False solves (the eager chase is slow)
 SEL_MAIN = (0, IU_MAIN + 32)  # the mixed driver's refined block: iu + refine_margin
 OZAKI_ERR = 2.0**-45  # ozaki_matmul's error bound, relative to (|A| |B|)_ij
+FINAL_PASS_BNORM_TOL = 1e-12  # refine_gevp_planar(final_pass=True): |x^H B x - 1|
+ROOF_N = 8192  # the roofline phase's square matmuls
+ROOF_COPY_BYTES = 2 * 2**30  # the roofline phase's device copy
+ROOF_MAX_PCT = 105.0  # a share above this means a wrong ceiling or count
 MERGE_W_TOL = 1e-5  # compact against full assembly: eigenvalues, relative
 STOP_EVERY_TIMED = (1, 2, 4, 8, 36)  # stedc alone; 36 reads the flag only before sweep 0
 
@@ -3390,6 +3415,7 @@ def phase_ozaki(torch, args):
 
     from eigensolver_gpu_torch import SolverConfig, zhegvdx_planar
     from eigensolver_gpu_torch.ops.ozaki import ozaki_matmul
+    from eigensolver_gpu_torch.ops.planar import pmatmul
     from eigensolver_gpu_torch.ops.refine_planar import refine_gevp_planar
     from eigensolver_gpu_torch.utils.timer import wall_ms
 
@@ -3402,17 +3428,29 @@ def phase_ozaki(torch, args):
     x64 = (zr32.double(), zi32.double())
     w0 = w32.double()
     base = SolverConfig()
-    for gemm in ("native", "ozaki"):
+    timed = {}
+    for gemm, final_pass in (("native", False), ("ozaki", False), ("native", True)):
         fn = lambda: refine_gevp_planar((ar, ai), (br, bi), x64, sweeps=base.refine_iters,
-                                        sel=SEL_MAIN, w0=w0, extra_max=base.refine_extra_max,
-                                        gemm=gemm)
+                                        final_pass=final_pass, sel=SEL_MAIN, w0=w0,
+                                        extra_max=base.refine_extra_max, gemm=gemm)
         (w, (zr, zi)), first_ms = _timed_once(torch, fn)
+        what = f"refine_gevp_planar gemm={gemm} final_pass={final_pass}"
+        if final_pass:  # every column of the block at B-norm 1
+            bxr, bxi = pmatmul((br, bi), (zr, zi))
+            bnorm_err = float((torch.sum(zr * bxr + zi * bxi, dim=0) - 1.0).abs().max())
+            if not bnorm_err <= FINAL_PASS_BNORM_TOL:
+                raise RuntimeError(f"{what}: B-norms {bnorm_err:.3e} from 1")
         order = torch.argsort(w)[:IU_MAIN]
         res = SimpleNamespace(w=w[order], zr=zr[:, order], zi=zi[:, order], info=info)
-        resid = _check_main(torch, args, res, f"refine_gevp_planar gemm={gemm}")
+        resid = _check_main(torch, args, res, what)
         times = wall_ms(fn, iters=1)
-        log(f"ozaki phase: refine_gevp_planar gemm={gemm} sel={SEL_MAIN}: residual {resid:.3e} "
-            f"first {first_ms:.1f} ms timed {[round(x, 1) for x in times]} ms")
+        timed[gemm, final_pass] = min(times)
+        log(f"ozaki phase: {what} sel={SEL_MAIN}: residual {resid:.3e} first {first_ms:.1f} ms "
+            f"timed {[round(x, 1) for x in times]} ms"
+            + (f", B-norms within {bnorm_err:.2e} of 1" if final_pass else ""))
+    log(f"ozaki phase: final_pass=True (native) {timed['native', True]:.1f} ms beside "
+        f"final_pass=False {timed['native', False]:.1f} ms: "
+        f"{timed['native', True] - timed['native', False]:+.1f} ms")
     a = ar
     bmat = x64[0][:, : SEL_MAIN[1]].contiguous()
     got = ozaki_matmul(a, bmat)
@@ -3426,6 +3464,49 @@ def phase_ozaki(torch, args):
         f"2^{math.log2(rel_rc):.2f} of rowmax * colmax")
     if not rel_ab < OZAKI_ERR:
         raise RuntimeError(f"ozaki_matmul error {rel_ab} above {OZAKI_ERR} of |A| |B|")
+    del got, ref, err
+    _roofline_rows(torch, a, bmat)
+
+
+def _roofline_rows(torch, a, bmat):
+    """utils/roofline.py's rows, each timed by CUDA events (device_ms): the
+    ozaki product above (prec 'ozaki', effective fp64 operations) and the
+    same product by torch.matmul in fp64, then torch.matmul at 8192^2 in
+    fp32 (TF32 off), bf16 and fp64, and one 2 GiB device copy (bytes read
+    plus written). Fails if any share reads above ROOF_MAX_PCT: a wrong
+    ceiling or count."""
+    from eigensolver_gpu_torch.ops.ozaki import ozaki_matmul
+    from eigensolver_gpu_torch.utils.precision import true_fp32
+    from eigensolver_gpu_torch.utils.roofline import format_row, stage_roofline
+    from eigensolver_gpu_torch.utils.timer import device_ms
+
+    n, k = a.shape
+    m = bmat.shape[1]
+    rows = [("ozaki_matmul", lambda: ozaki_matmul(a, bmat), 2.0 * n * k * m, "ozaki",
+             8.0 * (n * k + k * m + n * m), 3),
+            ("matmul f64", lambda: a @ bmat, 2.0 * n * k * m, "f64",
+             8.0 * (n * k + k * m + n * m), 5)]
+    big = ROOF_N
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("f64", torch.float64)):
+        x = torch.randn(big, big, device="cuda").to(dt)
+        y = torch.randn(big, big, device="cuda").to(dt)
+        size = x.element_size()
+        rows.append((f"matmul {prec} {big}", lambda x=x, y=y: x @ y, 2.0 * big**3, prec,
+                     3.0 * size * big * big, 5))
+    src = torch.empty(ROOF_COPY_BYTES, dtype=torch.uint8, device="cuda").random_(0, 255)
+    dst = torch.empty_like(src)
+    rows.append(("copy 2 GiB", lambda: dst.copy_(src), 0.0, "f32", 2.0 * ROOF_COPY_BYTES, 5))
+    log(f"roofline (utils/roofline.py, the H100's published ceilings) on {_smi()}:")
+    worst = 0.0
+    with true_fp32():
+        for name, fn, flops, prec, nbytes, iters in rows:
+            ms = device_ms(fn, iters=iters, warmup=1)
+            compute, hbm, _ = stage_roofline(ms, flops, prec, nbytes)
+            worst = max(worst, compute, hbm)
+            log(format_row(name, ms, flops, prec, nbytes) + f"  ({ms:.4f} ms)")
+    if worst > ROOF_MAX_PCT:
+        raise RuntimeError(f"a roofline share reads {worst:.1f} % (> {ROOF_MAX_PCT} %): "
+                           "a wrong ceiling or operation count")
 
 
 def phase_reference_real(torch):
@@ -3798,6 +3879,129 @@ def phase_sharded_two_ranks(torch):
     return out
 
 
+PAD_W_TOL = 1e-10  # eigenvalues, relative to the largest selected |lambda| (PERF.md section 2)
+PAD_RES_TOL = 1e-12  # ge_residual (PERF.md section 2)
+PAD_SCALES = (1e-4, 1e-6, 1e-8)
+PAD_BATCH_SCALES = (1e-6, 1.0, 1e6)
+
+
+def _padded_cases():
+    """(what, route, n, il, iu, cfg keywords, scales a solve, kernels it must
+    launch, kernels it must not) of the padded phase. Real n = 130 pads to
+    160 and planar n = 100 to 128 (nb_tridiag 32). K4 takes the real
+    one-stage buckets whose size is a multiple of 512 and K2 the planar ones
+    whose size is a multiple of 256, so neither runs at those sizes (a padded
+    planar solve has n < 128: larger n are multiples of the Cholesky block,
+    128, and need no pad); the real n = 1000 case pads to 1024 and reaches
+    K4."""
+    mp = {"compute_dtype": "float32"}
+    two = {"tridiag_mode": "two"}
+    real_two = ("ql_panel", "bulge_chase_kernel", "apply_q2_kernel")
+    planar_two = ("ql_panel_planar", "bulge_chase_planar_kernel", "apply_q2_planar_kernel")
+    return [
+        ("real mp one-stage use_pallas", "real", 130, 120, 130, dict(mp, use_pallas=True),
+         [(s,) for s in PAD_SCALES], (), ("symv",)),
+        ("real mp two-stage", "real", 130, 120, 130, dict(mp, **two),
+         [(s,) for s in PAD_SCALES], real_two, ()),
+        ("real mp one-stage use_pallas, K4's buckets", "real", 1000, 990, 1000,
+         dict(mp, use_pallas=True), [(1e-6,)], ("symv",), ()),
+        ("planar mp one-stage use_pallas", "planar", 100, 90, 100, dict(mp, use_pallas=True),
+         [(s,) for s in PAD_SCALES], ("pchol_block_planar",), ("latrd_panel_planar",)),
+        ("planar mp two-stage", "planar", 100, 90, 100, dict(mp, **two),
+         [(s,) for s in PAD_SCALES], ("pchol_block_planar",) + planar_two, ()),
+        ("planar fp64 one-stage", "planar", 100, 90, 100, {}, [(1e-8,)], (), ()),
+        ("planar fp64 two-stage", "planar", 100, 90, 100, dict(two), [(1e-8,)], planar_two, ()),
+        ("sygvdx_batched mp two-stage", "real", 130, 120, 130, dict(mp, **two),
+         [PAD_BATCH_SCALES], real_two, ()),
+        ("zhegvdx_planar_batched mp two-stage", "planar", 100, 90, 100, dict(mp, **two),
+         [PAD_BATCH_SCALES], ("pchol_block_planar",) + planar_two, ()),
+    ]
+
+
+def phase_padded(torch):
+    """Padded solves whose standard-form matrix has a small norm (A scaled
+    1e-4, 1e-6, 1e-8; batches with items scaled 1e-6, 1 and 1e6), each
+    against scipy.linalg.eigh on the host: eigenvalues within PAD_W_TOL of
+    the largest selected |lambda| and ge_residual below PAD_RES_TOL, info 0,
+    with the launches of every kernel wrapper of the solve (counters zeroed
+    just before it, read just after). Returns the launches summed over the
+    phase."""
+    import numpy as np
+    import scipy.linalg
+
+    from eigensolver_gpu_torch import (
+        SolverConfig,
+        sygvdx,
+        sygvdx_batched,
+        zhegvdx_planar,
+        zhegvdx_planar_batched,
+    )
+    from eigensolver_gpu_torch.ops.chase import bulge_chase_kernel, bulge_chase_planar_kernel
+    from eigensolver_gpu_torch.ops.latrd import latrd_panel_planar
+    from eigensolver_gpu_torch.ops.pchol import pchol_block_planar
+    from eigensolver_gpu_torch.ops.ql_panel import ql_panel, ql_panel_planar
+    from eigensolver_gpu_torch.ops.replay import apply_q2_kernel, apply_q2_planar_kernel
+    from eigensolver_gpu_torch.ops.symv import hemv_planar, symv
+    from eigensolver_gpu_torch.utils.convert import planar_from_numpy
+    from eigensolver_gpu_torch.utils.testing import ge_residual
+
+    wrappers = (pchol_block_planar, latrd_panel_planar, hemv_planar, symv, ql_panel,
+                ql_panel_planar, bulge_chase_kernel, bulge_chase_planar_kernel,
+                apply_q2_kernel, apply_q2_planar_kernel)
+    totals = {fn.__name__: 0 for fn in wrappers}
+    t_phase = time.perf_counter()
+    for what, route, n, il, iu, kw, scale_sets, must, must_not in _padded_cases():
+        cfg = SolverConfig(**kw)
+        make = "random_spd_pair" if route == "real" else "random_hpd_pair"
+        for scales in scale_sets:
+            pairs = [_pair(make, n, k) for k in range(len(scales))]
+            a = np.stack([p[0] * s for p, s in zip(pairs, scales)])
+            b = np.stack([p[1] for p in pairs])
+            if len(scales) == 1:
+                a, b = a[0], b[0]
+            for fn in wrappers:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            if route == "real":
+                at, bt = (torch.tensor(x, device="cuda") for x in (a, b))
+                res = (sygvdx_batched if a.ndim == 3 else sygvdx)(at, bt, il=il, iu=iu, cfg=cfg)
+                w, z = res.w.cpu().numpy(), res.z.cpu().numpy()
+            else:
+                args = planar_from_numpy(a, b, device="cuda", dtype=torch.float64)
+                fn = zhegvdx_planar_batched if a.ndim == 3 else zhegvdx_planar
+                res = fn(*args, il=il, iu=iu, cfg=cfg)
+                w = res.w.cpu().numpy()
+                z = res.zr.cpu().numpy() + 1j * res.zi.cpu().numpy()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {fn.__name__: fn.launches for fn in wrappers}
+            info = np.atleast_1d(res.info.cpu().numpy()).tolist()
+            errs = []
+            for k in range(len(scales)):
+                ak, bk = (a[k], b[k]) if a.ndim == 3 else (a, b)
+                wk, zk = (w[k], z[k]) if a.ndim == 3 else (w, z)
+                ref = scipy.linalg.eigh(ak, bk, eigvals_only=True, subset_by_index=[il - 1, iu - 1])
+                werr = float(np.abs(wk - ref).max() / np.abs(ref).max())
+                finite = bool(np.isfinite(wk).all() and np.isfinite(zk).all())
+                errs.append((werr, ge_residual(ak, bk, wk, zk) if finite else float("inf")))
+            launched = {k: v for k, v in counts.items() if v}
+            log(f"padded {what} n={n} il={il} iu={iu} A x {scales}: eigenvalues "
+                f"{', '.join(f'{e[0]:.2e}' for e in errs)} relative, ge_residual "
+                f"{', '.join(f'{e[1]:.2e}' for e in errs)}, info {info}, {ms:.1f} ms, "
+                f"launches {launched}")
+            for key, v in counts.items():
+                totals[key] += v
+            if set(info) != {0} or not all(e[0] < PAD_W_TOL and e[1] < PAD_RES_TOL
+                                           for e in errs):
+                raise RuntimeError(f"padded {what} A x {scales} wrong: info {info}, "
+                                   f"errors {errs}")
+            if any(not counts[k] for k in must) or any(counts[k] for k in must_not):
+                raise RuntimeError(f"padded {what}: launches {counts}, want {must} launched "
+                                   f"and {must_not} not")
+    log(f"padded phase: {time.perf_counter() - t_phase:.1f} s; launches over the phase "
+        f"{ {k: v for k, v in totals.items() if v} }")
+    return totals
+
+
 def _with(torch, check_batched, entry):
     """The kernel's entry with its batched readings added by check_batched."""
     check_batched(torch, entry)
@@ -3847,6 +4051,7 @@ GROUPS = {
         _with(torch, check_k10_batched, check_k10(torch))]},
     "main": lambda torch: {"launches": phase_main(torch)},
     "main (real)": _main_real,
+    "padded (C1)": lambda torch: {"padded": phase_padded(torch)},
     "main (real, two-stage)": lambda torch: {"launches": phase_main_real_two(torch)},
     "main (planar, two-stage)": lambda torch: {"launches": phase_main_planar_two(torch)},
     "main (batched)": phase_main_batched,
@@ -3932,7 +4137,8 @@ def _merge_result(result, kernels, launches, readings):
     launches.update(result.get("launches", {}))
     readings.update({k: v for k, v in result.items()
                      if k in ("batched", "batched_real", "embedded", "batched_one_stage_ms",
-                              "batched_real_one_stage_ms", "tp", "two_ranks", "pallas")})
+                              "batched_real_one_stage_ms", "tp", "two_ranks", "pallas",
+                              "padded")})
 
 
 def _prepare(name):
@@ -4080,6 +4286,9 @@ def _main_groups(torch):
                 print(f"chip_smoke: {k['name']} was never launched on the tp path",
                       file=sys.stderr)
                 return 1
+    for k in kernels:  # launches over the padded phase (C1)
+        if k["name"] in readings["padded"]:
+            k["padded"] = {"launches": readings["padded"][k["name"]]}
     for k in kernels:
         k.setdefault("launches", launches.get(k["name"]))
         if not k["launches"]:

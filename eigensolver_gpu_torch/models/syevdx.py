@@ -55,11 +55,18 @@ def _pad_decoupled(a, npad):
     diagonal strictly above A's spectrum (Gershgorin bound), so the padded
     eigenvalues sort after the real ones and index selection is unchanged.
     Tight spacing: the pad values feed stedc's scaling, and a wide ramp
-    inflates its fp32 deflation thresholds."""
+    inflates its fp32 deflation thresholds.
+
+    The bound is the max row sum, one an item, or 1 where that is 0. JAX
+    adds 1.0 to it; for a matrix with a small norm that makes the pad
+    values (near 2) set stedc's scale, and its fp32 deflation threshold
+    then swallows A's whole spectrum (wrong eigenpairs with info = 0).
+    The port departs from JAX here, on padded inputs only."""
     n = a.shape[-1]
     if npad == n:
         return a
-    bound = torch.amax(torch.sum(a.abs(), dim=-1), dim=-1) + 1.0  # one an item
+    bound = torch.amax(torch.sum(a.abs(), dim=-1), dim=-1)  # one an item
+    bound = torch.where(bound == 0, torch.ones_like(bound), bound)
     k = npad - n
     padvals = bound[..., None] * (
         2.0 + torch.arange(k, dtype=bound.dtype, device=a.device) * (1.0 / 256.0)

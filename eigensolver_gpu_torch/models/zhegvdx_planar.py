@@ -99,12 +99,16 @@ def _from_upper_planar(xr, xi):
 def _pad_planar(ar, ai, npad):
     """Pad to npad with decoupled diagonal entries above the spectrum
     (tightly spaced: wide ramps inflate stedc's fp32 deflation
-    thresholds)."""
+    thresholds). The bound is the max row sum, one an item, or 1 where
+    that is 0: JAX's ``+ 1.0`` is left out, as in
+    models/syevdx._pad_decoupled, whose docstring says why (a departure
+    from JAX on padded inputs only)."""
     n = ar.shape[-1]
     if npad == n:
         return ar, ai
     # one bound an item
-    bound = torch.amax(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=-1), dim=-1) + 1.0
+    bound = torch.amax(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=-1), dim=-1)
+    bound = torch.where(bound == 0, torch.ones_like(bound), bound)
     k = npad - n
     padvals = bound[..., None] * (
         2.0 + torch.arange(k, dtype=ar.dtype, device=ar.device) * (1.0 / 256.0)

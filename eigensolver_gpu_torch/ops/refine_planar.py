@@ -41,7 +41,7 @@ from eigensolver_gpu_torch.ops.ozaki import (
     ozaki_pmatmul_pre,
     ozaki_slice,
 )
-from eigensolver_gpu_torch.ops.planar import pH, pmatmul_chunked
+from eigensolver_gpu_torch.ops.planar import pH, pmatmul, pmatmul_chunked
 from eigensolver_gpu_torch.ops.refine import _check_gemm, escalate
 from eigensolver_gpu_torch.utils.precision import highest_precision
 from eigensolver_gpu_torch.utils.tracing import trace_range
@@ -169,8 +169,8 @@ def _sweep_ozaki(a, b, x, sel, w_rows, bits=48):
 
 @highest_precision
 def refine_gevp_planar(
-    a, b, x, sweeps=2, coarse_first=True, chunk=None, gemm="native",
-    sel=None, w0=None, extra_max=0,
+    a, b, x, sweeps=2, coarse_first=True, final_pass=False, chunk=None,
+    gemm="native", sel=None, w0=None, extra_max=0,
 ):
     """Refine planar eigenvectors ``x`` (n, m), the full approximate basis
     in ascending eigenvalue order, of the pair (a, b).
@@ -180,6 +180,13 @@ def refine_gevp_planar(
     w0: full-length eigenvalue estimates from the fp32 pipeline, required
     when sel selects a strict subset.
     coarse_first: run all but the last sweep (at most 2) in fp32.
+    final_pass: after the last update (the escalation included), take the
+    Rayleigh quotients and B-norms of the returned block from two more
+    planar products in x's precision (``pmatmul``, native on the card
+    whatever ``gemm`` is, as JAX's are its platform fp64 dot): w = x^H A x
+    / x^H B x (x^H A x where the B-norm is 0) and each column scaled to
+    B-norm 1. Off by default, as in JAX: the last sweep's w is already
+    quadratically accurate and its B-norms 1 + O(err^2).
     extra_max: at most this many extra fp64 sweeps while the defect
     exceeds 100 * eps64 * sqrt(n) * anorm. The test reads the defect on
     the host: one device sync per sweep.
@@ -247,4 +254,13 @@ def refine_gevp_planar(
                                                 extra_max)
             w = w_rows[..., sel0 : sel0 + ms]
 
-        return w, (xr[..., sel0 : sel0 + ms], xi[..., sel0 : sel0 + ms])
+        xs = (xr[..., sel0 : sel0 + ms], xi[..., sel0 : sel0 + ms])
+        if not final_pass:
+            return w, xs
+        bx = pmatmul(b, xs)
+        ax = pmatmul(a, xs)
+        bnorm = torch.sum(xs[0] * bx[0] + xs[1] * bx[1], dim=-2)
+        anum = torch.sum(xs[0] * ax[0] + xs[1] * ax[1], dim=-2)
+        w = anum / torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+        scale = 1.0 / torch.sqrt(torch.clamp_min(bnorm, torch.finfo(bnorm.dtype).tiny))
+        return w, (xs[0] * scale[..., None, :], xs[1] * scale[..., None, :])

@@ -51,12 +51,17 @@ def sygst_full(a, u):
 
 
 @highest_precision
-def sygst_blocked(a, u, nb=512):
+def sygst_blocked(a, u, nb=512, n_buckets=4):
     """Blocked LAPACK-style recurrence (dsygst_gpu.F90:50-96 shape).
 
     Per block k (size nb): transform the diagonal block, then update the
     trailing panel with trsm -> gemm(-1/2) -> her2k -> gemm(-1/2) -> trsm.
+
+    ``n_buckets`` is kept for the JAX signature and has no effect: it
+    bounds the number of JAX's traced loops, and this loop is eager, one
+    exact block at a time, so every value gives the same C.
     """
+    del n_buckets
     n = a.shape[-1]
     a = _herm(a)
     with trace_range("sygst_blocked"):

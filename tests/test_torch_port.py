@@ -123,7 +123,7 @@ def test_port_file_list_covers_the_package():
     for name in ("models/sygvdx.py", "models/syevdx.py", "ops/symv.py", "ops/sytrd.py",
                  "ops/refine.py", "utils/kernel_guard.py", "ops/sbrd.py", "ops/sb2st.py",
                  "ops/ql_panel.py", "ops/chase.py", "ops/replay.py", "ops/sbrd_planar.py",
-                 "ops/sb2st_planar.py", "models/zhegvdx_planar.py"):
+                 "ops/sb2st_planar.py", "models/zhegvdx_planar.py", "utils/roofline.py"):
         assert f"eigensolver_gpu_torch/{name}" in _PORT_FILES
 
 
@@ -146,3 +146,85 @@ def test_public_exports_cover_the_jax_package_drivers():
     for name in ("sygvdx", "dsygvdx", "zhegvdx", "syevdx"):
         assert name in eigensolver_gpu_tpu.__all__
     assert eigensolver_gpu_torch.SygvdxResult._fields == ("w", "z", "info")
+
+
+# The JAX package's Pallas modules and the port's modules that hold their
+# kernels' wrappers (the wrapper keeps the JAX entry's name where the port
+# has one).
+_PALLAS_TWIN = {"pchol_pallas": "pchol", "latrd_pallas": "latrd", "symv_pallas": "symv",
+                "hemv_pallas": "symv", "ql_panel_pallas": "ql_panel", "chase_pallas": "chase",
+                "replay_pallas": "replay"}
+_INTERPRET = "Pallas interpret mode: a CUDA kernel has none; CPU tensors take the plain version"
+_TILE = "the Pallas block shape: the CUDA kernel sizes its own blocks"
+_PALLAS_ENTRY = ("the Pallas entry point: its CUDA kernel is called through the wrapper of "
+                 "the same module, which builds it or raises")
+_AUTO = "the interpreter fallback: the wrapper itself takes the plain version on the CPU"
+_MOSAIC = "Mosaic probe: the loader builds the kernel or raises, with no fallback to probe"
+# (JAX module, function) or (JAX module, function, argument) -> why the port has no twin
+_BY_DESIGN = {
+    ("ops/chase_pallas.py", "bulge_chase_pallas"): _PALLAS_ENTRY,
+    ("ops/chase_pallas.py", "bulge_chase_planar_pallas"): _PALLAS_ENTRY,
+    ("ops/pchol_pallas.py", "pchol_block_planar_pallas"): _PALLAS_ENTRY,
+    ("ops/ql_panel_pallas.py", "ql_panel_pallas"): _PALLAS_ENTRY,
+    ("ops/ql_panel_pallas.py", "ql_panel_planar_pallas"): _PALLAS_ENTRY,
+    ("ops/replay_pallas.py", "apply_q2_pallas"): _PALLAS_ENTRY,
+    ("ops/replay_pallas.py", "apply_q2_planar_pallas"): _PALLAS_ENTRY,
+    ("ops/hemv_pallas.py", "hemv_planar", "tile"): _TILE,
+    ("ops/hemv_pallas.py", "hemv_planar", "interpret"): _INTERPRET,
+    ("ops/latrd_pallas.py", "latrd_panel_planar", "tile"): _TILE,
+    ("ops/latrd_pallas.py", "latrd_panel_planar", "interpret"): _INTERPRET,
+    ("ops/symv_pallas.py", "symv", "tile"): _TILE,
+    ("ops/symv_pallas.py", "symv", "interpret"): _INTERPRET,
+    ("ops/hemv_pallas.py", "hemv_planar_auto"): _AUTO,
+    ("ops/hemv_pallas.py", "hemv_auto"): _AUTO,
+    ("ops/symv_pallas.py", "symv_auto"): _AUTO,
+    ("utils/kernel_guard.py", "kernel_ok"): _MOSAIC,
+    ("utils/kernel_guard.py", "mosaic_backend"): _MOSAIC,
+    ("utils/kernel_guard.py", "compiled_unavailable"): _MOSAIC,
+}
+_JAX_PKG = ROOT / "eigensolver_gpu_tpu"
+_JAX_MODULES = sorted(str(p.relative_to(_JAX_PKG)) for p in _JAX_PKG.rglob("*.py"))
+
+
+def _public_functions(path):
+    """{name: argument names} of the module's public top-level functions."""
+    out = {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            a = node.args
+            names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+            out[node.name] = names + [x.arg for x in (a.vararg, a.kwarg) if x]
+    return out
+
+
+def _twin(rel):
+    """The port's module for a JAX module (same path; Pallas modules mapped)."""
+    p = pathlib.PurePosixPath(rel)
+    return ROOT / "eigensolver_gpu_torch" / p.parent / (_PALLAS_TWIN.get(p.stem, p.stem) + ".py")
+
+
+def test_parity_guard_covers_the_jax_package():
+    assert len(_JAX_MODULES) > 30
+    for rel in ("utils/roofline.py", "ops/sygst.py", "ops/refine_planar.py"):
+        assert rel in _JAX_MODULES
+
+
+@pytest.mark.parametrize("rel", _JAX_MODULES)
+def test_port_has_every_public_function_of_the_jax_module(rel):
+    """By AST, importing neither package: each public top-level function of
+    the JAX module, and each of its argument names, has a twin in the port's
+    module, apart from the names the kernel loader replaces by design
+    (_BY_DESIGN, each with its reason); and every allow-listed name is one
+    that JAX has and the port lacks."""
+    twin = _twin(rel)
+    assert twin.exists(), f"{rel} has no twin {twin.relative_to(ROOT)}"
+    jax_fns, port_fns = _public_functions(_JAX_PKG / rel), _public_functions(twin)
+    missing = []
+    for name, args in jax_fns.items():
+        if name not in port_fns:
+            missing.append((rel, name))
+        else:
+            missing += [(rel, name, arg) for arg in args if arg not in port_fns[name]]
+    allowed = {key for key in _BY_DESIGN if key[0] == rel}
+    assert [m for m in missing if m not in allowed] == []
+    assert allowed <= set(missing), f"stale allow-list entries {sorted(allowed - set(missing))}"
