@@ -20,6 +20,10 @@ tensor on the device (0 ok, > 0: B not positive definite), never raised.
 ``sygvdx`` and ``syevdx`` take tensors and run on the tensors' device;
 ``dsygvdx`` and ``zhegvdx`` also take numpy arrays, which go to the
 ``device`` keyword (the card by default). Nothing falls back to the CPU.
+
+Under ``utils/tracing.py`` the solve is the range ``sygvdx``, with phase 1
+in ``potrf``, phase 2 (on the ``'trinv'`` route the inverse of U and its two
+gemms) in ``to_standard`` and phase 4 in ``back_solve``.
 """
 
 from __future__ import annotations
@@ -123,12 +127,16 @@ def _sygvdx(a, b, il, iu, cfg):
         )
         if trinv_ok:
             with trace_range("sygvdx"):
-                u, info = cholesky_upper(b)
-                inv = trinv_upper_full(u, base=512)
-                c = inv.mH @ (a @ inv)
-                c = (c + c.mH) / 2
+                with trace_range("potrf"):
+                    u, info = cholesky_upper(b)
+                with trace_range("to_standard"):
+                    inv = trinv_upper_full(u, base=512)
+                    c = inv.mH @ (a @ inv)
+                    c = (c + c.mH) / 2
                 w, y = syevdx(c, il=il, iu=iu, cfg=cfg)
-                return SygvdxResult(w=w, z=inv @ y, info=info)
+                with trace_range("back_solve"):
+                    z = inv @ y
+                return SygvdxResult(w=w, z=z, info=info)
         sygst_mode = "full"
     if sygst_mode == "full":
         # 'inv' needs the batched block inversion: nb must divide n and
@@ -142,12 +150,16 @@ def _sygvdx(a, b, il, iu, cfg):
             sygst_mode = "blocked"
 
     with trace_range("sygvdx"):
-        u, info = cholesky_upper(b)  # PHASE 1 (zhegvdx_gpu.F90:135)
-        c = sygst(a, u, mode=sygst_mode, nb=cfg.nb_sygst)  # PHASE 2 (:158)
+        with trace_range("potrf"):
+            u, info = cholesky_upper(b)  # PHASE 1 (zhegvdx_gpu.F90:135)
+        with trace_range("to_standard"):
+            c = sygst(a, u, mode=sygst_mode, nb=cfg.nb_sygst)  # PHASE 2 (:158)
         w, y = syevdx(c, il=il, iu=iu, cfg=cfg)  # PHASE 3 (:163)
         # PHASE 4: x = U^{-1} y; fp32 pipelines use the inverse-diagonal
         # blocked solve, fp64 keeps exact substitution
-        return SygvdxResult(w=w, z=trsm_phase4(u, y), info=info)
+        with trace_range("back_solve"):
+            z = trsm_phase4(u, y)
+        return SygvdxResult(w=w, z=z, info=info)
 
 
 def _as_tensor(x, device):

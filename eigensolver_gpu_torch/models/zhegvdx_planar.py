@@ -52,6 +52,10 @@ two (n = 4096 qualifies). Where the gate fails, ``'trinv'`` and
 (``ptrsm_left_lower_inv``) in fp32 and ``'subst'`` and every fp64 solve the
 exact substitution (``ptrsm_left_lower``). The mixed driver passes the mode
 to its fp32 inner solve, one-stage or two-stage, batched or not.
+
+Under ``utils/tracing.py`` the solve is the range ``zhegvdx_planar``, with
+phase 1 in ``potrf``, phase 2 (the inverse of L too, on the ``'trinv'``
+route) in ``to_standard`` and phase 4 in ``back_solve``.
 """
 
 from __future__ import annotations
@@ -247,21 +251,24 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         subst = ptrsm_left_lower
 
     with trace_range("zhegvdx_planar"):
-        l, info = pcholesky_lower((br, bi), nb=nb_chol, block_kernel=cfg.mosaic_kernels)
-        if trinv_ok:
-            linv = ptrinv_lower(l)
-            solve_l = lambda rhs: pmatmul(linv, rhs)
-            # phase 4 solves L^H x = y, so x = inv(L)^H y
-            solve_u = lambda rhs: pmatmul(pH(linv), rhs)
-        else:
-            solve_l = lambda rhs: subst(l, rhs, nb=nb_chol)
-            solve_u = lambda rhs: ptrsm_left_upper(pH(l), rhs, nb=nb_chol, solve_lower=subst)
-        # PHASE 2: C = L^{-1} A L^{-H} = L^{-1} (L^{-1} A^H)^H
-        x = solve_l((ar, ai))
-        y = solve_l(pH(x))
-        cr, ci = pH(y)
-        cr = (cr + cr.mT) / 2
-        ci = (ci - ci.mT) / 2
+        with trace_range("potrf"):
+            l, info = pcholesky_lower((br, bi), nb=nb_chol, block_kernel=cfg.mosaic_kernels)
+        with trace_range("to_standard"):
+            if trinv_ok:
+                linv = ptrinv_lower(l)
+                solve_l = lambda rhs: pmatmul(linv, rhs)
+                # phase 4 solves L^H x = y, so x = inv(L)^H y
+                solve_u = lambda rhs: pmatmul(pH(linv), rhs)
+            else:
+                solve_l = lambda rhs: subst(l, rhs, nb=nb_chol)
+                solve_u = lambda rhs: ptrsm_left_upper(pH(l), rhs, nb=nb_chol,
+                                                       solve_lower=subst)
+            # PHASE 2: C = L^{-1} A L^{-H} = L^{-1} (L^{-1} A^H)^H
+            x = solve_l((ar, ai))
+            y = solve_l(pH(x))
+            cr, ci = pH(y)
+            cr = (cr + cr.mT) / 2
+            ci = (ci - ci.mT) / 2
 
         # PHASE 3: tridiagonalize -> real D&C -> back-transform
         nbt = cfg.nb_tridiag
@@ -281,7 +288,8 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         yr, yi = yr[..., :n, :], yi[..., :n, :]
 
         # PHASE 4: x = L^{-H} y  (L^H is upper triangular)
-        zr, zi = solve_u((yr, yi))
+        with trace_range("back_solve"):
+            zr, zi = solve_u((yr, yi))
         return PlanarResult(w=w, zr=zr, zi=zi, info=info)
 
 

@@ -55,7 +55,7 @@ import torch
 from eigensolver_gpu_torch.ops.ozaki import ozaki_matmul_chunked
 from eigensolver_gpu_torch.parallel import comm
 from eigensolver_gpu_torch.utils.precision import highest_precision
-from eigensolver_gpu_torch.utils.tracing import trace_range
+from eigensolver_gpu_torch.utils.tracing import count, trace_range
 
 _EPS32 = torch.finfo(torch.float32).eps
 
@@ -181,12 +181,14 @@ def escalate(one_sweep, state, defect, tol, extra_max):
     an item that stops keeps its state: the semantics of the JAX package's
     ``lax.while_loop`` under ``vmap``. The test is read on the host once a
     sweep, for all items at once; a sweep in which every item is active
-    takes the new state whole, so one problem runs exactly as before."""
+    takes the new state whole, so one problem runs exactly as before.
+    Each sweep run counts one ``refine_extra_sweeps`` (utils/tracing.py)."""
     for _ in range(extra_max):
         active = defect > tol
         flags = active.reshape(-1).tolist()  # one device sync a sweep
         if not any(flags):
             break
+        count("refine_extra_sweeps")
         new_state, new_defect = one_sweep(state)
         if all(flags):
             state, defect = new_state, new_defect
@@ -208,6 +210,7 @@ def _run_sweeps(one_sweep, x, w_rows, n_full, extra_max, n, is64):
     if defect is None and extra_max > 0 and is64:
         # sweeps=0 with escalation enabled: the gate needs one measured
         # sweep; spend the first escalation sweep here
+        count("refine_extra_sweeps")
         x, w, w_rows, defect = one_sweep(x, w_rows)
         extra_max -= 1
     if extra_max > 0 and defect is not None and is64:

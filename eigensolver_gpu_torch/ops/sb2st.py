@@ -325,8 +325,7 @@ def apply_q2(vt, taut, y, n, b, g=None, tsolve="qform"):
     if tsolve not in ("qform", "inv", "solve"):
         raise ValueError(f"unknown tsolve {tsolve!r}")
     plan = _wave_plan(n, b, g)
-    with trace_range("apply_q2_repack"):
-        v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
+    v2f, t2f, nvp, kp = _padded_pack(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
     fy = plan["fy"]
     y_p = torch.zeros(y.shape[:-2] + (plan["rows_p"], y.shape[-1]), dtype=y.dtype,
                       device=y.device)

@@ -262,8 +262,7 @@ def apply_q2_planar(vt, taut, y, n, b, g=None):
         g = b
     y_r, y_i = y
     plan = _wave_plan(n, b, g)
-    with trace_range("apply_q2_planar_repack"):
-        v2f, t2f, nvp, kp = _padded_pack_planar(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
+    v2f, t2f, nvp, kp = _padded_pack_planar(vt, taut, b, n, g, plan["n_groups"], plan["kmax"])
     fy = plan["fy"]
     yp_r = torch.zeros(y_r.shape[:-2] + (plan["rows_p"], y_r.shape[-1]), dtype=y_r.dtype,
                        device=y_r.device)

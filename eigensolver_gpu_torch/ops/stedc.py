@@ -343,6 +343,8 @@ def stedc(d, e, leaf=64, leaf_solver=None, mesh=None):
     (module docstring), and every rank returns the whole result. After a call,
     ``stedc.sweeps`` lists the secular sweeps of each merge and
     ``stedc.compact`` (n2, alive counts, buckets) of each compact merge.
+    Under ``utils/tracing.py`` the solve is the range ``stedc`` and the
+    batched leaf eigensolve the range ``stedc_leaves`` inside it.
     """
     batched = d.dim() == 2
     if not batched:
@@ -411,7 +413,8 @@ def stedc(d, e, leaf=64, leaf_solver=None, mesh=None):
         tb = torch.diag_embed(db) + torch.diag_embed(e_in[..., :-1], 1) + torch.diag_embed(
             e_in[..., :-1], -1
         )
-        wb, qb = leaf_eigh(tb)
+        with trace_range("stedc_leaves"):
+            wb, qb = leaf_eigh(tb)
 
         gap_scale = torch.clamp_min(dp_full.abs().amax(-1), 1.0)
 

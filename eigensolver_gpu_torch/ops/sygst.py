@@ -27,7 +27,6 @@ from eigensolver_gpu_torch.ops.trsm import (
     trsm_right_upper_inv,
 )
 from eigensolver_gpu_torch.utils.precision import highest_precision
-from eigensolver_gpu_torch.utils.tracing import trace_range
 
 
 def _tsolve(u, b, *, left, trans):
@@ -45,9 +44,8 @@ def _herm(c):
 @highest_precision
 def sygst_full(a, u):
     """Whole-matrix C = U^{-H} A U^{-1} via two triangular solves."""
-    with trace_range("sygst_full"):
-        x = _tsolve(u, a, left=True, trans=True)  # X = U^{-H} A
-        return _herm(_tsolve(u, x, left=False, trans=False))  # C = X U^{-1}
+    x = _tsolve(u, a, left=True, trans=True)  # X = U^{-H} A
+    return _herm(_tsolve(u, x, left=False, trans=False))  # C = X U^{-1}
 
 
 @highest_precision
@@ -64,27 +62,26 @@ def sygst_blocked(a, u, nb=512, n_buckets=4):
     del n_buckets
     n = a.shape[-1]
     a = _herm(a)
-    with trace_range("sygst_blocked"):
-        for k0 in range(0, n, nb):
-            k1 = min(k0 + nb, n)
-            ukk = u[..., k0:k1, k0:k1]
-            # diagonal block: U_kk^{-H} A_kk U_kk^{-1}
-            akk = _tsolve(ukk, a[..., k0:k1, k0:k1], left=True, trans=True)
-            akk = _herm(_tsolve(ukk, akk, left=False, trans=False))
-            a[..., k0:k1, k0:k1] = akk
-            if k1 == n:
-                break
-            # trailing panel update (dsygst_gpu.F90:76-93)
-            ukt = u[..., k0:k1, k1:]
-            akt = _tsolve(ukk, a[..., k0:k1, k1:], left=True, trans=True)
-            akt = akt - 0.5 * akk @ ukt
-            upd = akt.mH @ ukt
-            a[..., k1:, k1:] = _herm(a[..., k1:, k1:] - (upd + upd.mH))
-            akt = akt - 0.5 * akk @ ukt
-            akt = _tsolve(u[..., k1:, k1:], akt, left=False, trans=False)
-            a[..., k0:k1, k1:] = akt
-            a[..., k1:, k0:k1] = akt.mH
-        return a
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        ukk = u[..., k0:k1, k0:k1]
+        # diagonal block: U_kk^{-H} A_kk U_kk^{-1}
+        akk = _tsolve(ukk, a[..., k0:k1, k0:k1], left=True, trans=True)
+        akk = _herm(_tsolve(ukk, akk, left=False, trans=False))
+        a[..., k0:k1, k0:k1] = akk
+        if k1 == n:
+            break
+        # trailing panel update (dsygst_gpu.F90:76-93)
+        ukt = u[..., k0:k1, k1:]
+        akt = _tsolve(ukk, a[..., k0:k1, k1:], left=True, trans=True)
+        akt = akt - 0.5 * akk @ ukt
+        upd = akt.mH @ ukt
+        a[..., k1:, k1:] = _herm(a[..., k1:, k1:] - (upd + upd.mH))
+        akt = akt - 0.5 * akk @ ukt
+        akt = _tsolve(u[..., k1:, k1:], akt, left=False, trans=False)
+        a[..., k0:k1, k1:] = akt
+        a[..., k1:, k0:k1] = akt.mH
+    return a
 
 
 @highest_precision
@@ -98,9 +95,8 @@ def sygst_inv(a, u, nb=512):
     it; the fp64 path keeps sygst_full/sygst_blocked. Requires
     n % nb == 0 and nb = 16 * 2^j.
     """
-    with trace_range("sygst_inv"):
-        x = trsm_left_upper_trans_inv(u, a, nb=nb)  # X = U^{-H} A
-        return _herm(trsm_right_upper_inv(u, x, nb=nb))  # C = X U^{-1}
+    x = trsm_left_upper_trans_inv(u, a, nb=nb)  # X = U^{-H} A
+    return _herm(trsm_right_upper_inv(u, x, nb=nb))  # C = X U^{-1}
 
 
 def sygst(a, u, mode="full", nb=512):

@@ -198,9 +198,13 @@ def test_planar_two_stage_stages_are_traced():
     names = [name for name, _ in tracing.timings()]
     tracing.clear()
     order = ("psbrd", "bulge_chase_planar", "stedc", "apply_q2_planar", "apply_q1_planar")
-    for want in order + ("zhegvdx_planar",):
+    for want in order + ("zhegvdx_planar", "potrf", "to_standard", "back_solve", "stedc_leaves"):
         assert names.count(want) == 1, (want, names)
     assert [names.index(x) for x in order] == sorted(names.index(x) for x in order)
+    # the driver's phases around the two-stage pipeline, stedc's leaves inside stedc
+    outer = ("potrf", "to_standard") + order + ("back_solve", "zhegvdx_planar")
+    assert [names.index(x) for x in outer] == sorted(names.index(x) for x in outer)
+    assert names.index("bulge_chase_planar") < names.index("stedc_leaves") < names.index("stedc")
     assert "hetrd_planar" not in names and "unmtr_planar" not in names
 
 

@@ -143,7 +143,13 @@ def test_two_stage_stages_are_traced():
         tracing.disable()
     names = [name for name, _ in tracing.timings()]
     tracing.clear()
-    for want in ("sbrd", "bulge_chase", "apply_q2", "apply_q1", "stedc", "syevdx", "sygvdx"):
+    for want in ("sbrd", "bulge_chase", "apply_q2", "apply_q1", "stedc", "syevdx", "sygvdx",
+                 "potrf", "to_standard", "back_solve", "stedc_leaves"):
         assert names.count(want) == 1, (want, names)
     assert names.index("sbrd") < names.index("bulge_chase") < names.index("stedc") \
         < names.index("apply_q2") < names.index("apply_q1")
+    # the driver's phases around the standard eigensolve, stedc's leaves inside stedc
+    assert names.index("potrf") < names.index("to_standard") < names.index("sbrd") \
+        < names.index("apply_q1") < names.index("syevdx") < names.index("back_solve") \
+        < names.index("sygvdx")
+    assert names.index("bulge_chase") < names.index("stedc_leaves") < names.index("stedc")
