@@ -13,17 +13,28 @@ Design decisions carried over from the JAX package (see its docstring):
 deflation by masking, separation of surviving poles to a minimum gap
 instead of dlaed2's Givens chain, and the Gu/Eisenstat recomputed z.
 
-The secular iteration stops by JAX's rule: a lane is done once it has
-converged (|f| at its evaluation's roundoff floor) or its bracket has
-collapsed to eps * max(|lo|, |hi|) + eps * gap_min; the loop ends when
-every lane of the call is done, or at the ``_secular_iters`` ceiling (35
-sweeps in fp32, 60 in fp64). The deflation-aware assembly (``compact``)
+The secular iteration stops by JAX's rule for its live lanes: a lane
+whose pole survived deflation is done once it has converged (|f| at its
+evaluation's roundoff floor) or its bracket has collapsed to
+eps * max(|lo|, |hi|) + eps * gap_min; a deflated lane counts as done
+from the start; the loop ends when every lane of the call is done, or at
+the ``_secular_iters`` ceiling (35 sweeps in fp32, 60 in fp64). The
+deflation-aware assembly (``compact``)
 is JAX's: alive poles first, the update gemm at the smallest of four
 bucket sizes covering the alive count, the deflated columns passed
 through; ``stedc`` takes it where JAX does, at the levels of at most two
 pairs and at the fold merges.
 
 Port differences:
+  * deflated lanes do not hold the loop (JAX's ``while_loop`` tests every
+    lane's bracket). Such a lane has z = 0: it bisects toward a pole
+    that is not there and never meets the bracket test, so under JAX's
+    test every merge that deflates anything runs to the ceiling. Its
+    root is thrown away (w takes the pole there) and the Loewner and
+    assembly masks never read it, so the rule changes the sweep count
+    and not the roots: the sweeps it drops move live lanes only inside
+    brackets already collapsed to eps, as below. ``alive`` is the same on
+    every rank of a mesh, and a merge with no deflation stops as before;
   * the done flag is computed on the device and read on the host every
     ``STOP_EVERY`` sweeps (JAX tests it before every sweep inside a
     ``while_loop``), so a merge may run up to ``STOP_EVERY - 1`` sweeps
@@ -191,7 +202,10 @@ def _merge_pair(d1, q1, d2, q2, beta, gap_scale, compact=False, mesh=None):
     it = 0
     while it < max_it:
         if it % STOP_EVERY == 0:
-            done = conv | (hi - lo <= eps * torch.maximum(lo.abs(), hi.abs()) + tol_abs)
+            # a deflated lane never meets the bracket test, and its root
+            # is thrown away (module docstring)
+            done = conv | (hi - lo <= eps * torch.maximum(lo.abs(), hi.abs()) + tol_abs) \
+                | ~alive[:, lo_r:hi_r]
             done = done.all()
             if rows is not None:  # every rank's roots
                 done = comm.all_reduce(done.to(torch.int32), mesh, op=dist.ReduceOp.MIN,

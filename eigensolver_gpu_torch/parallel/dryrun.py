@@ -86,12 +86,19 @@ def _numpy(x):
     return x
 
 
-def _stedc(d, e, **kw):
-    """stedc's eigenpairs and the number of its compact merges."""
+def _stedc(d, e, mesh=None, **kw):
+    """stedc's eigenpairs, the number of its compact merges and the secular
+    sweeps of each merge on every rank of the mesh's 'tp' dimension (one
+    list a rank; the one list of this rank without a mesh)."""
     from eigensolver_gpu_torch.ops.stedc import stedc
 
-    w, q = stedc(d, e, **kw)
-    return w, q, len(stedc.compact)
+    w, q = stedc(d, e, mesh=mesh, **kw)
+    sweeps = [list(stedc.sweeps)]
+    if mesh is not None:
+        group = mesh.get_group("tp")
+        sweeps = [None] * dist.get_world_size(group)
+        dist.all_gather_object(sweeps, list(stedc.sweeps), group=group)
+    return w, q, len(stedc.compact), sweeps
 
 
 def _collectives(mesh):

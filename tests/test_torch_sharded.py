@@ -326,12 +326,16 @@ def test_batch_and_chunk_divisibility_raise_jax_errors(world):
 def test_stedc_under_a_mesh_matches_jax_with_the_full_assembly(world, name):
     """stedc(mesh=make_mesh(4)) at n = 100, leaf 16, against JAX's
     ``stedc(mesh=make_mesh(4))``: no compact merge ran (JAX passes
-    ``compact=mesh is None``), the top merges communicated, and the bars of
-    tests/test_torch_stedc_compact.py against JAX."""
+    ``compact=mesh is None``), the top merges communicated, every rank ran
+    the same secular sweeps (the stop test is an all_reduce of the ranks'
+    done flags, and the deflation mask it reads is the same on every rank),
+    and the bars of tests/test_torch_stedc_compact.py against JAX."""
     d, e = CASES[name][1]
     n = d.shape[0]
-    w, q, n_compact = _out(world, name)
+    w, q, n_compact, sweeps = _out(world, name)
     assert int(n_compact) == 0
+    assert len(sweeps) == WORLD and sweeps[0], sweeps
+    assert all(s == sweeps[0] for s in sweeps), sweeps
     assert world[name]["stages"]["stedc"] > 0
     jw, jq = jax_stedc(d, e, leaf=LEAF, mesh=jax_mesh(4))
     jw, jq = np.asarray(jw), np.asarray(jq)

@@ -1,7 +1,8 @@
 """The port's stedc merge (eigensolver_gpu_torch/ops/stedc.py): JAX's
 deflation-aware ``compact`` assembly and JAX's stop rule for the secular
-iteration, against the JAX package's ``_merge_pair`` and ``stedc`` on the
-CPU in fp64.
+iteration's live lanes (deflated lanes count as done), against the JAX
+package's ``_merge_pair`` and ``stedc`` on the CPU in fp64, and against
+scipy and a run held to the sweep ceiling in fp32 and fp64.
 
 Merges are made to deflate to each of the four gemm buckets: blocks whose
 eigenvectors reach the coupled boundary through k of them only, so 2k
@@ -11,7 +12,9 @@ move roots only inside brackets collapsed to eps), vectors
 phase-insensitively to 1e-10.
 """
 
+import functools
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -215,14 +218,18 @@ def test_batched_stedc_items_in_different_buckets_match_their_solves():
 def test_stop_rule_sweeps(monkeypatch):
     """Every merge stops at or before the ceiling (_secular_iters, 60 in
     fp64), at a multiple of STOP_EVERY when it stops early; a merge whose
-    poles all stay alive stops well before the ceiling (a deflated lane
-    bisects toward its pole and holds a merge at the ceiling); reading the flag after every sweep (JAX's
-    test) gives the same roots to 1e-14."""
+    poles all stay alive stops well before the ceiling, and so does one
+    that deflates (a deflated lane counts as done in the stop test: it
+    bisects toward a pole that is not there and never meets the bracket
+    test, and its root is thrown away); reading the flag after every sweep
+    (JAX's test) gives the same roots to 1e-14."""
     ceiling = _secular_iters(torch.float64)
     d, e = _random(512, 11)
     stedc(torch.tensor(d), torch.tensor(e), leaf=64)
     assert stedc.sweeps and all(0 < s <= ceiling for s in stedc.sweeps)
     assert all(s == ceiling or s % stedc_mod.STOP_EVERY == 0 for s in stedc.sweeps)
+    assert any(a < n2 for n2, alive, _ in stedc.compact for a in alive), stedc.compact
+    assert all(s < ceiling for s in stedc.sweeps), stedc.sweeps
     # one merge of two Laplacian blocks: every pole alive, none bisecting
     n = 128
     d = np.zeros(n)
@@ -233,3 +240,69 @@ def test_stop_rule_sweeps(monkeypatch):
     w1, _ = stedc(torch.tensor(d), torch.tensor(e), leaf=64)
     assert stedc.sweeps[0] <= ceiling // 2
     assert np.abs(w1.numpy() - w4.numpy()).max() < 1e-14 * np.abs(w1.numpy()).max()
+
+
+_DTYPES = {"fp32": (torch.float32, np.float32), "fp64": (torch.float64, np.float64)}
+
+
+@functools.lru_cache(maxsize=None)
+def _early_and_ceiling_runs(name):
+    """stedc on a random tridiagonal at n = 1024, leaf 64, in the named
+    precision: (d, e, (w, q, sweeps, compact) of the stop rule's run, (w, q,
+    sweeps) of a run held to the ceiling: STOP_EVERY above it, so the done
+    flag is read only before sweep 0)."""
+    tdt, ndt = _DTYPES[name]
+    d, e = (x.astype(ndt) for x in _random(1024, 5))
+    w, q = stedc(torch.tensor(d), torch.tensor(e), leaf=64)
+    early = (w.numpy(), q.numpy(), list(stedc.sweeps), list(stedc.compact))
+    with mock.patch.object(stedc_mod, "STOP_EVERY", _secular_iters(tdt) + 1):
+        w, q = stedc(torch.tensor(d), torch.tensor(e), leaf=64)
+        ceiling = (w.numpy(), q.numpy(), list(stedc.sweeps))
+    return d, e, early, ceiling
+
+
+@pytest.mark.parametrize("name", sorted(_DTYPES))
+def test_deflated_lanes_stop_the_secular_iteration_early(name):
+    """A merge that deflates (alive < n2 at a compact merge) no longer runs
+    to the ceiling (35 sweeps in fp32, 60 in fp64): every merge stops by 16
+    sweeps, and the roots and vectors are those of the run held to the
+    ceiling (eigenvalues 1e-14 relative in fp64, 4 ulp of max|w| in fp32;
+    vectors as the batched merges are held, 1e-10 and 1e-5)."""
+    tdt, ndt = _DTYPES[name]
+    _, _, (w, q, sweeps, compact), (wc, qc, sweeps_c) = _early_and_ceiling_runs(name)
+    ceiling = _secular_iters(tdt)
+    assert any(a < n2 for n2, alive, _ in compact for a in alive), compact
+    assert sweeps_c == [ceiling] * len(sweeps), sweeps_c
+    assert sweeps and all(0 < s <= 16 for s in sweeps), sweeps
+    scale = np.abs(wc).max()
+    tol = 1e-14 * scale if tdt == torch.float64 else 4 * np.spacing(ndt(scale))
+    assert np.abs(w - wc).max() <= tol
+    assert compare_vectors(q, qc) < (1e-10 if tdt == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(_DTYPES))
+def test_early_stop_and_ceiling_runs_match_jax_and_scipy(name):
+    """Both runs of the test above against JAX's stedc (which tests every
+    lane's bracket before each sweep) and scipy.linalg.eigh_tridiagonal in
+    fp64, at this file's bars: fp64 eigenvalues within 1e-12 n of max|w|,
+    vectors within 1e-8 where the spectrum is simple, residual and
+    orthogonality at JAX's level; fp32 eigenvalues within 64 eps32 max|w|."""
+    tdt, _ = _DTYPES[name]
+    d, e, early, ceiling = _early_and_ceiling_runs(name)
+    n = d.shape[0]
+    jw, jq = (np.asarray(x) for x in jax_stedc(jnp.asarray(d), jnp.asarray(e), leaf=64))
+    sw, sq = scipy.linalg.eigh_tridiagonal(d.astype(np.float64), e.astype(np.float64))
+    scale = max(np.abs(jw).max(), 1.0)
+    t = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    res = lambda w, q: np.abs(t @ q - q * w).max()
+    for w, q in (early[:2], ceiling[:2]):
+        for rw, rq in ((jw, jq), (sw, sq)):
+            if tdt == torch.float32:
+                assert np.abs(w - rw).max() < 64 * np.finfo(np.float32).eps * np.abs(rw).max()
+                continue
+            assert np.abs(w - rw).max() < 1e-12 * scale * n
+            if np.diff(rw).min() > 1e-6 * scale:
+                assert compare_vectors(q, rq) < 1e-8
+        if tdt == torch.float64:
+            assert res(w, q) < 4 * res(jw, jq) + 1e-13 * scale * n
+            assert np.abs(q.T @ q - np.eye(n)).max() < 1e-11 * n
