@@ -3890,10 +3890,9 @@ def _padded_cases():
     launch, kernels it must not) of the padded phase. Real n = 130 pads to
     160 and planar n = 100 to 128 (nb_tridiag 32). K4 takes the real
     one-stage buckets whose size is a multiple of 512 and K2 the planar ones
-    whose size is a multiple of 256, so neither runs at those sizes (a padded
-    planar solve has n < 128: larger n are multiples of the Cholesky block,
-    128, and need no pad); the real n = 1000 case pads to 1024 and reaches
-    K4."""
+    whose size is a multiple of 256, so neither runs at those sizes (the
+    planar n = 100 pads its pencil to 128 before the Cholesky); the real
+    n = 1000 case pads to 1024 and reaches K4."""
     mp = {"compute_dtype": "float32"}
     two = {"tridiag_mode": "two"}
     real_two = ("ql_panel", "bulge_chase_kernel", "apply_q2_kernel")

@@ -55,11 +55,17 @@ to its fp32 inner solve, one-stage or two-stage, batched or not.
 
 Under ``utils/tracing.py`` the solve is the range ``zhegvdx_planar``, with
 phase 1 in ``potrf``, phase 2 (the inverse of L too, on the ``'trinv'``
-route) in ``to_standard`` and phase 4 in ``back_solve``.
+route) in ``to_standard`` and phase 4 in ``back_solve``. A solve whose n
+is not its padded size (``_padded_size``) pads the pencil
+(``_pad_pencil``): the padding and the raising of the padded diagonal
+before the tridiagonal eigensolve (``_lift_pad``) are the range
+``pad_pencil``, and the counter ``pad.rows`` adds the rows padded, once a
+solve (a batch shares them).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -82,7 +88,7 @@ from eigensolver_gpu_torch.ops.unmtr_planar import unmtr_planar
 from eigensolver_gpu_torch.utils.config import DEFAULT_CONFIG, SolverConfig
 from eigensolver_gpu_torch.utils.convert import planar_from_numpy
 from eigensolver_gpu_torch.utils.precision import highest_precision
-from eigensolver_gpu_torch.utils.tracing import trace_range
+from eigensolver_gpu_torch.utils.tracing import count, trace_range
 
 
 class PlanarResult(NamedTuple):
@@ -100,35 +106,69 @@ def _from_upper_planar(xr, xi):
     return upr + upr.mT + torch.diag_embed(torch.diagonal(xr, dim1=-2, dim2=-1)), upi - upi.mT
 
 
-def _pad_planar(ar, ai, npad):
-    """Pad to npad with decoupled diagonal entries above the spectrum
-    (tightly spaced: wide ramps inflate stedc's fp32 deflation
-    thresholds). The bound is the max row sum, one an item, or 1 where
-    that is 0: JAX's ``+ 1.0`` is left out, as in
-    models/syevdx._pad_decoupled, whose docstring says why (a departure
-    from JAX on padded inputs only)."""
-    n = ar.shape[-1]
-    if npad == n:
-        return ar, ai
-    # one bound an item
-    bound = torch.amax(torch.sum(torch.sqrt(ar * ar + ai * ai), dim=-1), dim=-1)
-    bound = torch.where(bound == 0, torch.ones_like(bound), bound)
-    k = npad - n
-    padvals = bound[..., None] * (
-        2.0 + torch.arange(k, dtype=ar.dtype, device=ar.device) * (1.0 / 256.0)
-    )
-    out_r = torch.zeros(ar.shape[:-2] + (npad, npad), dtype=ar.dtype, device=ar.device)
+def _padded_size(n, nbt):
+    """The size the pipeline runs at: a multiple of ``nb_tridiag``, and
+    past 128 of 128 too, the Cholesky's and the solves' block."""
+    size = -(-n // nbt) * nbt
+    if size > 128:
+        step = math.lcm(128, nbt)
+        size = -(-n // step) * step
+    return size
+
+
+def _pad_pencil(xr, xi, size, diag):
+    """The planar matrix in the top left of size x size planes, ``diag`` on
+    the new diagonal entries and 0 elsewhere: identity for B and zeros for A,
+    so the Cholesky factor of the padded B is exactly block diagonal (L, I)
+    and the padded rows and columns of C = L^{-1} A L^{-H} are exactly 0.
+    The reductions keep that block exactly apart (each reflector is 0 on
+    it), so the tridiagonal matrix is block diagonal too, with a zero
+    trailing block that ``_lift_pad`` raises above the spectrum."""
+    n = xr.shape[-1]
+    out_r = xr.new_zeros(xr.shape[:-2] + (size, size))
     out_i = torch.zeros_like(out_r)
-    out_r[..., :n, :n] = ar
-    out_i[..., :n, :n] = ai
-    idx = torch.arange(n, npad, device=ar.device)
-    out_r[..., idx, idx] = padvals
+    out_r[..., :n, :n] = xr
+    out_i[..., :n, :n] = xi
+    if diag:
+        torch.diagonal(out_r, dim1=-2, dim2=-1)[..., n:] = diag
     return out_r, out_i
 
 
-def _tri_eigh(d, e, cfg):
+def _lift_pad(d, e, n):
+    """(d, e) of a padded pencil's tridiagonal matrix with its rows past n
+    decoupled (e from row n - 1 on set to 0) and their diagonal set just
+    above the spectrum of the first n rows, so they sort last. The bound is
+    the Gershgorin bound of those n rows, one an item, or 1 where it is 0;
+    the pad values lie within 1/16 + k/1024 above it. stedc scales by its
+    largest entry and separates close poles by a multiple of that scale: a
+    pad far above the spectrum (a bound taken from C before the reduction,
+    its max row sum, can lie sqrt(n) times above it; twice the Gershgorin
+    bound left 1 item in 100 at b_orth 1e-11 to 1e-10 after refinement at
+    n = 1478 on an H100) widens that separation against the spectrum. JAX pads C at
+    its max row sum + 1.0, which sets stedc's scale near 2 for a C of small
+    norm; the port departs from JAX there."""
+    k = d.shape[-1] - n
+    rows = d[..., :n].abs()
+    off = e[..., : n - 1].abs()
+    rows[..., 1:] += off
+    rows[..., :-1] += off
+    bound = torch.amax(rows, dim=-1)
+    bound = torch.where(bound == 0, torch.ones_like(bound), bound)
+    padvals = bound[..., None] * (
+        1.0625 + torch.arange(k, dtype=d.dtype, device=d.device) * (1.0 / 1024.0)
+    )
+    return (torch.cat([d[..., :n], padvals], -1),
+            torch.cat([e[..., : n - 1], e.new_zeros(e.shape[:-1] + (k,))], -1))
+
+
+def _tri_eigh(d, e, cfg, n_pencil=None):
     """Tridiagonal eigensolve per cfg.stedc_backend: 'dc' = on-device
-    divide and conquer, 'xla' = dense eigh of the tridiagonal."""
+    divide and conquer, 'xla' = dense eigh of the tridiagonal. ``n_pencil``:
+    the size of a pencil that ``_pad_pencil`` padded, whose padded
+    diagonal is raised first (``_lift_pad``)."""
+    if n_pencil is not None:
+        with trace_range("pad_pencil"):
+            d, e = _lift_pad(d, e, n_pencil)
     if cfg.stedc_backend == "xla":
         return eigh_or_nan(
             torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
@@ -136,11 +176,12 @@ def _tri_eigh(d, e, cfg):
     return stedc(d, e, leaf=cfg.stedc_leaf)
 
 
-def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
+def _two_stage_planar(cr_p, ci_p, il, iu, cfg, n_pencil=None):
     """PHASE 3 by the two-stage reduction: returns (w, (yr, yi)) with the
     eigenvector chain y = Q1 Q2 D z_tri (D from phase_normalize). Leading
     axes of the planes are a batch of problems, reduced together: one panel
-    call a panel step, one chase and one replay for the whole batch."""
+    call a panel step, one chase and one replay for the whole batch.
+    ``n_pencil`` as in ``_tri_eigh``."""
     from eigensolver_gpu_torch.ops.sb2st import dense_to_band
     from eigensolver_gpu_torch.ops.sb2st_planar import (
         apply_q2_planar,
@@ -161,7 +202,7 @@ def _two_stage_planar(cr_p, ci_p, il, iu, cfg):
     else:
         d, (e_r, e_i), vt, taut = bulge_chase_planar(band_r, band_i, band)
     (p_r, p_i), e_abs = phase_normalize(e_r, e_i)
-    w_all, q_tri = _tri_eigh(d, e_abs, cfg)
+    w_all, q_tri = _tri_eigh(d, e_abs, cfg, n_pencil)
     z0 = q_tri[..., il - 1 : iu]
     y0 = (z0 * p_r[..., :, None], z0 * p_i[..., :, None])
     # replay group size: the JAX default, 3*band in fp32 (l_win = 127 at
@@ -192,13 +233,24 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
 
     Leading axes of the four planes are a batch of problems, solved
     together by the one-stage or the two-stage pipeline
-    (``zhegvdx_planar_batched`` is the batched entry point)."""
+    (``zhegvdx_planar_batched`` is the batched entry point).
+
+    Any n >= 1 is solved. An n that is not a multiple of ``nb_tridiag``,
+    or past 128 not a multiple of 128, is padded to the next size that is
+    (``_padded_size``; ``_pad_pencil``: identity in B, zeros in A), the
+    padded block of the tridiagonal matrix is raised above the spectrum
+    before the tridiagonal eigensolve (``_lift_pad``), so no padded pair
+    enters il..iu, and the eigenvectors are cut back to n. JAX raises past
+    128 (its blocked Cholesky needs ``n % 128 == 0``) and pads C alone
+    below it: the port departs from JAX there."""
     n = ar.shape[-1]
     if iu is None:
         iu = n
     if not (1 <= il <= iu <= n):
         raise ValueError(f"require 1 <= il <= iu <= n, got il={il}, iu={iu}, n={n}")
-    nb_chol = min(128, n)
+    nbt = cfg.nb_tridiag
+    npad = _padded_size(n, nbt)
+    nb_chol = min(128, npad)
 
     # UPLO='U' contract: only the upper triangles are read.
     ar, ai = _from_upper_planar(ar, ai)
@@ -242,8 +294,8 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
     trinv_ok = (
         cfg.planar_solve_mode == "trinv"
         and ar.dtype == torch.float32
-        and n % 128 == 0
-        and (n // 128) & (n // 128 - 1) == 0
+        and npad % 128 == 0
+        and (npad // 128) & (npad // 128 - 1) == 0
     )
     if ar.dtype == torch.float32 and cfg.planar_solve_mode != "subst":
         subst = ptrsm_left_lower_inv
@@ -251,6 +303,11 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
         subst = ptrsm_left_lower
 
     with trace_range("zhegvdx_planar"):
+        if npad != n:
+            with trace_range("pad_pencil"):
+                count("pad.rows", npad - n)
+                ar, ai = _pad_pencil(ar, ai, npad, 0.0)
+                br, bi = _pad_pencil(br, bi, npad, 1.0)
         with trace_range("potrf"):
             l, info = pcholesky_lower((br, bi), nb=nb_chol, block_kernel=cfg.mosaic_kernels)
         with trace_range("to_standard"):
@@ -271,25 +328,25 @@ def zhegvdx_planar(ar, ai, br, bi, il=1, iu=None, cfg: SolverConfig = DEFAULT_CO
             ci = (ci - ci.mT) / 2
 
         # PHASE 3: tridiagonalize -> real D&C -> back-transform
-        nbt = cfg.nb_tridiag
-        npad = -(-n // nbt) * nbt
-        cr_p, ci_p = _pad_planar(cr, ci, npad)
+        n_pencil = n if npad != n else None
         if _two_stage_engaged(npad, cfg):
-            w, (yr, yi) = _two_stage_planar(cr_p, ci_p, il, iu, cfg)
+            w, (yr, yi) = _two_stage_planar(cr, ci, il, iu, cfg, n_pencil)
         else:
             (pr, pi), d, e, (taur, taui) = hetrd_planar(
-                cr_p, ci_p, nb=nbt, bucket=128, use_pallas=cfg.use_pallas
+                cr, ci, nb=nbt, bucket=128, use_pallas=cfg.use_pallas
             )
-            w_all, q_tri = _tri_eigh(d, e, cfg)
+            w_all, q_tri = _tri_eigh(d, e, cfg, n_pencil)
             w = w_all[..., il - 1 : iu]
             zr0 = q_tri[..., il - 1 : iu]
             yr, yi = unmtr_planar(pr, pi, taur, taui, zr0, torch.zeros_like(zr0),
                                   nb=cfg.nb_back)
-        yr, yi = yr[..., :n, :], yi[..., :n, :]
 
         # PHASE 4: x = L^{-H} y  (L^H is upper triangular)
         with trace_range("back_solve"):
             zr, zi = solve_u((yr, yi))
+        if npad != n:
+            # L^H is block diagonal: the first n rows of x are the pencil's
+            zr, zi = zr[..., :n, :], zi[..., :n, :]
         return PlanarResult(w=w, zr=zr, zi=zi, info=info)
 
 

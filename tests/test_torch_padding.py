@@ -2,10 +2,11 @@
 ``scipy.linalg.eigh`` on the CPU (no JAX in this file).
 
 A size that is not a multiple of the reduction's block is padded with a
-decoupled diagonal above the spectrum (models/syevdx._pad_decoupled,
-models/zhegvdx_planar._pad_planar). Its values are a multiple of the
-standard-form matrix's max row sum; with JAX's ``+ 1.0`` added to that
-bound, a matrix of norm 1e-6 had pad values near 2 setting stedc's scale,
+decoupled diagonal above the spectrum (models/syevdx._pad_decoupled; the
+planar driver raises its padded block after the reduction,
+models/zhegvdx_planar._lift_pad). Its values are a multiple of the
+standard-form matrix's max row sum (the tridiagonal matrix's Gershgorin
+bound on the planar route); with JAX's ``+ 1.0`` added to that bound, a matrix of norm 1e-6 had pad values near 2 setting stedc's scale,
 and the fp32 deflation threshold swallowed its spectrum: wrong eigenpairs
 with info = 0. The bars are PERF.md's: eigenvalues within 1e-10 of the
 largest selected |lambda|, ``ge_residual`` below 1e-12.
